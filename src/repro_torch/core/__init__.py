@@ -1,0 +1,36 @@
+"""The single-device Sage engine in PyTorch: graph formats, filters,
+edgeMap, the planner and the PSAM cost model."""
+from .backend import GraphLike, dense_block_view, tile_block_view
+from .bucketing import NULL_BUCKET, Buckets, make_buckets
+from .compressed import (
+    ESCAPE,
+    CompressedCSR,
+    compress,
+    decode_block,
+    decode_block_tile,
+    decode_blocks,
+    exception_dense,
+)
+from .convert import from_reference_arrays, to_reference_arrays
+from .csr import DEFAULT_BLOCK_SIZE, CSRGraph, build_csr, sharded_block_counts
+from .edgemap import (
+    edge_map,
+    edge_map_batched,
+    edgemap_chunked,
+    edgemap_chunked_batched_streamed,
+    edgemap_dense,
+    edgemap_dense_batched,
+    edgemap_reduce,
+    edgemap_reduce_batched,
+)
+from .graph_filter import (
+    GraphFilter,
+    edge_active_words,
+    make_filter,
+    pack_bits,
+    unpack_word_bits,
+)
+from .plan import ExecutionPlan, make_plan, round_loop
+from .primitives import compact_mask, monoid_identity, popcount32, segment_reduce
+from .psam import PSAMCost, edgemap_round_read_words
+from .vertex_subset import VertexSubset

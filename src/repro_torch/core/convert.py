@@ -1,0 +1,75 @@
+"""Carrying a graph between the JAX package and the port as numpy arrays.
+
+A graph is this system's "weights": the parity tests build one in the JAX
+package, take ``{field: np.asarray(getattr(g, field))}`` of its dataclass
+fields, and rebuild it here with :func:`from_reference_arrays`, so both
+packages run on the same data.  The port stores uint16 codes and uint32
+words as int16/int32 bit-views; the conversion reinterprets, never rounds.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .compressed import CompressedCSR
+from .csr import CSRGraph
+
+CSR_FIELDS = (
+    "offsets", "block_offsets", "block_src", "edge_src", "edge_dst", "edge_w", "degrees",
+)
+CSR_META = ("n", "m", "num_blocks", "block_size", "weighted")
+COMPRESSED_FIELDS = (
+    "block_first", "deltas", "valid_count", "exc_block", "exc_slot", "exc_value",
+    "block_src", "degrees", "block_weights",
+)
+COMPRESSED_META = (
+    "n", "m", "num_blocks", "block_size", "n_exceptions", "weighted",
+    "exception_dense_hint",
+)
+_BIT_VIEWS = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
+_REFERENCE_VIEWS = {"deltas": np.uint16, "valid_count": np.uint16}
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    view = _BIT_VIEWS.get(a.dtype)
+    if view is not None:
+        a = a.view(view)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def from_reference_arrays(kind: str, arrays: dict, meta: dict, device=None):
+    """The port's ``CSRGraph`` (``kind="csr"``) or ``CompressedCSR``
+    (``kind="compressed"``) from numpy copies of the JAX dataclass fields
+    and its static metadata, placed on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    if kind == "csr":
+        fields, meta_keys, cls = CSR_FIELDS, CSR_META, CSRGraph
+    elif kind == "compressed":
+        fields, meta_keys, cls = COMPRESSED_FIELDS, COMPRESSED_META, CompressedCSR
+    else:
+        raise ValueError(f"kind must be 'csr' or 'compressed', got {kind!r}")
+    data = {
+        f: None if arrays.get(f) is None else _to_tensor(np.asarray(arrays[f]), dev)
+        for f in fields
+    }
+    return cls(**data, **{k: meta[k] for k in meta_keys if k in meta})
+
+
+def to_reference_arrays(g) -> tuple[str, dict, dict]:
+    """``(kind, arrays, meta)`` of a port graph, with the JAX package's
+    dtypes (uint16 codes), the inverse of :func:`from_reference_arrays`."""
+    if isinstance(g, CompressedCSR):
+        kind, fields, meta_keys = "compressed", COMPRESSED_FIELDS, COMPRESSED_META
+    else:
+        kind, fields, meta_keys = "csr", CSR_FIELDS, CSR_META
+    arrays = {}
+    for f in fields:
+        t = getattr(g, f)
+        if t is None:
+            arrays[f] = None
+            continue
+        a = t.cpu().numpy()
+        arrays[f] = a.view(_REFERENCE_VIEWS[f]) if f in _REFERENCE_VIEWS else a
+    return kind, arrays, {k: getattr(g, k) for k in meta_keys}

@@ -1,0 +1,118 @@
+"""PSAM cost accounting (§3) — analytic work/IO counters on the host.
+
+The PSAM charges unit cost for small-memory ops and large-memory reads, ω
+for large-memory writes.  Sage algorithms perform **zero** large-memory
+writes.  These counters model the cost of the algorithm as specified (the
+paper's Table 1), not a measurement.  Every charge is mirrored into the
+metrics registry as ``sage_psam_*_words_total{charge=...}`` counters.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from ..obs import get_registry
+from .csr import sharded_block_counts
+
+
+def _compressed_target_words(g, blocks: int) -> int:
+    """Words read to stream ``blocks`` compressed target blocks: int32 first
+    + uint16 valid count + packed uint16 deltas per block, plus the
+    amortized COO exception triples (§5.1.3 / App. D.1)."""
+    per_block = -(-(4 + 2 + 2 * g.block_size) // 4)  # bytes → words, rounded up
+    exc = 3 * g.n_exceptions * blocks // max(g.num_blocks, 1)
+    return per_block * blocks + exc
+
+
+def _block_read_words(g, blocks: int) -> int:
+    """Words of large memory read to stream ``blocks`` edge blocks:
+    compressed backends at their compressed footprint (weights ride along
+    uncompressed), uncompressed blocks at the flat dst + w words."""
+    if hasattr(g, "compressed_bytes"):
+        words = _compressed_target_words(g, blocks)
+        if getattr(g, "weighted", False):
+            words += g.block_size * blocks
+        return words
+    return 2 * g.block_size * blocks  # dst + w
+
+
+def edgemap_round_read_words(g, num_shards: int = 1) -> int:
+    """Large-memory words one dense edgeMap round reads over ``num_shards``
+    (per-shard block reads, including the empty blocks that pad a
+    non-dividing count)."""
+    _, padded_total = sharded_block_counts(g.num_blocks, num_shards)
+    return _block_read_words(g, padded_total)
+
+
+@dataclasses.dataclass
+class PSAMCost:
+    large_reads: int = 0      # words read from the read-only graph
+    large_writes: int = 0     # words written to large memory (Sage: always 0)
+    small_ops: int = 0        # small-memory reads+writes
+    omega: float = 4.0        # NVRAM write/read cost ratio (paper: ~4x)
+    # where charges are mirrored (None = the process-global default)
+    registry: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    def _charge(self, label: str, reads: int = 0, small: int = 0, writes: int = 0):
+        """Apply one charge's deltas and mirror them into labeled counters."""
+        self.large_reads += reads
+        self.small_ops += small
+        self.large_writes += writes
+        reg = self.registry if self.registry is not None else get_registry()
+        if not reg.enabled:
+            return
+        if reads:
+            reg.counter(
+                "sage_psam_large_read_words_total",
+                "modeled large-memory (NVRAM) words read, by charge kind",
+                labels=("charge",),
+            ).inc(reads, charge=label)
+        if small:
+            reg.counter(
+                "sage_psam_small_ops_words_total",
+                "modeled small-memory (DRAM) words touched, by charge kind",
+                labels=("charge",),
+            ).inc(small, charge=label)
+        if writes:
+            reg.counter(
+                "sage_psam_large_write_words_total",
+                "modeled large-memory words written (Sage: always 0)",
+                labels=("charge",),
+            ).inc(writes, charge=label)
+
+    def charge_edgemap_batched(self, g, batch: int, num_shards: int = 1):
+        """One BATCHED dense edgeMap round serving ``batch`` queries: the
+        edge blocks are read once for the whole batch; the mutable state
+        costs O(batch·n) small-memory words."""
+        self._charge(
+            "edgemap_batched",
+            reads=edgemap_round_read_words(g, num_shards),
+            small=batch * (3 * g.n + (num_shards - 1) * g.n),
+        )
+
+    def charge_edgemap_sparse(
+        self,
+        g,
+        live_blocks: int,
+        *,
+        batch: int = 1,
+        num_shards: int = 1,
+        tile_blocks: int = 1,
+    ):
+        """One frontier-sparse STREAMED edgeMap round (``sparse_streamed``):
+        large-memory bytes for the streamed (live) blocks only, rounded up
+        to whole chunks of ``tile_blocks`` per shard; the compacted live-id
+        list and the O(batch·n) vertex state land in small memory."""
+        tb = max(tile_blocks, 1)
+        per_shard_live = -(-int(live_blocks) // max(num_shards, 1))
+        per_shard_streamed = -(-per_shard_live // tb) * tb
+        self._charge(
+            "edgemap_sparse",
+            reads=_block_read_words(g, per_shard_streamed * num_shards),
+            small=g.num_blocks + batch * (3 * g.n + (num_shards - 1) * g.n),
+        )
+
+    @property
+    def work(self) -> float:
+        """PSAM work: reads unit cost, large writes cost ω."""
+        return self.large_reads + self.small_ops + self.omega * self.large_writes

@@ -1,0 +1,112 @@
+"""The hand-written CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file imports
+neither JAX nor the JAX package, so it runs on a machine that has only
+PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
+
+decode must match exactly; float sums within rtol 1e-5, because the kernel
+adds the slots of a block in a warp-tree order.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
+
+from repro_torch.algorithms import bfs, wbfs
+from repro_torch.core import compress, make_filter, make_plan
+from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
+from repro_torch.data import rmat_graph
+from repro_torch.kernels import compressed_chunked_spmv, compressed_chunked_spmv_ref
+
+SUM_RTOL = 1e-5  # float sums: warp-tree order against a sequential sum
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _graph(fb, weighted, n=512, m=4096, seed=3):
+    return compress(rmat_graph(n, m, weighted=weighted, seed=seed, block_size=fb,
+                               device="cpu"))
+
+
+def _to(c, dev):
+    kind, arrays, meta = to_reference_arrays(c)
+    return from_reference_arrays(kind, arrays, meta, dev)
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("masks", [False, True])
+def test_kernel_matches_plain(cuda, fb, weighted, masks):
+    c = _graph(fb, weighted)
+    gc = _to(c, cuda)
+    rng = np.random.default_rng(fb)
+    NB = c.num_blocks
+    ids = torch.from_numpy(np.concatenate([rng.permutation(NB)[: NB // 2], [NB, NB + 9]])
+                           .astype(np.int32))
+    active = torch.from_numpy(rng.integers(-2**31, 2**31, (NB, fb // 32)).astype(np.int32))
+    bits = make_filter(c).bits
+    ops = dict(bits=bits if masks else None, edge_active=active if masks else None)
+    dev_ops = {k: None if v is None else v.to(cuda) for k, v in ops.items()}
+    common = (c.block_first, c.deltas, c.valid_count)
+    dev_common = (gc.block_first, gc.deltas, gc.valid_count)
+
+    want = compressed_chunked_spmv_ref(None, ids, *common, ops["bits"], ops["edge_active"],
+                                       c.block_weights, n=c.n, emit="decode")
+    got = compressed_chunked_spmv(None, ids.to(cuda), *dev_common, dev_ops["bits"],
+                                  dev_ops["edge_active"], gc.block_weights, n=c.n,
+                                  emit="decode")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+    for x in (torch.rand(c.n), torch.rand(3, c.n),
+              torch.randint(-9, 9, (2, c.n), dtype=torch.int32)):
+        want = compressed_chunked_spmv_ref(x, ids, *common, ops["bits"],
+                                           ops["edge_active"], c.block_weights, n=c.n)
+        got = compressed_chunked_spmv(x.to(cuda), ids.to(cuda), *dev_common,
+                                      dev_ops["bits"], dev_ops["edge_active"],
+                                      gc.block_weights, n=c.n)
+        torch.cuda.synchronize()
+        if x.dtype == torch.int32 and not weighted:
+            assert torch.equal(got.cpu(), want)
+        else:
+            torch.testing.assert_close(got.cpu().float(), want.float(), rtol=SUM_RTOL,
+                                       atol=1e-5)
+
+
+def test_kernel_counts_launches_and_rejects_bad_input(cuda):
+    gc = _to(_graph(32, False), cuda)
+    ids = torch.arange(4, dtype=torch.int32, device=cuda)
+    before = compressed_chunked_spmv.launches
+    compressed_chunked_spmv(None, ids, gc.block_first, gc.deltas, gc.valid_count,
+                            n=gc.n, emit="decode")
+    assert compressed_chunked_spmv.launches == before + 1
+    with pytest.raises(TypeError):
+        compressed_chunked_spmv(None, ids.long(), gc.block_first, gc.deltas,
+                                gc.valid_count, n=gc.n, emit="decode")
+    with pytest.raises(ValueError):
+        compressed_chunked_spmv(None, ids, gc.block_first, gc.deltas[:, :16].contiguous(),
+                                gc.valid_count, n=gc.n, emit="decode")
+    assert compressed_chunked_spmv.launches == before + 1
+
+
+def test_streamed_traversals_match_cpu_route(cuda):
+    c = _graph(64, True, n=1024, m=8192, seed=5)
+    gc = _to(c, cuda)
+    before = compressed_chunked_spmv.launches
+    pc, lc = bfs(c, 3, plan=make_plan(c, strategy="sparse_streamed"))
+    pg, lg = bfs(gc, 3, plan=make_plan(gc, strategy="sparse_streamed"))
+    assert compressed_chunked_spmv.launches > before
+    assert torch.equal(pg.cpu(), pc) and torch.equal(lg.cpu(), lc)
+    dc = wbfs(c, 3, plan=make_plan(c, strategy="sparse_streamed"))
+    dg = wbfs(gc, 3, plan=make_plan(gc, strategy="sparse_streamed"))
+    assert torch.equal(dg.cpu(), dc)
