@@ -3,34 +3,55 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from this checkout, holds it against its
-plain PyTorch version on the card, and drives the port's main path once:
-R-MAT -> compressed CSR -> edgeMap -> BFS / wBFS / PageRank -> QueryEngine.
+Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
+source, all at once), holds each against its plain PyTorch version on the
+card, and drives the port's paths: R-MAT -> compressed CSR -> edgeMap ->
+BFS / wBFS / PageRank -> QueryEngine; the pull SpMV over graph A at full
+width; calibration on the card, and the plan it measures.
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
-   kernel's build time.
-2. Kernel against its plain version on the card, on graph B and on a small
-   graph with a few exceptions: both emits, one query and B=8, weighted and
-   unweighted, with and without masks, and chunks padded with ids >= NB.
-   Decode must match exactly, sums within rtol 1e-5 (the kernel adds a
-   block's slots in a warp-tree order).  Then the device time of the kernel,
-   of its plain version and of a one-call yardstick at the main-path shape.
+   kernels' build time.
+2. Kernel 1 (``compressed_chunked_spmv``) against its plain version on the
+   card, on graph B and on a small graph E with a few exceptions: both
+   emits, one query and B=8, weighted and unweighted, with and without
+   masks, chunks padded with ids >= NB.  Decode must match exactly, sums
+   within rtol 1e-5 (the kernel adds a block's slots in a warp-tree order).
+   Then kernels 2 (``compressed_block_spmv``) and 3 (``edge_block_spmv``)
+   against theirs on graphs B and E: one query and B=8, weighted and
+   unweighted, with and without ``edge_active``, tile_blocks 4/8/16; int32
+   sums exactly, float32 within rtol 1e-5; each batched lane equal to its
+   single run; the patched ops on graph E equal to the CPU route; the
+   compressed and the uncompressed op equal on graph B for int32 x.  Then
+   the device time of each kernel, of its plain version and of a one-call
+   yardstick (cuSPARSE for the SpMVs) at graph B's shape.
 3. Graph A, the full ``sage-graph`` configuration (n=2^20, m=2^24, weighted,
    F_B=128, seed 0): dense PageRank and direction-optimised BFS, checked on
    the card.  The graph is exception-dense, so ``sparse_streamed`` runs the
    plain ``sparse`` path and launches no kernel, as the JAX package does.
+   Then ``spmv_vertex`` over graph A's CSR (kernel 3 at full width), equal to
+   ``compressed_spmv_vertex`` for int32 x, with kernel 3's device time there.
 4. Graph B (n=2^16, m=2^23, weighted, F_B=128, seed 0), which has no
-   exceptions: BFS and wBFS on a ``sparse_streamed`` plan launch the kernel
+   exceptions: BFS and wBFS on a ``sparse_streamed`` plan launch kernel 1
    and equal the CPU route exactly; PageRank with ``eps=0`` and a fixed
    iteration count agrees with the CPU route within atol 1e-6.
 5. Serving: a ``QueryEngine`` on graph B answers 12 BFS and 4 wBFS queries,
    each equal to its single-query run.
-6. The graph tensors of A and B are unchanged (SHA-256 before and after).
+6. Calibration on the card: ``calibrate`` in full mode on the unweighted
+   graph B workload; its tile sweep launches kernel 2.  The table is saved
+   under ``build/``, reloaded and compared.
+7. The measured plan on graph B: BFS and wBFS equal the constants plan's;
+   a ``QueryEngine`` sized by the table answers phase 5's requests, each
+   equal to its single run; batched auto rounds with a flavor crossover on
+   each side of the batch's density run both branches, each lane equal to
+   its single run.
+8. The graph tensors of A and B, compressed and CSR, are unchanged (SHA-256
+   before and after).
 
-Phases 4 and 5 are the main path: the launch count is set to 0 before
-them and read after them.  Any failed check raises and the run exits
-non-zero.  Without a CUDA device, or outside a checkout of the repository,
-the script exits with code 2 and prints no result.
+Each path resets the launch counts just before it and reads them just after:
+phases 4-5 for kernel 1, graph A's ``spmv_vertex`` for kernel 3, phase 6
+for kernel 2.  Any failed check raises and the run exits non-zero.  Without
+a CUDA device, or outside a checkout of the repository, the script exits
+with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -53,14 +74,18 @@ GRAPH_B = (1 << 16, 1 << 23)   # gaps between sorted targets fit 16 bits: no exc
 GRAPH_E = (1 << 17, 1 << 18)   # a few thousand exceptions, under the 4,096 limit
 CHUNK = 256                    # DEFAULT_CHUNK_BLOCKS: ids per launch on the main path
 BATCH = 8
+TILES = (4, 8, 16)             # calibration's tile grid: blocks (warps) per CTA
+TILE = 8                       # DEFAULT_TILE_BLOCKS: the timed launch shape
 SUM_RTOL = 1e-5    # float sums: warp-tree order against a sequential sum
 SUM_ATOL = 1e-6    # the same, for blocks whose sum is near 0
 PR_SUM_TOL = 1e-4  # PageRank mass, float32 over 2^20 scores
 PR_ATOL = 1e-6     # PageRank on B against the CPU route: scores ~1.5e-5, other sum order
 PR_ITERS = 10
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
-KERNEL_SOURCE = "src/repro_torch/kernels/compressed_spmv/csrc/compressed_chunked_spmv.cu"
-KERNEL_REPLACES = "src/repro/kernels/compressed_spmv/compressed_spmv.py:290"
+TABLE_PATH = ROOT / "build" / "chip_smoke_table.json"
+KERNEL_SOURCES = {
+    "compressed": "src/repro_torch/kernels/compressed_spmv/csrc/compressed_spmv.cu",
+    "edge": "src/repro_torch/kernels/edge_block_spmv/csrc/edge_block_spmv.cu",
+}
 
 
 def log(*args):
@@ -95,29 +120,42 @@ def device_ms(fn, *, runs=15, per_run=25):
     return statistics.median(times)
 
 
-def graph_digest(g) -> dict:
-    """SHA-256 of every tensor field of a graph, read back to the host."""
+def graph_digest(*graphs) -> dict:
+    """SHA-256 of every tensor field of the graphs, read back to the host."""
     import torch
 
     out = {}
-    for f in dataclasses.fields(g):
-        v = getattr(g, f.name)
-        if isinstance(v, torch.Tensor):
-            out[f.name] = hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+    for i, g in enumerate(graphs):
+        for f in dataclasses.fields(g):
+            v = getattr(g, f.name)
+            if isinstance(v, torch.Tensor):
+                out[(i, f.name)] = hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
     return out
 
 
-def build_graph(n, m, device):
-    """(host copy, device copy, seconds) of the weighted R-MAT graph, built
-    and compressed on the host, then moved to the card."""
+@dataclasses.dataclass
+class Graph:
+    """One R-MAT graph: compressed on the host and on the card, and its
+    blocked CSR on the card."""
+
+    host: object
+    dev: object
+    csr: object
+    seconds: float
+
+
+def build_graph(n, m, device) -> Graph:
+    """The weighted R-MAT graph, built and compressed on the host, then moved
+    to the card with its CSR."""
     from repro_torch.core import compress, from_reference_arrays, to_reference_arrays
     from repro_torch.data import rmat_graph
 
     t0 = time.perf_counter()
-    host = compress(rmat_graph(n, m, weighted=True, seed=SEED, block_size=BLOCK,
-                               device="cpu"))
+    csr = rmat_graph(n, m, weighted=True, seed=SEED, block_size=BLOCK, device="cpu")
+    host = compress(csr)
     dev = from_reference_arrays(*to_reference_arrays(host), device)
-    return host, dev, time.perf_counter() - t0
+    csr_dev = from_reference_arrays(*to_reference_arrays(csr), device)
+    return Graph(host, dev, csr_dev, time.perf_counter() - t0)
 
 
 def sources(g, k, seed):
@@ -129,8 +167,20 @@ def sources(g, k, seed):
                                                                replace=False)]
 
 
+def sums_err(got, want, exact, what):
+    """Check kernel sums against the plain version's; returns max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if exact:
+        check(torch.equal(got, want), f"{what}: int32 sums differ")
+        return 0.0
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL, msg=what)
+    return float((got.double() - want.double()).abs().max())
+
+
 # ----------------------------------------------------------------------
-# phase 2: the kernel against its plain version
+# phase 2: the kernels against their plain versions
 # ----------------------------------------------------------------------
 def chunk_ids(g, rng, live, pad):
     """A sorted chunk of ``live`` distinct block ids, then ``pad`` ids >= NB."""
@@ -143,7 +193,26 @@ def chunk_ids(g, rng, live, pad):
     return torch.from_numpy(ids).to(g.device)
 
 
-def compare_kernel(g, rng, stats):
+def test_inputs(g, rng):
+    """Packed random ``edge_active`` words and the x cases, on the card."""
+    import torch
+
+    n, NB, FB = g.n, g.num_blocks, g.block_size
+    gen = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 31)))
+    active = torch.randint(-2**31, 2**31, (NB, FB // 32), dtype=torch.int32,
+                           generator=gen).to(g.device)
+    xs = {
+        "x f32 (n,)": torch.rand(n, generator=gen).to(g.device),
+        f"x f32 ({BATCH}, n)": torch.rand(BATCH, n, generator=gen).to(g.device),
+        "x i32 (n,)": torch.randint(-9, 10, (n,), dtype=torch.int32,
+                                    generator=gen).to(g.device),
+        f"x i32 ({BATCH}, n)": torch.randint(-9, 10, (BATCH, n), dtype=torch.int32,
+                                            generator=gen).to(g.device),
+    }
+    return active, xs
+
+
+def compare_chunked_kernel(g, rng, stats):
     """Every case of ``compressed_chunked_spmv`` against the plain version on
     the same device tensors.  Returns the largest absolute difference."""
     import torch
@@ -151,20 +220,11 @@ def compare_kernel(g, rng, stats):
     from repro_torch.core import make_filter
     from repro_torch.kernels import compressed_chunked_spmv, compressed_chunked_spmv_ref
 
-    n, NB, FB = g.n, g.num_blocks, g.block_size
-    dev = g.device
+    n = g.n
     ids = chunk_ids(g, rng, CHUNK - 16, 16)
-    gen = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 31)))
-    active = torch.randint(-2**31, 2**31, (NB, FB // 32), dtype=torch.int32,
-                           generator=gen).to(dev)
+    active, xs = test_inputs(g, rng)
     masks = {"none": (None, None), "active": (None, active),
              "bits+active": (make_filter(g).bits, active)}
-    xs = {
-        "x f32 (n,)": torch.rand(n, generator=gen).to(dev),
-        f"x f32 ({BATCH}, n)": torch.rand(BATCH, n, generator=gen).to(dev),
-        f"x i32 ({BATCH}, n)": torch.randint(-9, 10, (BATCH, n), dtype=torch.int32,
-                                            generator=gen).to(dev),
-    }
     err = 0.0
     for weights in (g.block_weights, None):
         for mname, (bits, act) in masks.items():
@@ -174,43 +234,116 @@ def compare_kernel(g, rng, stats):
             torch.cuda.synchronize()
             check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                   f"decode differs (weighted={weights is not None}, masks={mname})")
-            stats["cases"] += 1
+            stats["chunked"] += 1
             for xname, x in xs.items():
                 got = compressed_chunked_spmv(x, *args, n=n, emit="sums")
                 want = compressed_chunked_spmv_ref(x, *args, n=n, emit="sums")
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
-                err = max(err, float((got.double() - want.double()).abs().max()))
-                stats["cases"] += 1
+                exact = x.dtype == torch.int32 and weights is None
+                err = max(err, sums_err(got, want, exact, f"chunked sums {xname} {mname}"))
+                stats["chunked"] += 1
     return err
 
 
-def compare_patched_paths(g_host, g_dev, rng):
+def compare_whole_graph_kernels(G, rng, stats):
+    """Kernels 2 and 3 against their plain versions over every block of one
+    graph, for every tile in TILES; each batched lane against its single
+    run.  Returns the largest absolute differences (kernel 2, kernel 3)."""
+    import torch
+
+    from repro_torch.core import make_filter
+    from repro_torch.kernels import (
+        compressed_block_spmv,
+        compressed_block_spmv_ref,
+        edge_block_spmv,
+        edge_block_spmv_ref,
+    )
+
+    c, csr = G.dev, G.csr
+    n = c.n
+    active, xs = test_inputs(c, rng)
+    bits = make_filter(c).bits
+    err = {2: 0.0, 3: 0.0}
+
+    def against_plain(k, kernel, plain, x, args, what):
+        exact = x.dtype == torch.int32
+        want = plain(x, *args, n=n)
+        for tb in TILES:
+            got = kernel(x, *args, n=n, tile_blocks=tb)
+            err[k] = max(err[k], sums_err(got, want, exact, f"{what} TB={tb}"))
+            stats[f"kernel {k}"] += 1
+        for q in range(x.shape[0] if x.dim() == 2 else 0):
+            single = kernel(x[q].contiguous(), *args, n=n)
+            err[k] = max(err[k], sums_err(got[:, q].contiguous(), single, exact,
+                                          f"{what} lane {q} against its single run"))
+
+    for act in (None, active):
+        for xname, x in xs.items():
+            for weights in (c.block_weights, None):
+                against_plain(2, compressed_block_spmv, compressed_block_spmv_ref, x,
+                              (c.block_first, c.deltas, c.valid_count, bits, act, weights),
+                              f"kernel 2 {xname} weighted={weights is not None} "
+                              f"active={act is not None}")
+            against_plain(3, edge_block_spmv, edge_block_spmv_ref, x,
+                          (csr.block_dst, csr.block_w, bits, act),
+                          f"kernel 3 {xname} active={act is not None}")
+    return err[2], err[3]
+
+
+def compare_patched_paths(G, rng):
     """The exception-patching wrappers on the card against the CPU route."""
     import torch
 
-    from repro_torch.kernels import compressed_chunked_stream_tile, compressed_spmv_vertex_chunked
+    from repro_torch.kernels import (
+        compressed_chunked_stream_tile,
+        compressed_spmv_vertex,
+        compressed_spmv_vertex_batched,
+        compressed_spmv_vertex_chunked,
+    )
 
-    ids = chunk_ids(g_host, rng, CHUNK - 16, 16)
-    got = compressed_chunked_stream_tile(g_dev, ids.to(g_dev.device))
-    want = compressed_chunked_stream_tile(g_host, ids)
+    h, g = G.host, G.dev
+    ids = chunk_ids(h, rng, CHUNK - 16, 16)
+    got = compressed_chunked_stream_tile(g, ids.to(g.device))
+    want = compressed_chunked_stream_tile(h, ids)
     check(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]),
           "compressed_chunked_stream_tile differs from the CPU route")
-    frontier = torch.from_numpy(rng.random(g_host.n) < 0.02)
-    x = torch.rand(g_host.n, generator=torch.Generator().manual_seed(1))
-    got = compressed_spmv_vertex_chunked(g_dev, x.to(g_dev.device), frontier.to(g_dev.device))
-    want = compressed_spmv_vertex_chunked(g_host, x, frontier)
-    torch.testing.assert_close(got.cpu(), want, rtol=SUM_RTOL, atol=SUM_ATOL)
-    return float((got.cpu().double() - want.double()).abs().max())
+    frontier = torch.from_numpy(rng.random(h.n) < 0.02)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(h.n, generator=gen)
+    got = compressed_spmv_vertex_chunked(g, x.to(g.device), frontier.to(g.device))
+    want = compressed_spmv_vertex_chunked(h, x, frontier)
+    err = sums_err(got.cpu(), want, False, "compressed_spmv_vertex_chunked")
+    for x in (torch.rand(h.n, generator=gen), torch.rand(BATCH, h.n, generator=gen),
+              torch.randint(-9, 10, (h.n,), dtype=torch.int32, generator=gen),
+              torch.randint(-9, 10, (BATCH, h.n), dtype=torch.int32, generator=gen)):
+        fn = compressed_spmv_vertex_batched if x.dim() == 2 else compressed_spmv_vertex
+        got = fn(g, x.to(g.device))
+        err = max(err, sums_err(got.cpu(), fn(h, x), x.dtype == torch.int32,
+                                f"{fn.__name__} on graph E"))
+    return err
 
 
-def time_kernel(g, rng):
-    """Device ms of the kernel, its plain version and a one-call yardstick at
+def cross_check_backends(G, rng):
+    """``compressed_spmv_vertex`` and ``spmv_vertex`` over the same edges in
+    the same blocks: equal for int32 x."""
+    import torch
+
+    from repro_torch.kernels import compressed_spmv_vertex, spmv_vertex
+
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 31)))
+    x = torch.randint(-9, 10, (G.dev.n,), dtype=torch.int32, generator=gen).to(G.dev.device)
+    a, b = compressed_spmv_vertex(G.dev, x), spmv_vertex(G.csr, x)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "compressed_spmv_vertex != spmv_vertex for int32 x")
+
+
+def time_chunked_kernel(g, rng):
+    """Device ms of kernel 1, its plain version and a one-call yardstick at
     the main-path shape (one chunk of CHUNK live ids, F_B=128, weighted,
     decode), and the bytes-bound ms for the same inputs."""
     import torch
 
     from repro_torch.kernels import compressed_chunked_spmv, compressed_chunked_spmv_ref
+    from repro_torch.tuning import HBM_BYTES_PER_S
 
     ids = chunk_ids(g, rng, CHUNK, 0)
     args = (ids, g.block_first, g.deltas, g.valid_count, None, None, g.block_weights)
@@ -223,12 +356,99 @@ def time_kernel(g, rng):
     yardstick_ms = device_ms(
         lambda: torch.cumsum(deltas.index_select(0, ids), dim=1, dtype=torch.int32))
     FB, C = g.block_size, ids.numel()
-    live = int((ids < g.num_blocks).sum())
-    read = 4 * C + live * (4 + 2 * FB + 2 + 4 * FB)   # ids; first, deltas, count, weights
-    write = C * FB * (4 + 4)                          # dst, w
+    vc = (g.valid_count[ids.long()].to(torch.int64) & 0xFFFF)
+    read = 4 * C + int(C * (4 + 2 + 4 * FB) + 2 * vc.sum())  # ids; first, count, w; deltas
+    write = C * FB * (4 + 4)                                 # dst, w
     bound_ms = (read + write) / HBM_BYTES_PER_S * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, yardstick_ms=yardstick_ms, bound_ms=bound_ms,
-                bytes=read + write)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, yardstick_ms=yardstick_ms,
+                bound_ms=bound_ms, bytes=read + write)
+
+
+def cusparse_matrix(csr):
+    """graph's adjacency as a torch sparse CSR matrix: the yardstick of the
+    pull SpMVs (cuSPARSE), never used by the port."""
+    import torch
+
+    valid = csr.edge_dst < csr.n
+    crow = torch.zeros(csr.n + 1, dtype=torch.int64, device=csr.device)
+    crow[1:] = torch.cumsum(csr.degrees.to(torch.int64), 0)
+    return torch.sparse_csr_tensor(crow, csr.edge_dst[valid].to(torch.int64),
+                                   csr.edge_w[valid], size=(csr.n, csr.n))
+
+
+def spmv_bytes(g, B, kind):
+    """Bytes the whole-graph kernel must move on graph ``g`` for a (B, n)
+    float32 x: each input read once, each output written once.
+
+    kernel 2 reads, per block, its first target and valid count, the deltas
+    and weights of its valid slots (a lane loads no slot past the valid
+    count) and the filter words covering them; kernel 3 reads whole rows of
+    targets and weights (it learns which slots are real from the targets)
+    and every filter word."""
+    import torch
+
+    NB, FB = g.num_blocks, g.block_size
+    vec = (g.n * 4 + NB * 4) * B                             # x once; out once
+    if kind == "compressed":
+        vc = g.valid_count.to(torch.int64) & 0xFFFF
+        slots = int(vc.sum())
+        words = int(((vc + 31) // 32).sum())
+        w = 4 * slots if g.weighted else 0
+        return NB * (4 + 2) + 2 * slots + w + 4 * words + vec
+    return NB * FB * (4 + 4) + NB * (FB // 32) * 4 + vec
+
+
+def time_whole_graph_kernels(G):
+    """Device ms of kernels 2 and 3 on graph ``G`` (F_B=128, weighted, the
+    filter bits, tile TILE), one query and B=8, beside their plain versions,
+    cuSPARSE (``A @ x``, ``A @ X``) and the bytes bound."""
+    import torch
+
+    from repro_torch.core import make_filter
+    from repro_torch.kernels import (
+        compressed_block_spmv,
+        compressed_block_spmv_ref,
+        edge_block_spmv,
+        edge_block_spmv_ref,
+    )
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    c, csr = G.dev, G.csr
+    bits = make_filter(c).bits
+    A = cusparse_matrix(csr)
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for B in (1, BATCH):
+        x = (torch.rand(c.n, generator=gen) if B == 1
+             else torch.rand(B, c.n, generator=gen)).to(c.device)
+        xt = x[:, None] if B == 1 else x.T.contiguous()      # (n, B) for A @ X
+        lib = device_ms(lambda: A @ xt)
+        a2 = (c.block_first, c.deltas, c.valid_count, bits, None, c.block_weights)
+        a3 = (csr.block_dst, csr.block_w, bits, None)
+        out[("compressed", B)] = dict(
+            ms=device_ms(lambda: compressed_block_spmv(x, *a2, n=c.n, tile_blocks=TILE)),
+            plain_ms=device_ms(lambda: compressed_block_spmv_ref(x, *a2, n=c.n), runs=5,
+                               per_run=3),
+            library_ms=lib,
+            bound_ms=spmv_bytes(c, B, "compressed") / HBM_BYTES_PER_S * 1e3,
+        )
+        out[("edge", B)] = dict(
+            ms=device_ms(lambda: edge_block_spmv(x, *a3, n=c.n, tile_blocks=TILE)),
+            plain_ms=device_ms(lambda: edge_block_spmv_ref(x, *a3, n=c.n), runs=5,
+                               per_run=3),
+            library_ms=lib,
+            bound_ms=spmv_bytes(csr, B, "edge") / HBM_BYTES_PER_S * 1e3,
+        )
+    return out
+
+
+def log_times(tag, times):
+    for (kind, B), t in sorted(times.items()):
+        name = "kernel 2 compressed_block_spmv" if kind == "compressed" else \
+            "kernel 3 edge_block_spmv"
+        log(f"[{tag}] {name} B={B} TB={TILE}: kernel {t['ms']!r} ms, plain "
+            f"{t['plain_ms']!r} ms, cuSPARSE {t['library_ms']!r} ms, bound "
+            f"{t['bound_ms']!r} ms")
 
 
 # ----------------------------------------------------------------------
@@ -268,6 +488,32 @@ def check_bfs_tree(g, src, parents, levels):
     return int(reached.sum()), int(levels.max())
 
 
+def serve(engine, reqs, plan):
+    """Serve ``reqs``; check each result against its single run on ``plan``;
+    returns (seconds, kernel 1 launches)."""
+    import torch
+
+    from repro_torch.algorithms import bfs, wbfs
+    from repro_torch.kernels import compressed_chunked_spmv
+
+    g = engine.graph
+    before = compressed_chunked_spmv.launches
+    ts = time.perf_counter()
+    results = engine.serve(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - ts
+    launches = compressed_chunked_spmv.launches - before
+    for (op, params), res in zip(reqs, results):
+        if op == "bfs":
+            want = bfs(g, params["src"], plan=plan)
+            check(torch.equal(res[0], want[0]) and torch.equal(res[1], want[1]),
+                  f"engine BFS from {params['src']} differs from its single run")
+        else:
+            check(torch.equal(res, wbfs(g, params["src"], plan=plan)),
+                  f"engine wBFS from {params['src']} differs from its single run")
+    return secs, launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}: run it from a "
@@ -281,7 +527,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels.build import build_all
-    from repro_torch.kernels.compressed_spmv.compressed_spmv import SOURCE
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -293,8 +538,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build_all([SOURCE])
-    log(f"[1] kernel build (nvcc, sm_90a): {time.perf_counter() - t0:.1f} s")
+    build_all([ROOT / s for s in KERNEL_SOURCES.values()])
+    log(f"[1] kernel build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = drive(dev)
     log(json.dumps({"kernels": kernels}))
@@ -305,46 +551,69 @@ def main() -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 6 on ``dev``; returns the kernels' records."""
+    """Phases 2 to 8 on ``dev``; returns the kernels' records."""
     import numpy as np
     import torch
 
     from repro_torch.algorithms import bfs, pagerank, wbfs
-    from repro_torch.core import exception_dense, make_plan
-    from repro_torch.kernels import compressed_chunked_spmv
+    from repro_torch.core import edgemap_reduce, edgemap_reduce_batched, exception_dense
+    from repro_torch.core import make_plan
+    from repro_torch.kernels import (
+        compressed_block_spmv,
+        compressed_chunked_spmv,
+        compressed_spmv_vertex,
+        edge_block_spmv,
+        spmv_vertex,
+    )
     from repro_torch.serving import QueryEngine
+    from repro_torch.tuning import HBM_BYTES_PER_S, TuningTable, calibrate
 
     wall = {}
     # graphs: built on the host, moved to the card ---------------------
     t0 = time.perf_counter()
-    hB, gB, sB = build_graph(*graph_b, dev)
+    B_ = build_graph(*graph_b, dev)
+    gB, hB = B_.dev, B_.host
     log(f"graph B: n={gB.n} m={gB.m} NB={gB.num_blocks} exceptions={gB.n_exceptions} "
-        f"exception_dense={exception_dense(gB)} built in {sB:.1f} s")
+        f"exception_dense={exception_dense(gB)} built in {B_.seconds:.1f} s")
     check(not exception_dense(gB), "graph B must stream through the kernel")
-    hE, gE, sE = build_graph(*graph_e, dev)
+    E_ = build_graph(*graph_e, dev)
+    gE = E_.dev
     log(f"graph E: n={gE.n} m={gE.m} NB={gE.num_blocks} exceptions={gE.n_exceptions} "
-        f"exception_dense={exception_dense(gE)} built in {sE:.1f} s")
+        f"exception_dense={exception_dense(gE)} built in {E_.seconds:.1f} s")
     check(0 < gE.n_exceptions and not exception_dense(gE), "graph E: a few exceptions")
-    _, gA, sA = build_graph(*graph_a, dev)
+    A_ = build_graph(*graph_a, dev)
+    gA = A_.dev
     log(f"graph A: n={gA.n} m={gA.m} NB={gA.num_blocks} exceptions={gA.n_exceptions} "
-        f"exception_dense={exception_dense(gA)} built in {sA:.1f} s")
-    digests = {"A": graph_digest(gA), "B": graph_digest(gB)}
+        f"exception_dense={exception_dense(gA)} built in {A_.seconds:.1f} s")
+    digests = graph_digest(gA, A_.csr, gB, B_.csr)
     wall["graphs"] = time.perf_counter() - t0
 
-    # 2. the kernel against its plain version --------------------------
+    # 2. the kernels against their plain versions ----------------------
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    stats = {"cases": 0}
-    err = max(compare_kernel(gB, rng, stats), compare_kernel(gE, rng, stats))
-    err = max(err, compare_patched_paths(hE, gE, rng))
-    timing = time_kernel(gB, rng)
-    log(f"[2] kernel == plain on the card in {stats['cases']} cases (decode exact, sums "
-        f"rtol {SUM_RTOL}); max abs err {err!r}; {compressed_chunked_spmv.launches} launches")
-    log(f"[2] main-path shape C={CHUNK} F_B={BLOCK} weighted decode, device time: kernel "
-        f"{timing['ms']!r} ms, plain {timing['plain_ms']!r} ms, yardstick (index_select + "
-        f"cumsum) {timing['yardstick_ms']!r} ms, bound {timing['bound_ms']!r} ms "
-        f"({timing['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
-    wall["kernel"] = time.perf_counter() - t0
+    stats = {"chunked": 0, "kernel 2": 0, "kernel 3": 0}
+    err1 = max(compare_chunked_kernel(gB, rng, stats), compare_chunked_kernel(gE, rng, stats))
+    err2 = err3 = 0.0
+    for G in (B_, E_):
+        e2, e3 = compare_whole_graph_kernels(G, rng, stats)
+        err2, err3 = max(err2, e2), max(err3, e3)
+    err_patched = compare_patched_paths(E_, rng)
+    cross_check_backends(B_, rng)
+    timing1 = time_chunked_kernel(gB, rng)
+    times_b = time_whole_graph_kernels(B_)
+    log(f"[2] kernel 1 == plain on the card in {stats['chunked']} cases (decode exact, sums "
+        f"rtol {SUM_RTOL}); max abs err {err1!r}")
+    log(f"[2] kernel 2 == plain in {stats['kernel 2']} cases, kernel 3 == plain in "
+        f"{stats['kernel 3']} cases (int32 exact, float32 rtol {SUM_RTOL}); max abs err "
+        f"{err2!r} / {err3!r}; batched lanes equal single runs; patched ops on graph E "
+        f"equal the CPU route (max abs err {err_patched!r}); compressed_spmv_vertex == "
+        "spmv_vertex on graph B for int32 x")
+    log(f"[2] kernel 1 at C={CHUNK} F_B={BLOCK} weighted decode, device time: kernel "
+        f"{timing1['ms']!r} ms, plain {timing1['plain_ms']!r} ms, yardstick (index_select + "
+        f"cumsum) {timing1['yardstick_ms']!r} ms, bound {timing1['bound_ms']!r} ms "
+        f"({timing1['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    log_times("2 graph B", times_b)
+    wall["kernels"] = time.perf_counter() - t0
 
     # 3. graph A: the full configuration -------------------------------
     t0 = time.perf_counter()
@@ -356,7 +625,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     check(abs(mass - 1.0) < PR_SUM_TOL and iters < 100 and bool(torch.isfinite(pr).all()),
           f"graph A PageRank: mass {mass}, {iters} iterations")
     log(f"[3] graph A PageRank: {iters} iterations, mass {mass:.7f}")
-    srcs_a = sources(gA, 4, SEED)
+    srcs_a = sources(gA, 2, SEED)
     first = None
     for s in srcs_a:
         parents, levels = bfs(gA, s, plan=plan_a)
@@ -368,8 +637,25 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
           "graph A: the sparse_streamed BFS differs from the auto BFS")
     launches_a = compressed_chunked_spmv.launches - before
     log(f"[3] graph A is exception-dense ({gA.n_exceptions} exceptions over the "
-        f"limit): sparse_streamed runs plain sparse; kernel launches {launches_a}")
-    check(exception_dense(gA) and launches_a == 0, "graph A must not launch the kernel")
+        f"limit): sparse_streamed runs plain sparse; kernel 1 launches {launches_a}")
+    check(exception_dense(gA) and launches_a == 0, "graph A must not launch kernel 1")
+    # the pull SpMV at full width (kernel 3's path)
+    x = torch.randint(-9, 10, (gA.n,), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(4)).to(dev)
+    edge_block_spmv.launches = 0
+    ts = time.perf_counter()
+    got = spmv_vertex(A_.csr, x)
+    torch.cuda.synchronize()
+    spmv_a_s = time.perf_counter() - ts
+    launches3 = edge_block_spmv.launches
+    want = compressed_spmv_vertex(gA, x)   # exception-dense: the exact plain decode
+    check(torch.equal(got, want), "graph A: spmv_vertex != compressed_spmv_vertex (int32 x)")
+    check(launches3 > 0, "spmv_vertex on graph A did not launch kernel 3")
+    times_a = time_whole_graph_kernels(A_)
+    log(f"[3] graph A spmv_vertex (kernel 3 over {A_.csr.num_blocks} blocks, "
+        f"{A_.csr.m} edges): equals compressed_spmv_vertex for int32 x; {launches3} "
+        f"launches; host wall {spmv_a_s:.4f} s")
+    log_times("3 graph A", times_a)
     wall["graph A"] = time.perf_counter() - t0
 
     # 4. graph B: the kernel path (main path starts) --------------------
@@ -408,47 +694,141 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     engine = QueryEngine(gB, plan=plan_b, max_batch=8)
     reqs = [("bfs", {"src": s}) for s in srcs_b[2:14]] + [("wbfs", {"src": s})
                                                         for s in srcs_b[14:18]]
-    before = compressed_chunked_spmv.launches
-    ts = time.perf_counter()
-    results = engine.serve(reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - ts
-    serve_launches = compressed_chunked_spmv.launches - before
+    serve_s, serve_launches = serve(engine, reqs, plan_b)
     check(serve_launches > 0, "the engine did not launch the kernel")
-    for (op, params), res in zip(reqs, results):
-        if op == "bfs":
-            want = bfs(gB, params["src"], plan=plan_b)
-            check(torch.equal(res[0], want[0]) and torch.equal(res[1], want[1]),
-                  f"engine BFS from {params['src']} differs from its single run")
-        else:
-            check(torch.equal(res, wbfs(gB, params["src"], plan=plan_b)),
-                  f"engine wBFS from {params['src']} differs from its single run")
     main_launches = compressed_chunked_spmv.launches
     log(f"[5] engine: {len(reqs)} queries in {serve_s:.3f} s = {len(reqs) / serve_s:.2f} "
         f"queries/s, occupancy {engine.occupancy:.3f}, stats {engine.stats}, "
         f"kernel launches {serve_launches}; every result equals its single run")
+    check(main_launches > 0, "the main path did not launch kernel 1")
     wall["serving"] = time.perf_counter() - t0
 
-    # 6. large memory is never written ---------------------------------
-    check(graph_digest(gA) == digests["A"] and graph_digest(gB) == digests["B"],
-          "a graph tensor changed")
-    log("[6] graph A and B tensors unchanged (SHA-256)")
-    log("wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
-    check(main_launches > 0, "the main path did not launch the kernel")
+    # 6. calibration on the card (kernel 2's path) ----------------------
+    t0 = time.perf_counter()
+    compressed_block_spmv.launches = 0
+    chunked_before = compressed_chunked_spmv.launches
+    table = calibrate(n=graph_b[0], m=graph_b[1], block_size=BLOCK, seed=SEED, quick=False,
+                      device=dev)
+    calib_s = time.perf_counter() - t0
+    launches2 = compressed_block_spmv.launches
+    check(launches2 > 0, "calibration did not launch kernel 2")
+    TABLE_PATH.parent.mkdir(parents=True, exist_ok=True)
+    table.save(str(TABLE_PATH))
+    again = TuningTable.load(str(TABLE_PATH))
+    check(again.to_dict() == json.loads(table.dumps()), "the table does not round-trip")
+    log(f"[6] calibrate(n={graph_b[0]}, m={graph_b[1]}, full) on {table.host_key} "
+        f"({table.hardware}) in {calib_s:.1f} s: kernel 2 launches {launches2}, kernel 1 "
+        f"launches {compressed_chunked_spmv.launches - chunked_before}; saved to "
+        f"{TABLE_PATH.relative_to(ROOT)} and reloaded equal")
+    for backend in table.backends():
+        d = table.decide(backend)
+        log(f"[6]   {backend}: crossover_density {d.crossover_density!r}, dense_frac "
+            f"{d.dense_frac!r}, dense_frac_batched {d.dense_frac_batched!r}, chunk_blocks "
+            f"{d.chunk_blocks}, auto_sparse {d.auto_sparse}, auto_sparse_batched "
+            f"{d.auto_sparse_batched}, batched_flavor_crossover "
+            f"{d.batched_flavor_crossover!r}, max_batch {d.max_batch}, tile_blocks "
+            f"{d.tile_blocks}")
+    log(f"[6]   tile sweep: {table.to_dict()['backends']['compressed']['tile_sweep']}")
+    wall["calibration"] = calib_s
 
-    return [{
-        "name": "compressed_chunked_spmv",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": main_launches,
-        "max_abs_err": err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,  # no one PyTorch call computes this decode
-    }]
+    # 7. the measured plan on the main path ----------------------------
+    t0 = time.perf_counter()
+    plan_m = make_plan(gB, tuning=table)
+    plan_c = make_plan(gB, tuning=None)
+    check(plan_m.decisions.source == "measured", "the measured plan is not measured")
+    for s in srcs_b[:2]:
+        pm, lm = bfs(gB, s, plan=plan_m)
+        pc, lc = bfs(gB, s, plan=plan_c)
+        check(torch.equal(pm, pc) and torch.equal(lm, lc),
+              f"BFS from {s}: measured plan differs from the constants plan")
+        check(torch.equal(wbfs(gB, s, plan=plan_m), wbfs(gB, s, plan=plan_c)),
+              f"wBFS from {s}: measured plan differs from the constants plan")
+    engine_m = QueryEngine(gB, plan=plan_m)
+    check(engine_m.max_batch == table.max_batch("compressed"), "max_batch not from the table")
+    serve_m_s, serve_m_launches = serve(engine_m, reqs, plan_m)
+    log(f"[7] measured plan {plan_m.tuning_key}: BFS and wBFS from {srcs_b[:2]} equal the "
+        f"constants plan's; engine (max_batch {engine_m.max_batch} from the table) "
+        f"{len(reqs)} queries in {serve_m_s:.3f} s = {len(reqs) / serve_m_s:.2f} queries/s "
+        f"(phase 5, constants sparse_streamed plan: {len(reqs) / serve_s:.2f}), "
+        f"stats {engine_m.stats}, kernel 1 launches {serve_m_launches}; every result "
+        "equals its single run")
+    # both flavors of batched auto's sparse branch, around the batch's density
+    deg = gB.degrees.cpu().numpy()
+    masks = np.stack([np.random.default_rng(SEED + q).random(gB.n) < 0.002
+                      for q in range(BATCH)])
+    masks[:, srcs_b[0]] = True
+    mean = float(np.sum(np.where(masks, deg, 0))) / (BATCH * gB.m)
+    fm = torch.from_numpy(masks).to(dev)
+    xb = torch.arange(gB.n, dtype=torch.int32, device=dev).expand(BATCH, gB.n).contiguous()
+    singles = [edgemap_reduce(gB, fm[q], xb[q], monoid="min", plan=plan_m)
+               for q in range(BATCH)]
+    branch = {}
+    for side, crossover in (("streamed", 2 * mean), ("per-lane", mean / 2)):
+        before = compressed_chunked_spmv.launches
+        # dense_frac=1 keeps the round on the sparse branch whatever the
+        # measured threshold, so the flavor switch is what runs
+        out, touched = edgemap_reduce_batched(gB, fm, xb, monoid="min", plan=plan_m,
+                                              dense_frac=1.0, auto_sparse="sparse_streamed",
+                                              flavor_crossover=crossover)
+        branch[side] = compressed_chunked_spmv.launches - before
+        for q in range(BATCH):
+            check(torch.equal(out[q], singles[q][0]) and torch.equal(touched[q],
+                                                                     singles[q][1]),
+                  f"batched auto ({side}) lane {q} differs from its single run")
+    check(branch["streamed"] > 0 and branch["per-lane"] == 0,
+          f"the flavor crossover did not pick both branches: {branch}")
+    log(f"[7] batched auto, B={BATCH}, mean lane density {mean!r}: crossover 2x the "
+        f"density streams ({branch['streamed']} kernel 1 launches), 0.5x runs the "
+        "per-lane loops (0 launches); every lane equals its single run")
+    wall["measured plan"] = time.perf_counter() - t0
+
+    # 8. large memory is never written ---------------------------------
+    check(graph_digest(gA, A_.csr, gB, B_.csr) == digests, "a graph tensor changed")
+    log("[8] graph A and B tensors, compressed and CSR, unchanged (SHA-256)")
+    log("wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+
+    tb_a, tb_b = times_a[("edge", 1)], times_b[("compressed", 1)]
+    return [
+        {
+            "name": "compressed_chunked_spmv",
+            "route": "cuda",
+            "source": KERNEL_SOURCES["compressed"],
+            "replaces": "src/repro/kernels/compressed_spmv/compressed_spmv.py:290",
+            "launches": main_launches,
+            "max_abs_err": err1,
+            "ms": timing1["ms"],
+            "plain_ms": timing1["plain_ms"],
+            "bound_ms": timing1["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no one PyTorch call computes this decode
+        },
+        {
+            "name": "compressed_block_spmv",
+            "route": "cuda",
+            "source": KERNEL_SOURCES["compressed"],
+            "replaces": "src/repro/kernels/compressed_spmv/compressed_spmv.py:122",
+            "launches": launches2,
+            "max_abs_err": err2,
+            "ms": tb_b["ms"],
+            "plain_ms": tb_b["plain_ms"],
+            "bound_ms": tb_b["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": tb_b["library_ms"],
+        },
+        {
+            "name": "edge_block_spmv",
+            "route": "cuda",
+            "source": KERNEL_SOURCES["edge"],
+            "replaces": "src/repro/kernels/edge_block_spmv/edge_block_spmv.py:72",
+            "launches": launches3,
+            "max_abs_err": err3,
+            "ms": tb_a["ms"],
+            "plain_ms": tb_a["plain_ms"],
+            "bound_ms": tb_a["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": tb_a["library_ms"],
+        },
+    ]
 
 
 if __name__ == "__main__":

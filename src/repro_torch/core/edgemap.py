@@ -376,6 +376,7 @@ def edgemap_reduce_batched(
     dense_frac: float | None = None,
     chunk_blocks: int | None = None,
     auto_sparse: str | None = None,
+    flavor_crossover: float | None = None,
     plan=None,
     map_lanes: torch.Tensor | None = None,
 ):
@@ -388,12 +389,18 @@ def edgemap_reduce_batched(
     sparse strategy runs each lane's chunk loop (the JAX package vmaps it);
     ``sparse_streamed`` runs one union live-block loop through the kernel;
     ``auto`` takes ONE Beamer decision on the batch's aggregate density.
+    When its sparse branch would stream, a measured ``flavor_crossover``
+    (the plan's ``batched_flavor_crossover`` unless given) switches to the
+    per-lane chunk loops once the batch's mean lane density
+    ``Σ sum_deg / (B·m)`` reaches it; the switch is taken on the host.
     Plans resolve the batched knobs (``dense_frac_batched``,
-    ``auto_sparse_batched``).
+    ``auto_sparse_batched``, ``batched_flavor_crossover``).
     """
     mode, dense_frac, chunk_blocks, auto_sparse = _resolve_knobs(
         plan, mode, dense_frac, chunk_blocks, auto_sparse, batched=True
     )
+    if flavor_crossover is None and plan is not None:
+        flavor_crossover = plan.batched_flavor_crossover
     if xb.dim() != 2:
         raise NotImplementedError("batched vertex state with feature dims is not ported")
     B = xb.shape[0]
@@ -434,7 +441,15 @@ def edgemap_reduce_batched(
     sum_deg = torch.where(frontier_masks, g.degrees[None, :], 0).sum()
     if bool(sum_deg.to(torch.float32) * dense_frac > B * g.m):
         return dense_all()
-    return streamed_or_lanes() if auto_sparse == "sparse_streamed" else sparse_lanes()
+    if auto_sparse != "sparse_streamed":
+        return sparse_lanes()
+    if flavor_crossover is not None and flavor_crossover < 1.0:
+        # the measured flavor switch: the shared live-block loop wins only
+        # while the union frontier is sparse, at the batch's mean lane density
+        mean_density = sum_deg.to(torch.float32) / (B * g.m)
+        if not bool(mean_density < flavor_crossover):
+            return sparse_lanes()
+    return streamed_or_lanes()
 
 
 def _apply_update(update, x, out, ok):

@@ -4,7 +4,9 @@ An :class:`ExecutionPlan` names the storage backend, the dense/sparse/auto
 strategy and its knobs, and the kernel route (``"cuda"`` or ``"torch"``,
 resolved from the graph's device).  ``edgemap_reduce`` / ``edge_map`` and
 the algorithms accept one via ``plan=``, so algorithm code never picks an
-engine.  Only single-device plans exist so far; a sharded plan raises.
+engine.  ``make_plan`` takes its knobs from a ``TuningTable`` measured on
+the card (the shipped one by default, for ``strategy="auto"``) or from the
+constants.  Only single-device plans exist so far; a sharded plan raises.
 
 ``round_loop`` owns the frontier recurrence every traversal shares::
 
@@ -22,7 +24,7 @@ from typing import Any
 
 from ..device import kernel_route, resolve_device
 from ..tuning.defaults import DEFAULT_CHUNK_BLOCKS, DEFAULT_DENSE_FRAC
-from ..tuning.table import constants_decision
+from ..tuning.table import TuningTable, constants_decision, default_table
 from .compressed import CompressedCSR
 from .csr import CSRGraph
 
@@ -39,11 +41,15 @@ class ExecutionPlan:
     auto_sparse — the sparse flavor the 'auto' strategy's sparse branch runs
     dense_frac_batched / auto_sparse_batched — the same two knobs for
                   batched rounds
+    batched_flavor_crossover — measured mean lane density below which a
+                  batched auto round's sparse branch streams (None: the
+                  static ``auto_sparse_batched`` flavor always runs)
     route       — 'cuda' (hand kernels) or 'torch' (plain versions), from the
                   graph's device; part of ``tuning_key`` so a cache keyed on
                   it never mixes the two routes
     mesh        — always None: sharded execution is not ported yet
-    decisions   — the TuningDecision behind the knobs
+    decisions   — the TuningDecision behind the knobs (source 'measured' |
+                  'constants', the crossover density, the table's host)
     """
 
     backend: str = "auto"
@@ -53,6 +59,7 @@ class ExecutionPlan:
     auto_sparse: str = "sparse"
     dense_frac_batched: float = DEFAULT_DENSE_FRAC
     auto_sparse_batched: str = "sparse"
+    batched_flavor_crossover: float | None = None
     route: str = "cuda"
     mesh: Any = None
     decisions: Any = None
@@ -64,6 +71,9 @@ class ExecutionPlan:
             self.strategy,
             self.auto_sparse,
             self.auto_sparse_batched,
+            None
+            if self.batched_flavor_crossover is None
+            else float(self.batched_flavor_crossover),
             float(self.dense_frac),
             float(self.dense_frac_batched),
             int(self.chunk_blocks),
@@ -85,6 +95,33 @@ class ExecutionPlan:
         return self.strategy
 
 
+def _resolve_decision(backend: str, strategy: str, tuning):
+    """The TuningDecision behind a plan's knobs.
+
+    ``tuning`` is a :class:`repro_torch.tuning.TuningTable` (always
+    consulted), ``"default"`` (the shipped table, measured on the H100,
+    consulted for ``strategy="auto"`` plans only — fixed-strategy plans keep
+    the constants unless a table is passed explicitly), or ``None``/``"off"``
+    (static constants).  Backends the table has no measurements for —
+    including ``"auto"`` when no graph was passed — get the constants
+    decision; so does a missing or stale shipped table.
+    """
+    if tuning is None or tuning == "off":
+        return constants_decision(backend, strategy)
+    if isinstance(tuning, TuningTable):
+        return tuning.decide(backend, strategy)
+    if tuning == "default":
+        if strategy == "auto":
+            try:
+                return default_table().decide(backend, strategy)
+            except (OSError, ValueError):  # missing/stale shipped table
+                return constants_decision(backend, strategy)
+        return constants_decision(backend, strategy)
+    raise ValueError(
+        f"tuning must be a TuningTable, 'default', 'off' or None; got {tuning!r}"
+    )
+
+
 def make_plan(
     g=None,
     *,
@@ -93,13 +130,18 @@ def make_plan(
     dense_frac: float | None = None,
     device=None,
     mesh=None,
+    tuning="default",
 ) -> ExecutionPlan:
     """Build an :class:`ExecutionPlan`, recording the backend from ``g``.
 
-    Knobs: explicit arguments win over the constants decision
-    (``repro_torch.tuning.table.constants_decision``); no measured table
-    exists for the card yet.  The route comes from ``g``'s device, or from
-    ``device`` (default ``cuda``) when no graph is given.
+    Knob resolution, most specific first: explicit ``chunk_blocks`` /
+    ``dense_frac`` arguments → the ``tuning`` source (a calibrated
+    :class:`~repro_torch.tuning.TuningTable`, or the shipped table for
+    ``strategy="auto"`` plans) → the constants in
+    ``repro_torch.tuning.defaults``.  The resolved ``TuningDecision`` is
+    recorded on ``plan.decisions``.  Pass ``tuning=None`` (or ``"off"``) to
+    pin the constants.  The route comes from ``g``'s device, or from
+    ``device`` (default ``cuda``) when no graph is given — never from a table.
     """
     if mesh is not None:
         raise NotImplementedError("sharded plans are not ported yet")
@@ -109,7 +151,7 @@ def make_plan(
     elif isinstance(g, CSRGraph):
         backend = "csr"
     route = kernel_route(g.device if g is not None else resolve_device(device))
-    decision = constants_decision(backend, strategy)
+    decision = _resolve_decision(backend, strategy, tuning)
     if dense_frac is not None:
         # an explicit threshold pins BOTH predicates
         dense_frac_batched = float(dense_frac)
@@ -124,6 +166,7 @@ def make_plan(
         chunk_blocks = decision.chunk_blocks
     decision = dataclasses.replace(
         decision,
+        strategy=strategy,
         dense_frac=float(dense_frac),
         dense_frac_batched=dense_frac_batched,
         chunk_blocks=int(chunk_blocks),
@@ -137,6 +180,7 @@ def make_plan(
         auto_sparse=decision.auto_sparse,
         dense_frac_batched=dense_frac_batched,
         auto_sparse_batched=decision.auto_sparse_batched,
+        batched_flavor_crossover=decision.batched_flavor_crossover,
         route=route,
         decisions=decision,
     )

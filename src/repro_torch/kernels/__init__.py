@@ -5,8 +5,20 @@ its first CUDA call (``build.load_library``), and CPU tensors never reach
 the build.
 """
 from .compressed_spmv import (
+    compressed_block_spmv,
+    compressed_block_spmv_ref,
     compressed_chunked_spmv,
     compressed_chunked_spmv_ref,
     compressed_chunked_stream_tile,
+    compressed_spmv_vertex,
+    compressed_spmv_vertex_batched,
     compressed_spmv_vertex_chunked,
+    compressed_spmv_vertex_ref,
+)
+from .edge_block_spmv import (
+    edge_block_spmv,
+    edge_block_spmv_ref,
+    spmv_vertex,
+    spmv_vertex_batched,
+    spmv_vertex_ref,
 )

@@ -1,4 +1,4 @@
-"""Building and loading the hand-written CUDA kernels.
+"""Building and loading the hand-written CUDA kernels, and checking their operands.
 
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point.  On first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
@@ -17,11 +17,15 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+BLOCK_SIZES = (32, 64, 128)  # F_B the kernels take: FB/32 slots per lane
+MAX_TILE_BLOCKS = 32         # warps per CTA of a whole-graph kernel: 1024 threads
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -95,3 +99,46 @@ def check_launch(status: int, name: str) -> None:
     """Raise if the C entry point reported a CUDA error for its launch."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def data_ptr(t) -> int | None:
+    """The device address of ``t`` for a C entry point; None (NULL) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def check_operand(name, t, dtypes, shape, device, align=4) -> None:
+    """Raise unless ``t`` is what a kernel takes: on ``device``, of one of
+    ``dtypes``, of ``shape``, contiguous and ``align``-byte aligned."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the graph on {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {dtypes}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def sums_output(x, n, dev, rows):
+    """Check the vertex state ``x`` of a sums launch and allocate its output.
+
+    Returns ``(B, row stride, out)``: ``out`` is (rows,) for a 1-D ``x`` and
+    (rows, B) for a (B, n_pad) batch, of ``x``'s dtype."""
+    if x is None or x.dim() not in (1, 2):
+        raise ValueError("sums need x of shape (n_pad,) or (B, n_pad)")
+    check_operand("x", x, (torch.float32, torch.int32), x.shape, dev)
+    if x.shape[-1] < n:
+        raise ValueError(f"x has {x.shape[-1]} columns, fewer than n={n}")
+    batched = x.dim() == 2
+    B = x.shape[0] if batched else 1
+    out = torch.empty((rows, B) if batched else (rows,), dtype=x.dtype, device=dev)
+    return B, x.shape[-1], out
+
+
+def check_tile_blocks(tile_blocks: int) -> int:
+    """``tile_blocks`` as the warps per CTA of a whole-graph kernel (1..32)."""
+    if not 1 <= int(tile_blocks) <= MAX_TILE_BLOCKS:
+        raise ValueError(f"tile_blocks must be in 1..{MAX_TILE_BLOCKS}, got {tile_blocks}")
+    return int(tile_blocks)

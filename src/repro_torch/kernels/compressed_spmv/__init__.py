@@ -1,3 +1,12 @@
-from .compressed_spmv import compressed_chunked_spmv
-from .ops import compressed_chunked_stream_tile, compressed_spmv_vertex_chunked
-from .ref import compressed_chunked_spmv_ref
+from .compressed_spmv import compressed_block_spmv, compressed_chunked_spmv
+from .ops import (
+    compressed_chunked_stream_tile,
+    compressed_spmv_vertex,
+    compressed_spmv_vertex_batched,
+    compressed_spmv_vertex_chunked,
+)
+from .ref import (
+    compressed_block_spmv_ref,
+    compressed_chunked_spmv_ref,
+    compressed_spmv_vertex_ref,
+)

@@ -1,0 +1,392 @@
+// Decode of compressed graph blocks fused with the masked SpMV, for Hopper (sm_90a).
+//
+// Two kernels share one warp decode (decode_row below):
+//
+// 1. chunked_kernel replaces the TPU kernel compressed_chunked_spmv_pallas
+//    (src/repro/kernels/compressed_spmv/compressed_spmv.py, body _chunked_kernel,
+//    tiled grid _chunked_tiled_call): it decodes only the blocks named by one
+//    chunk of the compacted live-block id list.
+// 2. block_kernel replaces the TPU kernel compressed_block_spmv_pallas
+//    (same file, body _kernel): it sums every block of the graph, the pull
+//    SpMV behind compressed_spmv_vertex.
+//
+// For a block row:
+//
+//   dst  = block_first[row] + inclusive_cumsum(deltas[row]) with slot 0 zeroed
+//   mask = slot < valid_count[row]  AND  bit of bits[row]  AND  bit of edge_active[row]
+//   emit == decode : dst_out = (mask && dst < n) ? dst : n ; w_out = weight row
+//                    (1.0 when unweighted, 0.0 on a pad row of a weighted graph)
+//   emit == sums   : out[i, b] = sum over slots of mask ? w * x[b, safe(dst)] : 0
+//
+// An id >= NB (or negative) is a pad row of the chunked kernel: it decodes to
+// all n and reads no graph array.  Blocks holding ESCAPE deltas decode wrong on
+// purpose; the Python wrappers patch them from the exception list, as on the TPU.
+//
+// Bound on the H100: both kernels are bandwidth-bound.  Per block they read
+// 4 + 2 bytes (first target, valid count), 2 bytes of deltas per valid slot,
+// 4*ceil(vc/32) per mask and 4 per valid slot if weighted; a lane reads no
+// delta or weight slot past valid_count (the scan gives those slots targets
+// no mask lets through).  decode writes 8*FB bytes per id.  Divide by
+// 3.35 TB/s.  sums also gathers x[dst] (256 KB to 4 MB here, resident in the
+// 50 MB L2) and writes 4*B bytes per block.
+//
+// Design: one warp per block.  Each lane holds FB/32 consecutive slots, loaded
+// as one vector (8 bytes of deltas at FB = 128) when all of them are valid;
+// the prefix sum is a local prefix plus a warp inclusive scan (__shfl_up_sync)
+// of the lane totals, in 32-bit unsigned arithmetic so it wraps exactly like
+// the int32 cumsum of the reference.  sums loops over the B queries inside the
+// warp, so a block is decoded once for the whole batch, and reduces with
+// __shfl_xor_sync.  The chunked kernel runs 8 warps per CTA; the block kernel
+// runs tile_blocks warps per CTA (1..32), the knob calibration sweeps.  No
+// array is padded: the last CTA's surplus warps exit on a bounds check.
+// Left for later: no cp.async/TMA staging of the next rows, the grid is not
+// persistent, and x is gathered from L2 rather than staged in shared memory.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kChunkWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Mode { kDecode = 0, kSumsFloat = 1, kSumsInt = 2, kSumsIntWeighted = 3 };
+
+// The S slots of this lane that lie below valid_count, 0 above it: one vector
+// load when all S are valid, single loads when some are, none when none are.
+template <int S>
+__device__ __forceinline__ void load_deltas(const uint16_t* row, int lane, int vc,
+                                            uint32_t (&d)[S]) {
+  const int j0 = lane * S;
+  if (j0 + S <= vc) {
+    if constexpr (S == 4) {
+      const uint2 v = reinterpret_cast<const uint2*>(row)[lane];
+      d[0] = v.x & 0xffffu; d[1] = v.x >> 16; d[2] = v.y & 0xffffu; d[3] = v.y >> 16;
+    } else if constexpr (S == 2) {
+      const uint32_t v = reinterpret_cast<const uint32_t*>(row)[lane];
+      d[0] = v & 0xffffu; d[1] = v >> 16;
+    } else {
+      d[0] = row[lane];
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) d[s] = (j0 + s < vc) ? row[j0 + s] : 0u;
+  }
+}
+
+// The whole weight row slice of this lane (decode emits it as stored).
+template <int S>
+__device__ __forceinline__ void load_weights(const float* row, int lane, float (&w)[S]) {
+  if constexpr (S == 4) {
+    const float4 v = reinterpret_cast<const float4*>(row)[lane];
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (S == 2) {
+    const float2 v = reinterpret_cast<const float2*>(row)[lane];
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = row[lane];
+  }
+}
+
+// The weights of the valid slots only, 0 above valid_count (sums mask those).
+template <int S>
+__device__ __forceinline__ void load_valid_weights(const float* row, int lane, int vc,
+                                                   float (&w)[S]) {
+  const int j0 = lane * S;
+  if (j0 + S <= vc) {
+    load_weights<S>(row, lane, w);
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = (j0 + s < vc) ? row[j0 + s] : 0.0f;
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void store_row(int32_t* drow, float* wrow, int lane,
+                                          const int32_t (&d)[S], const float (&w)[S]) {
+  if constexpr (S == 4) {
+    reinterpret_cast<int4*>(drow)[lane] = make_int4(d[0], d[1], d[2], d[3]);
+    reinterpret_cast<float4*>(wrow)[lane] = make_float4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (S == 2) {
+    reinterpret_cast<int2*>(drow)[lane] = make_int2(d[0], d[1]);
+    reinterpret_cast<float2*>(wrow)[lane] = make_float2(w[0], w[1]);
+  } else {
+    drow[lane] = d[0];
+    wrow[lane] = w[0];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// The warp decode of block `row`: targets and mask of this lane's S slots,
+// and the block's valid count.  All 32 lanes of the warp must call it.
+template <int S>
+__device__ __forceinline__ int decode_row(size_t row, int lane,
+                                          const int32_t* __restrict__ block_first,
+                                          const uint16_t* __restrict__ deltas,
+                                          const uint16_t* __restrict__ valid_count,
+                                          const uint32_t* __restrict__ bits,
+                                          const uint32_t* __restrict__ edge_active,
+                                          int32_t (&dst)[S], bool (&m)[S]) {
+  constexpr int FB = 32 * S;
+  constexpr int W = FB / 32;
+  const int vc = valid_count[row];
+  uint32_t d[S];
+  load_deltas<S>(deltas + row * FB, lane, vc, d);
+  if (lane == 0) d[0] = 0;
+  uint32_t pre[S];
+  uint32_t total = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) { total += d[s]; pre[s] = total; }
+  uint32_t incl = total;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t t = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += t;
+  }
+  const uint32_t base = static_cast<uint32_t>(block_first[row]) + (incl - total);
+  uint32_t bw = 0xffffffffu, aw = 0xffffffffu;
+  const int word = (lane * S) >> 5;  // all S slots of a lane share one word
+  if (lane * S < vc) {
+    if (bits != nullptr) bw = bits[row * W + word];
+    if (edge_active != nullptr) aw = edge_active[row * W + word];
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int j = lane * S + s;
+    dst[s] = static_cast<int32_t>(base + pre[s]);
+    m[s] = (j < vc) && ((bw >> (j & 31)) & 1u) && ((aw >> (j & 31)) & 1u);
+  }
+  return vc;
+}
+
+// out[o * B + b] = sum over this warp's slots of the masked x[b, dst] (times w).
+template <int S, int MODE>
+__device__ __forceinline__ void emit_sums(size_t o, int lane, int n, const int32_t (&dst)[S],
+                                          const bool (&m)[S], const float (&w)[S],
+                                          const void* __restrict__ x, int B,
+                                          long long x_stride, void* __restrict__ sums_out) {
+  int32_t safe[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) safe[s] = (m[s] && dst[s] < n) ? dst[s] : 0;
+  for (int b = 0; b < B; ++b) {
+    const size_t off = static_cast<size_t>(b) * x_stride;
+    const size_t out = o * B + b;
+    if constexpr (MODE == kSumsInt) {
+      const int32_t* xb = static_cast<const int32_t*>(x) + off;
+      uint32_t acc = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc += m[s] ? static_cast<uint32_t>(xb[safe[s]]) : 0u;
+      acc = warp_sum(acc);
+      if (lane == 0) static_cast<int32_t*>(sums_out)[out] = static_cast<int32_t>(acc);
+    } else {
+      float acc = 0.0f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        float v;
+        if constexpr (MODE == kSumsFloat) {
+          v = static_cast<const float*>(x)[off + safe[s]];
+        } else {
+          v = static_cast<float>(static_cast<const int32_t*>(x)[off + safe[s]]);
+        }
+        acc += m[s] ? v * w[s] : 0.0f;
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        if constexpr (MODE == kSumsFloat) {
+          static_cast<float*>(sums_out)[out] = acc;
+        } else {
+          static_cast<int32_t*>(sums_out)[out] = static_cast<int32_t>(acc);
+        }
+      }
+    }
+  }
+}
+
+template <int S, int MODE>
+__global__ void __launch_bounds__(32 * kChunkWarps)
+chunked_kernel(const int32_t* __restrict__ ids, int C,
+               const int32_t* __restrict__ block_first,
+               const uint16_t* __restrict__ deltas,
+               const uint16_t* __restrict__ valid_count,
+               const uint32_t* __restrict__ bits,
+               const uint32_t* __restrict__ edge_active,
+               const float* __restrict__ block_weights,
+               int NB, int n,
+               const void* __restrict__ x, int B, long long x_stride,
+               int32_t* __restrict__ dst_out, float* __restrict__ w_out,
+               void* __restrict__ sums_out) {
+  constexpr int FB = 32 * S;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kChunkWarps + (threadIdx.x >> 5);
+  if (i >= C) return;  // uniform across the warp
+  const int id = ids[i];
+  const bool pad = static_cast<unsigned>(id) >= static_cast<unsigned>(NB);
+
+  int32_t dst[S];
+  bool m[S];
+  float w[S];
+  if (pad) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      dst[s] = n;
+      m[s] = false;
+      w[s] = block_weights != nullptr ? 0.0f : 1.0f;
+    }
+  } else {
+    const size_t row = static_cast<size_t>(id);
+    const int vc = decode_row<S>(row, lane, block_first, deltas, valid_count, bits,
+                                 edge_active, dst, m);
+    if (block_weights == nullptr) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) w[s] = 1.0f;
+    } else if constexpr (MODE == kDecode) {
+      load_weights<S>(block_weights + row * FB, lane, w);
+    } else {
+      load_valid_weights<S>(block_weights + row * FB, lane, vc, w);
+    }
+  }
+
+  if constexpr (MODE == kDecode) {
+    int32_t out[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) out[s] = (m[s] && dst[s] < n) ? dst[s] : n;
+    store_row<S>(dst_out + static_cast<size_t>(i) * FB, w_out + static_cast<size_t>(i) * FB,
+                 lane, out, w);
+  } else {
+    emit_sums<S, MODE>(static_cast<size_t>(i), lane, n, dst, m, w, x, B, x_stride, sums_out);
+  }
+}
+
+template <int S, int MODE>
+__global__ void __launch_bounds__(1024)
+block_kernel(const int32_t* __restrict__ block_first,
+             const uint16_t* __restrict__ deltas,
+             const uint16_t* __restrict__ valid_count,
+             const uint32_t* __restrict__ bits,
+             const uint32_t* __restrict__ edge_active,
+             const float* __restrict__ block_weights,
+             int NB, int n, int warps,
+             const void* __restrict__ x, int B, long long x_stride,
+             void* __restrict__ sums_out) {
+  constexpr int FB = 32 * S;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * warps + (threadIdx.x >> 5);
+  if (i >= NB) return;  // uniform across the warp
+  const size_t row = static_cast<size_t>(i);
+  int32_t dst[S];
+  bool m[S];
+  float w[S];
+  const int vc = decode_row<S>(row, lane, block_first, deltas, valid_count, bits,
+                               edge_active, dst, m);
+  if (block_weights != nullptr) {
+    load_valid_weights<S>(block_weights + row * FB, lane, vc, w);
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = 1.0f;
+  }
+  emit_sums<S, MODE>(row, lane, n, dst, m, w, x, B, x_stride, sums_out);
+}
+
+template <int S>
+cudaError_t launch_chunked(int mode, int C, cudaStream_t stream, const int32_t* ids,
+                           const int32_t* first, const uint16_t* deltas, const uint16_t* vc,
+                           const uint32_t* bits, const uint32_t* active, const float* weights,
+                           int NB, int n, const void* x, int B, long long x_stride,
+                           int32_t* dst_out, float* w_out, void* sums_out) {
+  const dim3 grid((C + kChunkWarps - 1) / kChunkWarps);
+  const dim3 block(32 * kChunkWarps);
+#define SAGE_LAUNCH(M)                                                                  \
+  chunked_kernel<S, M><<<grid, block, 0, stream>>>(ids, C, first, deltas, vc, bits,     \
+                                                    active, weights, NB, n, x, B,       \
+                                                    x_stride, dst_out, w_out, sums_out)
+  switch (mode) {
+    case kDecode: SAGE_LAUNCH(kDecode); break;
+    case kSumsFloat: SAGE_LAUNCH(kSumsFloat); break;
+    case kSumsInt: SAGE_LAUNCH(kSumsInt); break;
+    case kSumsIntWeighted: SAGE_LAUNCH(kSumsIntWeighted); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef SAGE_LAUNCH
+  return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch_block(int mode, int warps, cudaStream_t stream, const int32_t* first,
+                         const uint16_t* deltas, const uint16_t* vc, const uint32_t* bits,
+                         const uint32_t* active, const float* weights, int NB, int n,
+                         const void* x, int B, long long x_stride, void* sums_out) {
+  const dim3 grid((NB + warps - 1) / warps);
+  const dim3 block(32 * warps);
+#define SAGE_LAUNCH(M)                                                                  \
+  block_kernel<S, M><<<grid, block, 0, stream>>>(first, deltas, vc, bits, active,       \
+                                                  weights, NB, n, warps, x, B,          \
+                                                  x_stride, sums_out)
+  switch (mode) {
+    case kSumsFloat: SAGE_LAUNCH(kSumsFloat); break;
+    case kSumsInt: SAGE_LAUNCH(kSumsInt); break;
+    case kSumsIntWeighted: SAGE_LAUNCH(kSumsIntWeighted); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef SAGE_LAUNCH
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// mode: 0 decode, 1 sums over float32 x, 2 sums over int32 x (unweighted),
+// 3 sums over int32 x with weights.  Null pointers mark absent operands.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int compressed_chunked_spmv_launch(
+    const int32_t* ids, int C, const int32_t* block_first, const uint16_t* deltas,
+    const uint16_t* valid_count, const uint32_t* bits, const uint32_t* edge_active,
+    const float* block_weights, int NB, int FB, int n, int mode, const void* x, int B,
+    long long x_stride, int32_t* dst_out, float* w_out, void* sums_out, void* stream) {
+  if (C <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (FB) {
+    case 32:
+      return launch_chunked<1>(mode, C, s, ids, block_first, deltas, valid_count, bits,
+                               edge_active, block_weights, NB, n, x, B, x_stride, dst_out,
+                               w_out, sums_out);
+    case 64:
+      return launch_chunked<2>(mode, C, s, ids, block_first, deltas, valid_count, bits,
+                               edge_active, block_weights, NB, n, x, B, x_stride, dst_out,
+                               w_out, sums_out);
+    case 128:
+      return launch_chunked<4>(mode, C, s, ids, block_first, deltas, valid_count, bits,
+                               edge_active, block_weights, NB, n, x, B, x_stride, dst_out,
+                               w_out, sums_out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Per-block sums over all NB blocks, `warps` blocks per CTA (1..32).  mode as
+// above, without decode.  Returns the cudaError_t of the launch.
+extern "C" int compressed_block_spmv_launch(
+    const int32_t* block_first, const uint16_t* deltas, const uint16_t* valid_count,
+    const uint32_t* bits, const uint32_t* edge_active, const float* block_weights, int NB,
+    int FB, int n, int mode, int warps, const void* x, int B, long long x_stride,
+    void* sums_out, void* stream) {
+  if (NB <= 0) return 0;
+  if (warps < 1 || warps > 32) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (FB) {
+    case 32:
+      return launch_block<1>(mode, warps, s, block_first, deltas, valid_count, bits,
+                             edge_active, block_weights, NB, n, x, B, x_stride, sums_out);
+    case 64:
+      return launch_block<2>(mode, warps, s, block_first, deltas, valid_count, bits,
+                             edge_active, block_weights, NB, n, x, B, x_stride, sums_out);
+    case 128:
+      return launch_block<4>(mode, warps, s, block_first, deltas, valid_count, bits,
+                             edge_active, block_weights, NB, n, x, B, x_stride, sums_out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

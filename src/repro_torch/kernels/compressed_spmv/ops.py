@@ -1,13 +1,18 @@
-"""Public wrappers around the frontier-sparse compressed-block kernel.
+"""Public wrappers around the compressed-block kernels.
 
+* ``compressed_spmv_vertex`` (+``_batched``) — the pull SpMV over every
+  block (kernel ``compressed_block_spmv``), exceptions patched, then the
+  owner reduction by ``block_src``.
 * ``compressed_chunked_stream_tile`` — the chunk-pool decoder behind the
   core ``edgemap_chunked`` streamed path: one chunk of live ids in, exact
   masked targets + aligned weights out, exceptions patched by gathered id.
 * ``compressed_spmv_vertex_chunked`` — the frontier-sparse SpMV: sums over
   only the blocks owned by ``frontier`` vertices, single or (B, n)-batched.
 
-The kernel decodes blocks holding ESCAPE deltas wrong on purpose; these
-wrappers recompute those (rare) blocks exactly and patch them in.
+The kernels decode blocks holding ESCAPE deltas wrong on purpose; these
+wrappers recompute those (rare) blocks exactly and patch them in.  Past the
+exception limit (``exception_dense``) the exact plain decode runs instead,
+which is the JAX package's documented semantics for such graphs.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from ...core.graph_filter import (
 )
 from ...core.primitives import compact_mask, segment_reduce, take_fill
 from ...tuning.defaults import DEFAULT_TILE_BLOCKS
-from .compressed_spmv import compressed_chunked_spmv
+from .compressed_spmv import compressed_block_spmv, compressed_chunked_spmv
+from .ref import compressed_block_sums_exact, exact_block_sums
 
 def _active_words(c: CompressedCSR, edge_active):
     return None if edge_active is None else edge_active_words(edge_active, c.block_size)
@@ -46,33 +52,68 @@ def _unique_block_tile(c: CompressedCSR, bids: torch.Tensor) -> torch.Tensor:
     return decode_block_tile(c, ub)[inv]
 
 
-def _exact_block_sums(c: CompressedCSR, dst, bids, x, bits, weights=None, active=None):
-    """Exact per-block partial sums of the decoded rows ``dst`` of ``bids``:
-    Σ over active slots of w · x[dst]; (len,) or (len, B) for a batched x."""
-    act = unpack_word_bits(take_fill(bits, bids, 0))
-    if active is not None:
-        act = act & unpack_word_bits(take_fill(active, bids, 0))
-    mask = (dst < c.n) & act
-    safe = torch.where(mask, dst, 0).long()
-    w = None if weights is None else take_fill(weights, bids, 0.0)
-    if x.dim() == 2:
-        xv = x[:, safe]                                    # (B, len, FB)
-        if w is not None:
-            xv = xv * w[None]
-        contrib = torch.where(mask[None], xv, 0)
-        return contrib.sum(dim=2, dtype=contrib.dtype).T.to(x.dtype)
-    xv = x[safe]
-    if w is not None:
-        xv = xv * w
-    contrib = torch.where(mask, xv, 0)
-    return contrib.sum(dim=1, dtype=contrib.dtype).to(x.dtype)
-
-
 def _exception_block_sums(c: CompressedCSR, x, bits, weights=None, active=None):
     """Exact per-block partial sums for the blocks on the exception list,
     masked exactly as the kernel masks: (NE,) or (NE, B)."""
     dst = _unique_block_tile(c, c.exc_block)
-    return _exact_block_sums(c, dst, c.exc_block, x, bits, weights, active)
+    return exact_block_sums(c, dst, c.exc_block, x, bits, weights, active)
+
+
+def _per_block_sums(c: CompressedCSR, x, f, edge_active, tile_blocks):
+    """Exact per-block sums of every block, (NB,) or (NB, B): the kernel with
+    the exception blocks patched, or the exact decode on an exception-dense
+    graph."""
+    bits = f.bits if f is not None else make_filter(c).bits
+    active = _active_words(c, edge_active)
+    w = c.block_weights if c.weighted else None
+    if exception_dense(c):
+        return compressed_block_sums_exact(c, x, bits, w, active)
+    per_block = compressed_block_spmv(
+        x, c.block_first, c.deltas, c.valid_count, bits, active, w, n=c.n,
+        tile_blocks=tile_blocks,
+    )
+    if c.n_exceptions:
+        fixed = _exception_block_sums(c, x, bits, w, active)
+        per_block = _patch_rows(per_block, c.exc_block.long(), fixed)
+    return per_block
+
+
+def compressed_spmv_vertex(
+    c: CompressedCSR,
+    x: torch.Tensor,
+    f: GraphFilter | None = None,
+    *,
+    edge_active=None,
+    tile_blocks: int = DEFAULT_TILE_BLOCKS,
+) -> torch.Tensor:
+    """``out[v] = Σ_{(v,u) active} w_vu · x[u]`` straight off the compressed
+    stream, (n,).
+
+    One launch of the fused decode + masked SpMV over every block
+    (``tile_blocks`` blocks per CTA on the card), the ESCAPE blocks
+    recomputed exactly and patched, then the O(#blocks) owner reduction.
+    ``edge_active`` is the per-call traversal mask (a GraphFilter, packed
+    int32 words, or a bool slot mask), ANDed with the filter bits in the
+    kernel and in the exception fixup alike."""
+    per_block = _per_block_sums(c, x, f, edge_active, tile_blocks)
+    return segment_reduce(per_block, c.block_src, c.n + 1, "sum")[: c.n]
+
+
+def compressed_spmv_vertex_batched(
+    c: CompressedCSR,
+    xb: torch.Tensor,
+    f: GraphFilter | None = None,
+    *,
+    edge_active=None,
+    tile_blocks: int = DEFAULT_TILE_BLOCKS,
+) -> torch.Tensor:
+    """Batched ``compressed_spmv_vertex``: ``xb`` is (B, n); returns (B, n).
+
+    One sweep serves all B queries: each block is decoded once and its
+    gather fans across the B columns; every lane equals its own
+    single-query run (exactly for int32 state)."""
+    per_block = _per_block_sums(c, xb, f, edge_active, tile_blocks)   # (NB, B)
+    return segment_reduce(per_block, c.block_src, c.n + 1, "sum")[: c.n].T
 
 
 def _exception_row_targets(c: CompressedCSR, active=None) -> torch.Tensor:
@@ -154,7 +195,7 @@ def compressed_spmv_vertex_chunked(
     for lo in range(0, k, TB):
         ids = idx[lo : lo + TB]
         if dense:
-            sums = _exact_block_sums(c, decode_block_tile(c, ids), ids, x, bits, w, active)
+            sums = exact_block_sums(c, decode_block_tile(c, ids), ids, x, bits, w, active)
         else:
             sums = compressed_chunked_spmv(
                 x, ids.to(torch.int32), c.block_first, c.deltas, c.valid_count,

@@ -1,17 +1,27 @@
-"""Plain PyTorch version of the frontier-sparse compressed-block kernel.
+"""Plain PyTorch versions of the compressed-block kernels, and the exact oracle.
 
-``compressed_chunked_spmv_ref`` has the signature of the kernel wrapper
-(``compressed_spmv.compressed_chunked_spmv``) and computes the same function
-with ordinary tensor ops: the CPU route runs it, and ``chip_smoke.py`` holds
-the CUDA kernel against it on the card.  Like the kernel, it decodes blocks
-holding ESCAPE deltas wrong on purpose (the callers in ``ops.py`` patch
-them), and it widens one chunk of deltas at a time, never the graph.
+``compressed_chunked_spmv_ref`` and ``compressed_block_spmv_ref`` have the
+signatures of the kernel wrappers in ``compressed_spmv.py`` and compute the
+same functions with ordinary tensor ops: the CPU route runs them, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.  Like the
+kernels, they decode blocks holding ESCAPE deltas wrong on purpose (the
+callers in ``ops.py`` patch them), and they widen one chunk or range of
+deltas at a time, never the graph.
+
+``compressed_block_sums_exact`` and ``compressed_spmv_vertex_ref`` are the
+JAX package's oracles (its ``compressed_block_spmv_ref(c, ...)`` and
+``compressed_spmv_vertex_ref``): the exact decode, exception list included.
+The wrappers take the first for an exception-dense graph, as the JAX
+package does.
 """
 from __future__ import annotations
 
 import torch
 
+from ...core.compressed import CompressedCSR, decode_block_range
 from ...core.graph_filter import unpack_word_bits
+from ...core.primitives import segment_reduce, take_fill
+from ...tuning.defaults import DEFAULT_DENSE_RANGE_BLOCKS
 
 
 def compressed_chunked_spmv_ref(
@@ -68,3 +78,70 @@ def compressed_chunked_spmv_ref(
         xv = xv * w
     contrib = torch.where(mask, xv, 0)
     return contrib.sum(dim=1, dtype=contrib.dtype).to(x.dtype)
+
+
+def compressed_block_spmv_ref(
+    x: torch.Tensor,               # (n_pad,) / (B, n_pad), float32 or int32
+    block_first: torch.Tensor,     # (NB,) int32
+    deltas: torch.Tensor,          # (NB, FB) int16 bit-view of the uint16 codes
+    valid_count: torch.Tensor,     # (NB,) int16 bit-view
+    bits: torch.Tensor | None,     # (NB, FB//32) int32 graphFilter words
+    edge_active: torch.Tensor | None = None,    # (NB, FB//32) int32 traversal mask
+    block_weights: torch.Tensor | None = None,  # (NB, FB) float32
+    *,
+    n: int,
+) -> torch.Tensor:
+    """Per-block sums of every block, (NB,) or (NB, B): the chunked sums over
+    the ids of one range of blocks at a time."""
+    NB = deltas.shape[0]
+    parts = []
+    for lo in range(0, NB, DEFAULT_DENSE_RANGE_BLOCKS):
+        ids = torch.arange(lo, min(NB, lo + DEFAULT_DENSE_RANGE_BLOCKS), device=deltas.device)
+        parts.append(compressed_chunked_spmv_ref(
+            x, ids, block_first, deltas, valid_count, bits, edge_active, block_weights,
+            n=n, emit="sums",
+        ))
+    return torch.cat(parts)
+
+
+def exact_block_sums(c: CompressedCSR, dst, bids, x, bits, weights=None, active=None):
+    """Exact per-block partial sums of the decoded rows ``dst`` of ``bids``:
+    Σ over active slots of w · x[dst]; (len,) or (len, B) for a batched x."""
+    act = unpack_word_bits(take_fill(bits, bids, 0))
+    if active is not None:
+        act = act & unpack_word_bits(take_fill(active, bids, 0))
+    mask = (dst < c.n) & act
+    safe = torch.where(mask, dst, 0).long()
+    w = None if weights is None else take_fill(weights, bids, 0.0)
+    if x.dim() == 2:
+        xv = x[:, safe]                                    # (B, len, FB)
+        if w is not None:
+            xv = xv * w[None]
+        contrib = torch.where(mask[None], xv, 0)
+        return contrib.sum(dim=2, dtype=contrib.dtype).T.to(x.dtype)
+    xv = x[safe]
+    if w is not None:
+        xv = xv * w
+    contrib = torch.where(mask, xv, 0)
+    return contrib.sum(dim=1, dtype=contrib.dtype).to(x.dtype)
+
+
+def compressed_block_sums_exact(c: CompressedCSR, x, bits, weights=None, active=None):
+    """Exact per-block sums of every block, (NB,) or (NB, B), decoded (with
+    the exception list) one range of blocks at a time."""
+    NB = c.num_blocks
+    parts = []
+    for lo in range(0, NB, DEFAULT_DENSE_RANGE_BLOCKS):
+        hi = min(NB, lo + DEFAULT_DENSE_RANGE_BLOCKS)
+        bids = torch.arange(lo, hi, device=c.device)
+        parts.append(exact_block_sums(c, decode_block_range(c, lo, hi), bids, x, bits,
+                                      weights, active))
+    return torch.cat(parts)
+
+
+def compressed_spmv_vertex_ref(c: CompressedCSR, x, bits, weights=None, active=None):
+    """``out[v] = Σ_{(v,u) active} w_vu · x[u]`` from the exact decode:
+    (n,) for a 1-D ``x``, (B, n) for a (B, n) batch."""
+    per_block = compressed_block_sums_exact(c, x, bits, weights, active)
+    out = segment_reduce(per_block, c.block_src, c.n + 1, "sum")[: c.n]
+    return out.T if x.dim() == 2 else out

@@ -15,10 +15,14 @@
   serving-admission and delta-overlay constants, kept here for the modules
   that will read them.
 
+* ``HBM_BYTES_PER_S``      — the H100 SXM's device-memory rate (NVIDIA's
+  data sheet), the divisor of every bytes bound this port reports; a
+  calibrated table records it beside the card's name and power limit.
+
 There is no lowering knob: which kernel route runs is decided by the
 device of the tensors (``repro_torch.device.kernel_route``), never by
-a setting.  There is no hardware model either; the H100's is measured, not
-assumed.
+a setting.  There is no assumed hardware model: the knobs that depend on
+the card are measured by ``repro_torch.tuning.calibrate``.
 
 Import-light on purpose (no torch): ``repro_torch.core`` imports it.
 """
@@ -33,3 +37,4 @@ DEFAULT_EST_ROUNDS = 8
 DEFAULT_COMPACT_HYSTERESIS = 1.0
 DEFAULT_OVERLAY_COST_SCALE = 1.0
 DEFAULT_EDITS_PER_COMPACT = 1024
+HBM_BYTES_PER_S = 3.35e12

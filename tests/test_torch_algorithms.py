@@ -47,7 +47,7 @@ def _graphs(compressed):
 
 
 def _plans(jg, g, strategy):
-    return jmake_plan(jg, strategy=strategy, tuning=None), make_plan(g, strategy=strategy)
+    return jmake_plan(jg, strategy=strategy, tuning=None), make_plan(g, strategy=strategy, tuning=None)
 
 
 @pytest.mark.parametrize("compressed", [False, True])

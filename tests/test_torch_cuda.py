@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -6,8 +6,8 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
-decode must match exactly; float sums within rtol 1e-5, because the kernel
-adds the slots of a block in a warp-tree order.
+decode and int32 sums must match exactly; float sums within rtol 1e-5,
+because the kernels add the slots of a block in a warp-tree order.
 """
 import pytest
 
@@ -19,7 +19,17 @@ from repro_torch.algorithms import bfs, wbfs
 from repro_torch.core import compress, make_filter, make_plan
 from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
 from repro_torch.data import rmat_graph
-from repro_torch.kernels import compressed_chunked_spmv, compressed_chunked_spmv_ref
+from repro_torch.kernels import (
+    compressed_block_spmv,
+    compressed_block_spmv_ref,
+    compressed_chunked_spmv,
+    compressed_chunked_spmv_ref,
+    compressed_spmv_vertex,
+    compressed_spmv_vertex_batched,
+    edge_block_spmv,
+    edge_block_spmv_ref,
+    spmv_vertex,
+)
 
 SUM_RTOL = 1e-5  # float sums: warp-tree order against a sequential sum
 
@@ -110,3 +120,64 @@ def test_streamed_traversals_match_cpu_route(cuda):
     dc = wbfs(c, 3, plan=make_plan(c, strategy="sparse_streamed"))
     dg = wbfs(gc, 3, plan=make_plan(gc, strategy="sparse_streamed"))
     assert torch.equal(dg.cpu(), dc)
+
+
+def _assert_sums(got, want, exact):
+    torch.cuda.synchronize()
+    if exact:
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=SUM_RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tile_blocks", [1, 4, 8, 16, 32])
+def test_whole_graph_kernels_match_plain(cuda, fb, weighted, tile_blocks):
+    """Kernels 2 and 3 over every block, NB not a multiple of the tile."""
+    c = _graph(fb, weighted, n=700, m=5000, seed=fb + tile_blocks)
+    csr = rmat_graph(700, 5000, weighted=weighted, seed=fb + tile_blocks, block_size=fb,
+                     device="cpu")
+    gc, gcsr = _to(c, cuda), _to(csr, cuda)
+    rng = np.random.default_rng(tile_blocks)
+    NB = c.num_blocks
+    active = torch.from_numpy(rng.integers(-2**31, 2**31, (NB, fb // 32)).astype(np.int32))
+    bits = make_filter(c).bits
+    for x in (torch.rand(c.n), torch.rand(3, c.n),
+              torch.randint(-9, 9, (c.n,), dtype=torch.int32),
+              torch.randint(-9, 9, (2, c.n), dtype=torch.int32)):
+        for act in (None, active):
+            want = compressed_block_spmv_ref(x, c.block_first, c.deltas, c.valid_count, bits,
+                                             act, c.block_weights, n=c.n)
+            got = compressed_block_spmv(
+                x.to(cuda), gc.block_first, gc.deltas, gc.valid_count, bits.to(cuda),
+                None if act is None else act.to(cuda), gc.block_weights, n=c.n,
+                tile_blocks=tile_blocks)
+            _assert_sums(got, want, x.dtype == torch.int32)
+            want = edge_block_spmv_ref(x, csr.block_dst, csr.block_w, bits, act, n=c.n)
+            got = edge_block_spmv(x.to(cuda), gcsr.block_dst, gcsr.block_w, bits.to(cuda),
+                                  None if act is None else act.to(cuda), n=c.n,
+                                  tile_blocks=tile_blocks)
+            _assert_sums(got, want, x.dtype == torch.int32)
+
+
+def test_whole_graph_ops_and_launch_counts(cuda):
+    c = _graph(64, True, n=1024, m=8192, seed=2)
+    csr = rmat_graph(1024, 8192, weighted=True, seed=2, block_size=64, device="cpu")
+    gc, gcsr = _to(c, cuda), _to(csr, cuda)
+    x = torch.randint(-9, 9, (4, c.n), dtype=torch.int32)
+    before = (compressed_block_spmv.launches, edge_block_spmv.launches)
+    got_c = compressed_spmv_vertex_batched(gc, x.to(cuda))
+    got_e = spmv_vertex(gcsr, x[1].to(cuda))
+    assert (compressed_block_spmv.launches, edge_block_spmv.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got_c.cpu(), compressed_spmv_vertex_batched(c, x))
+    assert torch.equal(got_e.cpu(), got_c[1].cpu())  # the same edges in the same blocks
+    assert torch.equal(compressed_spmv_vertex(gc, x[1].to(cuda)).cpu(), got_c[1].cpu())
+    before = (compressed_block_spmv.launches, edge_block_spmv.launches)
+    with pytest.raises(ValueError, match="tile_blocks"):
+        compressed_block_spmv(x.to(cuda), gc.block_first, gc.deltas, gc.valid_count, None,
+                              n=c.n, tile_blocks=64)
+    with pytest.raises(TypeError):
+        edge_block_spmv(x.double().to(cuda), gcsr.block_dst, gcsr.block_w, None, n=c.n)
+    assert (compressed_block_spmv.launches, edge_block_spmv.launches) == before

@@ -124,7 +124,7 @@ def test_edgemap_reduce_batched_with_map_lanes(graph, mode):
 def test_plan_routes_and_keys():
     jg = GRAPHS["compressed"]()
     g = port_graph(jg)
-    plan = make_plan(g, strategy="sparse_streamed")
+    plan = make_plan(g, strategy="sparse_streamed", tuning=None)
     jplan = jmake_plan(jg, strategy="sparse_streamed", tuning=None)
     assert plan.backend == jplan.backend == "compressed"
     assert plan.route == "torch" and plan.tuning_key[-1] == "torch"

@@ -4,6 +4,7 @@ converter, plus the guards of the port's package boundary.
 Every comparison here is exact: the arrays are integers, bit-views or
 weights copied without arithmetic.
 """
+import importlib
 import os
 import subprocess
 import sys
@@ -177,14 +178,22 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [k for k in sys.modules if k in ('jax', 'repro') or "
         "k.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
+        "print(' '.join(k for k in sys.modules if k.startswith('repro_torch')))\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": "src"}, timeout=300,
     )
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) > 20
+    loaded = set(r.stdout.split())
+    assert len(loaded) > 20
+    assert {
+        "repro_torch.kernels.edge_block_spmv.ops",
+        "repro_torch.kernels.compressed_spmv.ops",
+        "repro_torch.tuning.measure",
+        "repro_torch.tuning.table",
+        "repro_torch.tuning.__main__",
+    } <= loaded
 
 
 def test_cuda_request_without_card_raises():
@@ -203,14 +212,26 @@ def test_cpu_tensor_never_reaches_the_build(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the CPU route reached the kernel build")
 
+    # the package exports a function of the module's name: take the module
+    emod = importlib.import_module("repro_torch.kernels.edge_block_spmv.edge_block_spmv")
+
     monkeypatch.setattr(build, "load_library", refuse)
     monkeypatch.setattr(build, "build_all", refuse)
     monkeypatch.setattr(mod, "load_library", refuse)
-    c = compress(rmat_graph(64, 256, seed=0, block_size=32, device=CPU))
-    before = mod.compressed_chunked_spmv.launches
+    monkeypatch.setattr(emod, "load_library", refuse)
+    g = rmat_graph(64, 256, seed=0, block_size=32, device=CPU)
+    c = compress(g)
+    counts = (mod.compressed_chunked_spmv.launches, mod.compressed_block_spmv.launches,
+              emod.edge_block_spmv.launches)
     ids = torch.arange(3, dtype=torch.int32)
     dst, w = mod.compressed_chunked_spmv(
         None, ids, c.block_first, c.deltas, c.valid_count, n=c.n, emit="decode"
     )
     assert dst.shape == (3, 32) and w.shape == (3, 32)
-    assert mod.compressed_chunked_spmv.launches == before
+    x = torch.rand(2, c.n)
+    assert mod.compressed_block_spmv(x, c.block_first, c.deltas, c.valid_count, None,
+                                     n=c.n).shape == (c.num_blocks, 2)
+    assert emod.edge_block_spmv(x, g.block_dst, g.block_w, None, n=g.n).shape == (
+        g.num_blocks, 2)
+    assert (mod.compressed_chunked_spmv.launches, mod.compressed_block_spmv.launches,
+            emod.edge_block_spmv.launches) == counts

@@ -1,11 +1,12 @@
-"""Port parity for the frontier-sparse compressed-block kernel.
+"""Port parity for the graph kernels: the frontier-sparse and the whole-graph
+compressed-block kernels, the uncompressed-block kernel, and their ops.
 
-On the CPU the kernel wrapper runs its plain PyTorch version, which is held
+On the CPU a kernel wrapper runs its plain PyTorch version, which is held
 here to the JAX package's Pallas kernel (``interpret=True``) and to its
-plain-jnp oracle.  decode is compared exactly; float sums within rtol 1e-5,
-because PyTorch and XLA add the slots of a block in different orders.  The
-CUDA kernel itself is held to the plain version on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+plain-jnp oracle.  decode and int32 sums are compared exactly; float sums
+within rtol 1e-5, because PyTorch and XLA add the slots of a block in
+different orders.  The CUDA kernels themselves are held to the plain
+versions on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import pytest
 
@@ -19,14 +20,33 @@ from repro.core import compress as jcompress
 from repro.core import make_filter as jmake_filter
 from repro.data import rmat_graph as jrmat_graph
 from repro.kernels import compressed_chunked_stream_tile as jstream_tile
-from repro.kernels.compressed_spmv.compressed_spmv import compressed_chunked_spmv_pallas
+from repro.kernels import compressed_spmv_vertex as jcompressed_spmv_vertex
+from repro.kernels import compressed_spmv_vertex_batched as jcompressed_spmv_vertex_batched
+from repro.kernels import spmv_vertex as jspmv_vertex
+from repro.kernels import spmv_vertex_batched as jspmv_vertex_batched
+from repro.kernels.compressed_spmv.compressed_spmv import (
+    compressed_block_spmv_pallas,
+    compressed_chunked_spmv_pallas,
+)
+from repro.kernels.compressed_spmv.ref import compressed_block_spmv_ref as jblock_oracle
 from repro.kernels.compressed_spmv.ref import compressed_chunked_spmv_ref as joracle
-from repro_torch.core import compress, make_filter
+from repro.kernels.edge_block_spmv.edge_block_spmv import edge_block_spmv_pallas
+from repro.kernels.edge_block_spmv.ref import edge_block_spmv_ref as jedge_oracle
+from repro.kernels.edge_block_spmv.ref import spmv_vertex_ref as jspmv_oracle
+from repro_torch.core import make_filter
 from repro_torch.kernels import (
+    compressed_block_spmv,
     compressed_chunked_spmv,
     compressed_chunked_spmv_ref,
     compressed_chunked_stream_tile,
+    compressed_spmv_vertex,
+    compressed_spmv_vertex_batched,
     compressed_spmv_vertex_chunked,
+    compressed_spmv_vertex_ref,
+    edge_block_spmv,
+    spmv_vertex,
+    spmv_vertex_batched,
+    spmv_vertex_ref,
 )
 from torch_parity import port_graph, to_np
 
@@ -175,3 +195,171 @@ def test_exception_dense_vertex_chunked_matches_oracle():
     want = joracle(jc, jnp.asarray(x), jnp.asarray(frontier), jmake_filter(jc).bits)
     got = compressed_spmv_vertex_chunked(c, torch.from_numpy(x), torch.from_numpy(frontier))
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=SUM_RTOL, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# The whole-graph kernels: compressed_block_spmv and edge_block_spmv
+# ----------------------------------------------------------------------
+WHOLE_CASES = [  # (graph, weighted, with edge_active, batch, tile_blocks)
+    ("rmat32", False, False, None, 4), ("rmat32", True, True, 3, 8),
+    ("rmat64", True, False, 2, 16), ("rmat64", False, True, None, 8),
+    ("wide", True, True, None, 16), ("wide", False, False, 2, 4),
+]
+
+
+def _whole_inputs(name, weighted, with_active, batch, dtype=np.float32, seed=11):
+    jg = GRAPHS[name](weighted)
+    rng = np.random.default_rng(seed)
+    NB, FB = jg.num_blocks, jg.block_size
+    active = rng.integers(0, 2**32, (NB, FB // 32), dtype=np.uint32) if with_active else None
+    shape = (batch, jg.n) if batch else (jg.n,)
+    if dtype == np.int32:
+        x = rng.integers(-50, 50, shape).astype(np.int32)
+    else:
+        x = rng.random(shape).astype(np.float32)
+    return jg, active, x
+
+
+def _jax_x(x, weighted):
+    """The JAX package's input for the port's ``x``: int32 state against
+    float weights is summed in float32 and truncated to int32 by the port,
+    while the Pallas kernels refuse it, so JAX gets the same values as
+    float32 (exact for these small integers) and the sums must be equal."""
+    return jnp.asarray(x.astype(np.float32) if x.dtype == np.int32 and weighted else x)
+
+
+def _close(got, want, exact):
+    assert tuple(got.shape) == tuple(np.shape(want))
+    if exact:
+        np.testing.assert_array_equal(to_np(got), np.asarray(want))
+    else:
+        np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=SUM_RTOL, atol=1e-6)
+
+
+def _opt(a, conv):
+    return None if a is None else conv(a)
+
+
+@pytest.mark.parametrize("name,weighted,with_active,batch,tb", WHOLE_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_block_spmv_matches_pallas_interpret(name, weighted, with_active, batch, tb, dtype):
+    """The plain version of kernel 2 against the Pallas kernel, ESCAPE blocks
+    decoded wrong on purpose by both; against the exact oracle where the
+    graph has no exceptions."""
+    jg, active, x = _whole_inputs(name, weighted, with_active, batch, dtype)
+    jc = jcompress(jg)
+    c = port_graph(jc)
+    if name == "wide":
+        assert c.n_exceptions > 0 and c.num_blocks % tb  # a ragged last tile
+    bits_j, bits_t = jmake_filter(jc).bits, make_filter(c).bits
+    w_j = jc.block_weights if weighted else None
+    want = compressed_block_spmv_pallas(
+        _jax_x(x, weighted), jc.block_first, jc.deltas, jc.valid_count, bits_j,
+        _opt(active, jnp.asarray), w_j, n=jc.n, tile_blocks=tb, interpret=True,
+    )
+    got = compressed_block_spmv(
+        torch.from_numpy(x), c.block_first, c.deltas, c.valid_count, bits_t,
+        _opt(active, _t_words), c.block_weights, n=c.n, tile_blocks=tb,
+    )
+    _close(got, want, dtype == np.int32)
+    if not c.n_exceptions:
+        want = jblock_oracle(jc, _jax_x(x, weighted), bits_j, w_j, _opt(active, jnp.asarray))
+        _close(got, want, dtype == np.int32)
+
+
+@pytest.mark.parametrize("name,weighted,with_active,batch,tb", WHOLE_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_edge_block_spmv_matches_pallas_interpret(name, weighted, with_active, batch, tb,
+                                                  dtype):
+    jg, active, x = _whole_inputs(name, weighted, with_active, batch, dtype)
+    g = port_graph(jg)
+    bits_j, bits_t = jmake_filter(jg).bits, make_filter(g).bits
+    act_j, act_t = _opt(active, jnp.asarray), _opt(active, _t_words)
+    xj = _jax_x(x, True)  # the uncompressed kernel always multiplies by block_w
+    want = edge_block_spmv_pallas(xj, jg.block_dst, jg.block_w, bits_j, act_j,
+                                  n=jg.n, tile_blocks=tb, interpret=True)
+    got = edge_block_spmv(torch.from_numpy(x), g.block_dst, g.block_w, bits_t, act_t, n=g.n,
+                          tile_blocks=tb)
+    _close(got, want, dtype == np.int32)
+    _close(got, jedge_oracle(xj, jg.block_dst, jg.block_w, bits_j, act_j, n=jg.n),
+           dtype == np.int32)
+    want = jspmv_oracle(xj, jg.block_dst, jg.block_w, bits_j, jg.block_src, act_j,
+                        n=jg.n)
+    _close(spmv_vertex_ref(torch.from_numpy(x), g.block_dst, g.block_w, bits_t, g.block_src,
+                           act_t, n=g.n), want, dtype == np.int32)
+
+
+def _dense_exception_graph(weighted):
+    """Every block holds a ≥2¹⁶ gap: far past the exception limit."""
+    rng = np.random.default_rng(3)
+    v = np.arange(300)
+    src = np.concatenate([v, v])
+    dst = np.concatenate([1000 + v, 67000 + v])
+    w = rng.integers(1, 9, src.shape[0]).astype(np.float32) if weighted else None
+    return jbuild_csr(70000, src, dst, w, block_size=32)
+
+
+OPS_CASES = [  # (graph, weighted, with edge_active, batch)
+    ("rmat32", True, False, None), ("rmat64", False, True, 3),
+    ("wide", True, True, 2), ("wide", False, False, None),
+    ("dense_exc", True, True, None), ("dense_exc", False, False, 2),
+]
+
+
+@pytest.mark.parametrize("name,weighted,with_active,batch", OPS_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_compressed_spmv_vertex_matches_jax(name, weighted, with_active, batch, dtype):
+    """The patched whole-graph op: exceptions under the limit are patched,
+    an exception-dense graph takes the exact plain decode, as in JAX."""
+    if name == "dense_exc":
+        jg = _dense_exception_graph(weighted)
+        rng = np.random.default_rng(4)
+        active = (rng.integers(0, 2**32, (jg.num_blocks, 1), dtype=np.uint32)
+                  if with_active else None)
+        shape = (batch, jg.n) if batch else (jg.n,)
+        x = (rng.integers(-50, 50, shape).astype(np.int32) if dtype == np.int32
+             else rng.random(shape).astype(np.float32))
+    else:
+        jg, active, x = _whole_inputs(name, weighted, with_active, batch, dtype, seed=5)
+    jc = jcompress(jg)
+    c = port_graph(jc)
+    if name == "dense_exc":
+        assert c.n_exceptions > max(16, c.num_blocks // 4)
+    elif name == "wide":
+        assert 0 < c.n_exceptions <= 16
+    jfn = jcompressed_spmv_vertex_batched if batch else jcompressed_spmv_vertex
+    fn = compressed_spmv_vertex_batched if batch else compressed_spmv_vertex
+    want = jfn(jc, _jax_x(x, weighted), edge_active=_opt(active, jnp.asarray), interpret=True)
+    got = fn(c, torch.from_numpy(x), edge_active=_opt(active, _t_words))
+    _close(got, want, dtype == np.int32)
+    oracle = compressed_spmv_vertex_ref(c, torch.from_numpy(x), make_filter(c).bits,
+                                        c.block_weights, _opt(active, _t_words))
+    _close(oracle, want, dtype == np.int32)
+
+
+@pytest.mark.parametrize("name,weighted,with_active,batch", OPS_CASES[:4])
+def test_spmv_vertex_matches_jax(name, weighted, with_active, batch):
+    jg, active, x = _whole_inputs(name, weighted, with_active, batch, np.int32, seed=6)
+    g = port_graph(jg)
+    jfn = jspmv_vertex_batched if batch else jspmv_vertex
+    fn = spmv_vertex_batched if batch else spmv_vertex
+    want = jfn(jg, _jax_x(x, True), edge_active=_opt(active, jnp.asarray), interpret=True)
+    got = fn(g, torch.from_numpy(x), edge_active=_opt(active, _t_words))
+    _close(got, want, True)
+    xf = np.random.default_rng(7).random(x.shape).astype(np.float32)
+    want = jfn(jg, jnp.asarray(xf), interpret=True, tile_blocks=16)
+    _close(fn(g, torch.from_numpy(xf), tile_blocks=16), want, False)
+    if batch:  # every lane equals its own single-query run
+        for q in range(batch):
+            np.testing.assert_array_equal(
+                to_np(got[q]), to_np(spmv_vertex(g, torch.from_numpy(x[q]),
+                                                 edge_active=_opt(active, _t_words))))
+
+
+def test_whole_graph_kernels_reject_bad_tiles():
+    jc, c, _, _ = _setup("rmat32", False)
+    x = torch.zeros(c.n)
+    for tb in (0, 33):
+        with pytest.raises(ValueError, match="tile_blocks"):
+            compressed_block_spmv(x, c.block_first, c.deltas, c.valid_count, None, n=c.n,
+                                  tile_blocks=tb)

@@ -43,7 +43,7 @@ def _engines(compressed, strategy):
     g = port_graph(jg)
     jeng = JQueryEngine(jg, plan=jmake_plan(jg, strategy=strategy, tuning=None),
                         max_batch=4, registry=jnoop_registry())
-    eng = QueryEngine(g, plan=make_plan(g, strategy=strategy), max_batch=4,
+    eng = QueryEngine(g, plan=make_plan(g, strategy=strategy, tuning=None), max_batch=4,
                       registry=noop_registry())
     return jeng, eng, g.n
 
