@@ -7,7 +7,9 @@ Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version on the
 card, and drives the port's paths: R-MAT -> compressed CSR -> edgeMap ->
 BFS / wBFS / PageRank -> QueryEngine; the pull SpMV over graph A at full
-width; calibration on the card, and the plan it measures.
+width; calibration on the card, and the plan it measures; the graphFilter
+packing under maximal matching and set cover at full width, and the
+filter algorithms of Table 1 against the CPU route.
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -44,14 +46,28 @@ width; calibration on the card, and the plan it measures.
    equal to its single run; batched auto rounds with a flavor crossover on
    each side of the batch's density run both branches, each lane equal to
    its single run.
-8. The graph tensors of A and B, compressed and CSR, are unchanged (SHA-256
-   before and after).
+9. The graphFilter path (kernel 4, ``filter_pack``): (a) the kernel against
+   its plain version on the card, bits and counts exactly: F_B 32/64/128,
+   NB=4099 (not a multiple of the warps per CTA), subsets all false, all
+   true and random, keep masks all false and random, words with bit 31
+   set, and the real filters of graphs A, B and E; (b) its device time, its
+   plain version's and the bytes bound at graph A's and graph B's shapes,
+   on inputs where the two were first held equal;
+   (c) ``maximal_matching`` and ``set_cover`` (sets: ids < n/3) over graph
+   A's CSR at full width, their invariants checked on the card, kernel 4
+   launched once per round (and once more up front for set cover), and
+   one more matching under ``torch.profiler`` for its device time by kernel;
+   (d) the eight filter algorithms, ``pack_vertices`` with a partial
+   subset and ``filter_edges`` on graph E, compressed and CSR, on the card
+   equal to the CPU route exactly; ``triangle_count`` on graph B.
+8. Last, the graph tensors of A, B and E, compressed and CSR, are unchanged
+   (SHA-256 before and after every phase).
 
 Each path resets the launch counts just before it and reads them just after:
 phases 4-5 for kernel 1, graph A's ``spmv_vertex`` for kernel 3, phase 6
-for kernel 2.  Any failed check raises and the run exits non-zero.  Without
-a CUDA device, or outside a checkout of the repository, the script exits
-with code 2 and prints no result.
+for kernel 2, phase 9(c) for kernel 4.  Any failed check raises and the
+run exits non-zero.  Without a CUDA device, or outside a checkout of the
+repository, the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -85,6 +101,7 @@ TABLE_PATH = ROOT / "build" / "chip_smoke_table.json"
 KERNEL_SOURCES = {
     "compressed": "src/repro_torch/kernels/compressed_spmv/csrc/compressed_spmv.cu",
     "edge": "src/repro_torch/kernels/edge_block_spmv/csrc/edge_block_spmv.cu",
+    "filter": "src/repro_torch/kernels/filter_pack/csrc/filter_pack.cu",
 }
 
 
@@ -136,11 +153,12 @@ def graph_digest(*graphs) -> dict:
 @dataclasses.dataclass
 class Graph:
     """One R-MAT graph: compressed on the host and on the card, and its
-    blocked CSR on the card."""
+    blocked CSR on the card and on the host."""
 
     host: object
     dev: object
     csr: object
+    host_csr: object
     seconds: float
 
 
@@ -155,7 +173,7 @@ def build_graph(n, m, device) -> Graph:
     host = compress(csr)
     dev = from_reference_arrays(*to_reference_arrays(host), device)
     csr_dev = from_reference_arrays(*to_reference_arrays(csr), device)
-    return Graph(host, dev, csr_dev, time.perf_counter() - t0)
+    return Graph(host, dev, csr_dev, csr, time.perf_counter() - t0)
 
 
 def sources(g, k, seed):
@@ -514,6 +532,208 @@ def serve(engine, reqs, plan):
     return secs, launches
 
 
+# ----------------------------------------------------------------------
+# phase 9: the graphFilter path (kernel 4)
+# ----------------------------------------------------------------------
+def pack_case(nb, fb, rng, dev):
+    """Random filter words (bit 31 set in every first word), keep mask and
+    subset of ``nb`` blocks of ``fb`` slots, on ``dev``."""
+    import numpy as np
+    import torch
+
+    bits = rng.integers(-2**31, 2**31, (nb, fb // 32)).astype(np.int32)
+    bits[:, 0] |= np.int32(-2**31)
+    keep = rng.random((nb, fb)) < 0.5
+    sub = rng.random(nb) < 0.6
+    return tuple(torch.from_numpy(a).to(dev) for a in (bits, keep, sub))
+
+
+def same_pack(bits, keep, sub, what):
+    """Kernel 4 and its plain version agree exactly, bits and counts."""
+    import torch
+
+    from repro_torch.kernels import filter_pack_ref, filter_pack_words
+
+    want = filter_pack_ref(bits, keep, sub)
+    got = filter_pack_words(bits, keep, sub)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"kernel 4 differs from plain: {what}")
+
+
+def compare_filter_pack(graphs, rng, stats):
+    """Kernel 4 against its plain version on the card: F_B 32/64/128, NB not
+    a multiple of the warps per CTA, subsets all false / all true / random,
+    keep masks all false / random, and the real filters of ``graphs`` under
+    a real predicate.  Bits and counts must be equal."""
+    import torch
+
+    from repro_torch.core import make_filter
+    from repro_torch.core.primitives import take_fill
+
+    def against_plain(bits, keep, sub, what):
+        same_pack(bits, keep, sub, what)
+        stats["kernel 4"] += 1
+
+    dev = graphs[0].device
+    for fb in (32, 64, 128):
+        bits, keep, sub = pack_case(4099, fb, rng, dev)
+        for sname, s in (("random", sub), ("none", torch.zeros_like(sub)),
+                         ("all", torch.ones_like(sub))):
+            for kname, k in (("random", keep), ("none", torch.zeros_like(keep))):
+                against_plain(bits, k, s, f"F_B={fb} NB=4099 subset {sname} keep {kname}")
+    for g in graphs:
+        f = make_filter(g)
+        keep = ((g.edge_src + g.edge_dst) % 3 != 0).reshape(g.num_blocks, g.block_size)
+        part = take_fill(torch.arange(g.n, device=dev) % 2 == 0, g.block_src, False)
+        for sname, s in (("owners even", part), ("all", torch.ones_like(part))):
+            against_plain(f.bits, keep, s, f"real filter n={g.n} subset {sname}")
+    return 0.0  # every case above is held to exact equality
+
+
+def pack_bytes(NB, FB):
+    """Bytes kernel 4 must move over NB blocks of FB slots: the keep bytes,
+    the words read and written, the subset byte and the count."""
+    return NB * (FB + 2 * (FB // 32) * 4 + 1 + 4)
+
+
+def time_filter_pack(g):
+    """Device ms of kernel 4 and its plain version over the real filter of
+    ``g`` with every block in the subset (the shape of a maximal matching or
+    set cover round), and the bytes bound.  The two are first held equal on
+    these inputs."""
+    import torch
+
+    from repro_torch.core import make_filter
+    from repro_torch.kernels import filter_pack_ref, filter_pack_words
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    bits = make_filter(g).bits
+    keep = (g.edge_dst % 2 == 0).reshape(g.num_blocks, g.block_size)
+    sub = torch.ones(g.num_blocks, dtype=torch.bool, device=g.device)
+    same_pack(bits, keep, sub, f"timed inputs, n={g.n} NB={g.num_blocks}")
+    return dict(
+        ms=device_ms(lambda: filter_pack_words(bits, keep, sub)),
+        plain_ms=device_ms(lambda: filter_pack_ref(bits, keep, sub), runs=5, per_run=3),
+        library_ms=None,   # no one PyTorch call packs, ANDs and counts
+        bound_ms=pack_bytes(g.num_blocks, g.block_size) / HBM_BYTES_PER_S * 1e3,
+        bytes=pack_bytes(g.num_blocks, g.block_size),
+    )
+
+
+def check_matching(g, partner):
+    """Partners are mutual and adjacent; every valid edge has a matched end."""
+    import torch
+
+    n = g.n
+    src, dst = g.edge_src.long(), g.edge_dst.long()
+    valid = dst < n
+    p = torch.cat([partner, partner.new_full((1,), -1)]).long()
+    matched = p >= 0
+    check(bool((p[p[:n].clamp(min=0)] == torch.arange(n, device=g.device))[matched[:n]]
+               .all()), "matching: partners are not mutual")
+    on_edge = torch.zeros(n + 1, dtype=torch.int64, device=g.device)
+    on_edge.index_add_(0, torch.where(valid, src, n), (valid & (p[src] == dst)).long())
+    check(torch.equal(on_edge[:n], matched[:n].long()), "matching: a partner is not adjacent")
+    check(bool((matched[src] | matched[dst])[valid].all()), "matching: not maximal")
+    return int(matched[:n].sum())
+
+
+def check_set_cover(g, sets, in_cover):
+    """The cover lies within the sets; every element with a set neighbour has
+    a neighbour in the cover."""
+    import torch
+
+    n = g.n
+    src, dst = g.edge_src.long(), g.edge_dst.long()
+    valid = dst < n
+    check(not bool((in_cover & ~sets).any()), "set cover: a non-set in the cover")
+    s = torch.cat([sets, sets.new_zeros(1)])
+    c = torch.cat([in_cover, in_cover.new_zeros(1)])
+    elem_edge = valid & s[src] & ~s[dst]
+    coverable = torch.zeros(n + 1, dtype=torch.bool, device=g.device)
+    coverable[dst[elem_edge]] = True
+    covered = torch.zeros(n + 1, dtype=torch.bool, device=g.device)
+    covered[dst[elem_edge & c[src]]] = True
+    check(bool((covered | ~coverable).all()), "set cover: an element is not covered")
+    return int(coverable.sum())
+
+
+def rounds_of(algorithm):
+    from repro_torch.obs import get_registry
+
+    c = get_registry().get("sage_algorithm_rounds_total")
+    return 0 if c is None else int(c.value(algorithm=algorithm))
+
+
+def profile_matching(g, top=8):
+    """One ``maximal_matching`` over ``g`` under ``torch.profiler``: its
+    wall seconds, the device time summed over its kernels (ms), and the
+    ``top`` kernels by device time as (name, ms, calls).  Only the kernel
+    events count: an operator's own event repeats its kernels' time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.algorithms import maximal_matching
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        maximal_matching(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return wall, busy_ms, [(e.key, e.self_device_time_total / 1e3, e.count)
+                           for e in kernels[:top]]
+
+
+def filter_results(g, pri, sets, rng_seed):
+    """Every filter-path result on ``g``: the eight algorithms, and
+    ``pack_vertices`` with a partial subset and ``filter_edges`` from a
+    filter with dirty vertices."""
+    import numpy as np
+    import torch
+
+    from repro_torch import algorithms as A
+    from repro_torch.core import filter_edges, make_filter, pack_vertices
+
+    dev = g.device
+    rng = np.random.default_rng(rng_seed)
+    keep = torch.from_numpy(rng.random(g.num_blocks * g.block_size) < 0.7).to(dev)
+    subset = torch.from_numpy(rng.random(g.n) < 0.5).to(dev)
+    f1 = pack_vertices(g, make_filter(g), subset, keep)
+    f2, remaining = filter_edges(g, f1, torch.roll(keep, 7))
+    orient, orient_keep = A.orientation_filter(g)
+    best, rho = A.densest_subgraph(g)
+    return {
+        "pack_vertices": (f1.bits, f1.active_deg, f1.dirty),
+        "filter_edges": (f2.bits, f2.active_deg, f2.dirty, remaining),
+        "mis": A.mis(g, priorities=pri),
+        "maximal_matching": A.maximal_matching(g),
+        "coloring": A.coloring(g),
+        "set_cover": A.set_cover(g, sets, priorities=pri),
+        "kcore": A.kcore(g),
+        "densest_subgraph": (best, rho),
+        "triangle_count": A.triangle_count(g),
+        "orientation_filter": (orient.bits, orient.active_deg, orient.dirty, orient_keep),
+    }
+
+
+def same_result(a, b) -> bool:
+    import torch
+
+    if isinstance(a, tuple):
+        return all(same_result(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        a, b = a.cpu(), b.cpu()
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}: run it from a "
@@ -551,11 +771,20 @@ def main() -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 8 on ``dev``; returns the kernels' records."""
+    """Phases 2 to 9 on ``dev`` (8, the SHA-256 check, last); returns the
+    kernels' records."""
     import numpy as np
     import torch
 
-    from repro_torch.algorithms import bfs, pagerank, wbfs
+    from repro_torch.algorithms import (
+        bfs,
+        maximal_matching,
+        orientation_filter,
+        pagerank,
+        set_cover,
+        triangle_count,
+        wbfs,
+    )
     from repro_torch.core import edgemap_reduce, edgemap_reduce_batched, exception_dense
     from repro_torch.core import make_plan
     from repro_torch.kernels import (
@@ -563,6 +792,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         compressed_chunked_spmv,
         compressed_spmv_vertex,
         edge_block_spmv,
+        filter_pack_words,
         spmv_vertex,
     )
     from repro_torch.serving import QueryEngine
@@ -585,7 +815,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     gA = A_.dev
     log(f"graph A: n={gA.n} m={gA.m} NB={gA.num_blocks} exceptions={gA.n_exceptions} "
         f"exception_dense={exception_dense(gA)} built in {A_.seconds:.1f} s")
-    digests = graph_digest(gA, A_.csr, gB, B_.csr)
+    digests = graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr)
     wall["graphs"] = time.perf_counter() - t0
 
     # 2. the kernels against their plain versions ----------------------
@@ -782,9 +1012,86 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         "per-lane loops (0 launches); every lane equals its single run")
     wall["measured plan"] = time.perf_counter() - t0
 
-    # 8. large memory is never written ---------------------------------
-    check(graph_digest(gA, A_.csr, gB, B_.csr) == digests, "a graph tensor changed")
-    log("[8] graph A and B tensors, compressed and CSR, unchanged (SHA-256)")
+    # 9. the graphFilter path (kernel 4) --------------------------------
+    t0 = time.perf_counter()
+    stats["kernel 4"] = 0
+    err4 = compare_filter_pack([A_.csr, gB, E_.dev, E_.csr], rng, stats)
+    times4 = {"A": time_filter_pack(A_.csr), "B": time_filter_pack(gB)}
+    log(f"[9] kernel 4 == plain on the card in {stats['kernel 4']} cases (bits and counts "
+        f"exact; F_B 32/64/128, NB=4099, TB={TILE}, real filters of graphs A, B and E)")
+    for gname, t in times4.items():
+        log(f"[9] kernel 4 filter_pack at graph {gname}'s shape, every block in the subset, "
+            f"TB={TILE}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, bound "
+            f"{t['bound_ms']!r} ms ({t['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    # (c) the filter users at full width, on graph A's CSR (kernel 4's path)
+    gcsr = A_.csr
+    filter_pack_words.launches = 0
+    r0 = rounds_of("maximal_matching")
+    ts = time.perf_counter()
+    partner = maximal_matching(gcsr)
+    torch.cuda.synchronize()
+    mm_s = time.perf_counter() - ts
+    mm_rounds = rounds_of("maximal_matching") - r0
+    mm_launches = filter_pack_words.launches
+    matched = check_matching(gcsr, partner)
+    check(mm_launches == mm_rounds > 0,
+          f"maximal_matching: {mm_launches} kernel 4 launches in {mm_rounds} rounds")
+    sets_a = torch.arange(gcsr.n, device=dev) < gcsr.n // 3
+    r0 = rounds_of("set_cover")
+    ts = time.perf_counter()
+    cover = set_cover(gcsr, sets_a, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    sc_s = time.perf_counter() - ts
+    sc_rounds = rounds_of("set_cover") - r0
+    launches4 = filter_pack_words.launches
+    sc_launches = launches4 - mm_launches
+    coverable = check_set_cover(gcsr, sets_a, cover)
+    check(sc_launches == 1 + sc_rounds,
+          f"set_cover: {sc_launches} kernel 4 launches in {sc_rounds} rounds")
+    check(launches4 > 0, "the filter path did not launch kernel 4")
+    log(f"[9] graph A CSR maximal_matching: {mm_rounds} rounds, {matched} vertices matched, "
+        f"invariants held, kernel 4 launches {mm_launches}, wall {mm_s:.3f} s")
+    log(f"[9] graph A CSR set_cover (sets: ids < n/3): {sc_rounds} rounds, cover "
+        f"{int(cover.sum())} sets for {coverable} coverable elements, invariants held, "
+        f"kernel 4 launches {sc_launches} (1 + rounds), wall {sc_s:.3f} s")
+    prof_s, busy_ms, top = profile_matching(gcsr)
+    log(f"[9] graph A CSR maximal_matching under torch.profiler: wall {prof_s:.3f} s, kernels "
+        f"{busy_ms:.1f} ms of device time (busy share {busy_ms / 1e3 / prof_s:.3f})")
+    for name, ms, calls in top:
+        log(f"[9]   {ms:10.3f} ms  {calls:5d} calls  {name[:110]}")
+    # (d) the card against the CPU route, exactly, on graph E
+    pri = torch.randperm(gE.n, generator=torch.Generator().manual_seed(SEED))
+    sets_e = torch.arange(gE.n) < gE.n // 3
+    for kind, gd, gh in (("compressed", E_.dev, E_.host), ("CSR", E_.csr, E_.host_csr)):
+        before = filter_pack_words.launches
+        ts = time.perf_counter()
+        on_card = filter_results(gd, pri.to(dev), sets_e.to(dev), SEED)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - ts
+        card_launches = filter_pack_words.launches - before
+        ts = time.perf_counter()
+        on_cpu = filter_results(gh, pri, sets_e, SEED)
+        cpu_s = time.perf_counter() - ts
+        check(card_launches > 0 and filter_pack_words.launches - before == card_launches,
+              f"graph E {kind}: kernel 4 launches {card_launches} on the card")
+        for name in on_card:
+            check(same_result(on_card[name], on_cpu[name]),
+                  f"graph E {kind}: {name} on the card differs from the CPU route")
+        log(f"[9] graph E {kind}: {', '.join(on_card)} equal the CPU route exactly "
+            f"(triangles {on_card['triangle_count']}); card {card_s:.1f} s with "
+            f"{card_launches} kernel 4 launches, CPU {cpu_s:.1f} s")
+    ts = time.perf_counter()
+    tri = triangle_count(gB)
+    tri_s = time.perf_counter() - ts
+    dmax = int(orientation_filter(gB)[0].active_deg.max())
+    check(tri > 0, "graph B has no triangle")
+    log(f"[9] graph B triangle_count on the card: {tri} triangles, oriented dmax {dmax}, "
+        f"wall {tri_s:.3f} s")
+    wall["filter path"] = time.perf_counter() - t0
+
+    # 8. large memory is never written (after every phase) ---------------
+    check(graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr) == digests, "a graph tensor changed")
+    log("[8] graph A, B and E tensors, compressed and CSR, unchanged (SHA-256)")
     log("wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
     tb_a, tb_b = times_a[("edge", 1)], times_b[("compressed", 1)]
@@ -827,6 +1134,19 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
             "bound_ms": tb_a["bound_ms"],
             "bound_by": "bytes",
             "library_ms": tb_a["library_ms"],
+        },
+        {
+            "name": "filter_pack",
+            "route": "cuda",
+            "source": KERNEL_SOURCES["filter"],
+            "replaces": "src/repro/kernels/filter_pack/filter_pack.py:52",
+            "launches": launches4,
+            "max_abs_err": err4,
+            "ms": times4["A"]["ms"],
+            "plain_ms": times4["A"]["plain_ms"],
+            "bound_ms": times4["A"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": times4["A"]["library_ms"],
         },
     ]
 

@@ -11,7 +11,12 @@ from .compressed import (
     decode_blocks,
     exception_dense,
 )
-from .convert import from_reference_arrays, to_reference_arrays
+from .convert import (
+    filter_from_reference_arrays,
+    filter_to_reference_arrays,
+    from_reference_arrays,
+    to_reference_arrays,
+)
 from .csr import DEFAULT_BLOCK_SIZE, CSRGraph, build_csr, sharded_block_counts
 from .edgemap import (
     edge_map,
@@ -25,9 +30,15 @@ from .edgemap import (
 )
 from .graph_filter import (
     GraphFilter,
+    edge_active_flat,
     edge_active_words,
+    filter_edges,
+    filter_edges_pred,
+    live_block_indices,
     make_filter,
     pack_bits,
+    pack_vertices,
+    unpack_bits,
     unpack_word_bits,
 )
 from .plan import ExecutionPlan, make_plan, round_loop

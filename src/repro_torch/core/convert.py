@@ -3,7 +3,8 @@
 A graph is this system's "weights": the parity tests build one in the JAX
 package, take ``{field: np.asarray(getattr(g, field))}`` of its dataclass
 fields, and rebuild it here with :func:`from_reference_arrays`, so both
-packages run on the same data.  The port stores uint16 codes and uint32
+packages run on the same data.  A graphFilter crosses the same way
+(:func:`filter_from_reference_arrays`).  The port stores uint16 codes and uint32
 words as int16/int32 bit-views; the conversion reinterprets, never rounds.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from ..device import resolve_device
 from .compressed import CompressedCSR
 from .csr import CSRGraph
+from .graph_filter import GraphFilter
 
 CSR_FIELDS = (
     "offsets", "block_offsets", "block_src", "edge_src", "edge_dst", "edge_w", "degrees",
@@ -27,6 +29,8 @@ COMPRESSED_META = (
     "n", "m", "num_blocks", "block_size", "n_exceptions", "weighted",
     "exception_dense_hint",
 )
+FILTER_FIELDS = ("bits", "active_deg", "dirty")
+FILTER_META = ("n", "num_blocks", "block_size")
 _BIT_VIEWS = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 _REFERENCE_VIEWS = {"deltas": np.uint16, "valid_count": np.uint16}
 
@@ -73,3 +77,22 @@ def to_reference_arrays(g) -> tuple[str, dict, dict]:
         a = t.cpu().numpy()
         arrays[f] = a.view(_REFERENCE_VIEWS[f]) if f in _REFERENCE_VIEWS else a
     return kind, arrays, {k: getattr(g, k) for k in meta_keys}
+
+
+def filter_from_reference_arrays(arrays: dict, meta: dict, device=None) -> GraphFilter:
+    """The port's ``GraphFilter`` from numpy copies of a JAX filter's fields
+    (uint32 ``bits`` become their int32 bit-view) and its metadata, placed
+    on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return GraphFilter(
+        **{f: _to_tensor(np.asarray(arrays[f]), dev) for f in FILTER_FIELDS},
+        **{k: int(meta[k]) for k in FILTER_META},
+    )
+
+
+def filter_to_reference_arrays(f: GraphFilter) -> tuple[dict, dict]:
+    """``(arrays, meta)`` of a port filter with the JAX package's dtypes
+    (uint32 ``bits``), the inverse of :func:`filter_from_reference_arrays`."""
+    arrays = {name: getattr(f, name).cpu().numpy() for name in FILTER_FIELDS}
+    arrays["bits"] = arrays["bits"].view(np.uint32)
+    return arrays, {k: getattr(f, k) for k in FILTER_META}

@@ -7,7 +7,13 @@ in this structure, which costs ``m`` bits + O(n) words:
   little-endian within each word; int32 is a bit-view of the uint32 words
   of the JAX package, so ``(w >> s) & 1`` reads the same bits
 * ``active_deg``  int32[n]          — live degree per vertex
+* ``block_live``  derived           — block has ≥1 active edge (the paper's
+  empty-block compaction: ``live_block_indices`` lists the live blocks)
 * ``dirty``       bool[n]           — vertices whose edges changed this round
+
+``pack_vertices`` (edgeMapPack) clears bits through the ``filter_pack``
+kernel on CUDA tensors (its plain version on the CPU): the edge data that
+its predicate read is never written.
 
 The filter composes with either backend (``CSRGraph`` or ``CompressedCSR``):
 the block size is the compression block size (§4.2.1), so the bits line up
@@ -18,6 +24,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..tuning.defaults import DEFAULT_DENSE_RANGE_BLOCKS
+from .backend import dense_block_view
+from .primitives import compact_mask, segment_reduce
 
 WORD = 32
 
@@ -30,6 +40,14 @@ class GraphFilter:
     n: int
     num_blocks: int
     block_size: int
+
+    @property
+    def num_active_edges(self) -> torch.Tensor:
+        return self.active_deg.sum()
+
+    @property
+    def block_live(self) -> torch.Tensor:
+        return (self.bits != 0).any(dim=-1)
 
 
 def _shifts(device) -> torch.Tensor:
@@ -89,3 +107,67 @@ def edge_active_words(edge_active, block_size: int) -> torch.Tensor:
         f"edge_active must be a GraphFilter, packed int32 words, or a bool "
         f"slot mask, got dtype {a.dtype}"
     )
+
+
+def unpack_bits(f: GraphFilter) -> torch.Tensor:
+    """bool[NB, F_B] active-edge mask (the dense working view)."""
+    return unpack_word_bits(f.bits)
+
+
+def edge_active_flat(f: GraphFilter) -> torch.Tensor:
+    """bool[NB*F_B] — flat edge-slot activity mask."""
+    return unpack_bits(f).reshape(-1)
+
+
+def _recount(g, per_block: torch.Tensor) -> torch.Tensor:
+    """active_deg from the per-block popcounts (the ``filter_pack`` kernel's
+    counts) via a segment-sum by block owner (PackVertex)."""
+    return segment_reduce(per_block, g.block_src, g.n + 1, "sum")[: g.n]
+
+
+def _deleted_targets(g, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """bool[n]: targets of the slots set in ``old`` words and clear in
+    ``new``, found one range of blocks at a time (a compressed graph is
+    decoded range by range, exceptions patched)."""
+    n = g.n
+    hit = torch.zeros(n + 1, dtype=torch.bool, device=old.device)
+    R = DEFAULT_DENSE_RANGE_BLOCKS
+    for lo in range(0, g.num_blocks, R):
+        hi = min(lo + R, g.num_blocks)
+        deleted = unpack_word_bits(old[lo:hi] & ~new[lo:hi])
+        ids = torch.where(deleted, dense_block_view(g, lo, hi)[0], n).reshape(-1)
+        hit.index_fill_(0, ids.long(), True)
+    return hit[:n]
+
+
+def pack_vertices(g, f: GraphFilter, subset_mask: torch.Tensor,
+                  keep_pred: torch.Tensor) -> GraphFilter:
+    """edgeMapPack (§4.2.2): for vertices in ``subset_mask``, clear bits of
+    edges failing ``keep_pred`` (bool[NB*F_B] or bool[NB, F_B]).
+
+    The new words and per-block counts come from the ``filter_pack`` op
+    (its kernel on CUDA tensors, the plain version on CPU tensors); this
+    adds the dirty tracking: destination vertices of deleted edges."""
+    from ..kernels.filter_pack import filter_pack
+
+    new = filter_pack(g, f, subset_mask, keep_pred)
+    return dataclasses.replace(new, dirty=f.dirty | _deleted_targets(g, f.bits, new.bits))
+
+
+def filter_edges(g, f: GraphFilter, keep_pred: torch.Tensor):
+    """filterEdges (§4.2): pack every vertex; returns (filter', remaining)."""
+    all_v = torch.ones(g.n, dtype=torch.bool, device=f.bits.device)
+    f2 = pack_vertices(g, f, all_v, keep_pred)
+    return f2, f2.num_active_edges
+
+
+def filter_edges_pred(g, f: GraphFilter, pred_fn):
+    """Convenience: ``pred_fn(src, dst, w) -> keep?`` evaluated on all slots."""
+    return filter_edges(g, f, pred_fn(g.edge_src, g.edge_dst, g.edge_w))
+
+
+def live_block_indices(f: GraphFilter):
+    """Compacted indices of non-empty blocks (the paper's block compaction,
+    as an O(n)-word index list instead of a physical move): (idx int64[NB]
+    padded with NB, count as a Python int)."""
+    return compact_mask(f.block_live, fill=f.num_blocks)

@@ -112,6 +112,20 @@ class PSAMCost:
             small=g.num_blocks + batch * (3 * g.n + (num_shards - 1) * g.n),
         )
 
+    def charge_filter_pack(self, g, touched_blocks: int):
+        """One graphFilter pack over ``touched_blocks`` blocks: the edge ids
+        its predicate needs are read from large memory; only the filter
+        bits and the degrees (small memory) are written."""
+        if hasattr(g, "compressed_bytes"):
+            reads = _compressed_target_words(g, touched_blocks)
+        else:
+            reads = touched_blocks * g.block_size
+        self._charge(
+            "filter_pack",
+            reads=reads,
+            small=touched_blocks * (g.block_size // 32) + g.n,
+        )
+
     @property
     def work(self) -> float:
         """PSAM work: reads unit cost, large writes cost ω."""

@@ -22,3 +22,4 @@ from .edge_block_spmv import (
     spmv_vertex_batched,
     spmv_vertex_ref,
 )
+from .filter_pack import filter_pack, filter_pack_ref, filter_pack_words

@@ -6,7 +6,7 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
-decode and int32 sums must match exactly; float sums within rtol 1e-5,
+decode, filter words and int32 sums must match exactly; float sums within rtol 1e-5,
 because the kernels add the slots of a block in a warp-tree order.
 """
 import pytest
@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
-from repro_torch.algorithms import bfs, wbfs
-from repro_torch.core import compress, make_filter, make_plan
+from repro_torch.algorithms import bfs, maximal_matching, wbfs
+from repro_torch.core import compress, make_filter, make_plan, pack_vertices
 from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
 from repro_torch.data import rmat_graph
 from repro_torch.kernels import (
@@ -28,8 +28,11 @@ from repro_torch.kernels import (
     compressed_spmv_vertex_batched,
     edge_block_spmv,
     edge_block_spmv_ref,
+    filter_pack_ref,
+    filter_pack_words,
     spmv_vertex,
 )
+from repro_torch.tuning import DEFAULT_TILE_BLOCKS
 
 SUM_RTOL = 1e-5  # float sums: warp-tree order against a sequential sum
 
@@ -181,3 +184,61 @@ def test_whole_graph_ops_and_launch_counts(cuda):
     with pytest.raises(TypeError):
         edge_block_spmv(x.double().to(cuda), gcsr.block_dst, gcsr.block_w, None, n=c.n)
     assert (compressed_block_spmv.launches, edge_block_spmv.launches) == before
+
+
+def _pack_case(nb, fb, seed):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(-2**31, 2**31, (nb, fb // 32)).astype(np.int32)
+    bits[:, 0] |= np.int32(-2**31)   # bit 31 set
+    keep = rng.random((nb, fb)) < 0.5
+    sub = rng.random(nb) < 0.6
+    return (torch.from_numpy(bits), torch.from_numpy(keep), torch.from_numpy(sub))
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+@pytest.mark.parametrize("nb", [1, 1001, 4099])
+def test_filter_pack_matches_plain(cuda, fb, nb):
+    """Kernel 4, NB not a multiple of the warps per CTA, every subset case."""
+    assert nb % DEFAULT_TILE_BLOCKS != 0
+    bits, keep, sub = _pack_case(nb, fb, fb + nb)
+    for s in (sub, torch.zeros_like(sub), torch.ones_like(sub)):
+        for k in (keep, torch.zeros_like(keep)):
+            want = filter_pack_ref(bits, k, s)
+            got = filter_pack_words(bits.to(cuda), k.to(cuda), s.to(cuda))
+            torch.cuda.synchronize()
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_pack_vertices_launches_filter_pack_once(cuda):
+    c = _graph(64, False, n=1024, m=8192, seed=6)
+    gc = _to(c, cuda)
+    rng = np.random.default_rng(0)
+    keep = torch.from_numpy(rng.random(c.num_blocks * c.block_size) < 0.7)
+    subset = torch.from_numpy(rng.random(c.n) < 0.5)
+    want = pack_vertices(c, make_filter(c), subset, keep)
+    before = filter_pack_words.launches
+    got = pack_vertices(gc, make_filter(gc), subset.to(cuda), keep.to(cuda))
+    assert filter_pack_words.launches == before + 1
+    for name in ("bits", "active_deg", "dirty"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    before = filter_pack_words.launches
+    partner = maximal_matching(gc)
+    assert torch.equal(partner.cpu(), maximal_matching(c))
+    assert filter_pack_words.launches > before
+
+
+def test_filter_pack_rejects_bad_operands(cuda):
+    bits, keep, sub = (t.to(cuda) for t in _pack_case(50, 64, 1))
+    before = filter_pack_words.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        filter_pack_words(bits, keep.T.contiguous().T, sub)
+    with pytest.raises(TypeError):
+        filter_pack_words(bits, keep.to(torch.uint8), sub)
+    with pytest.raises(TypeError):
+        filter_pack_words(bits.to(torch.int64), keep, sub)
+    with pytest.raises(ValueError):
+        filter_pack_words(bits, keep, sub.cpu())
+    with pytest.raises(ValueError, match="block size"):
+        filter_pack_words(torch.zeros(50, 3, dtype=torch.int32, device=cuda),
+                          torch.zeros(50, 96, dtype=torch.bool, device=cuda), sub)
+    assert filter_pack_words.launches == before

@@ -193,6 +193,9 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.tuning.measure",
         "repro_torch.tuning.table",
         "repro_torch.tuning.__main__",
+        "repro_torch.kernels.filter_pack.ops",
+        "repro_torch.algorithms.covering",
+        "repro_torch.algorithms.substructure",
     } <= loaded
 
 
