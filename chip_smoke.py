@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --lm-only  # phase 10 alone (kernel 6, the LM serving path)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version on the
@@ -9,7 +10,8 @@ card, and drives the port's paths: R-MAT -> compressed CSR -> edgeMap ->
 BFS / wBFS / PageRank -> QueryEngine; the pull SpMV over graph A at full
 width; calibration on the card, and the plan it measures; the graphFilter
 packing under maximal matching and set cover at full width, and the
-filter algorithms of Table 1 against the CPU route.
+filter algorithms of Table 1 against the CPU route; qwen2-1.5B's serving
+path (prefill, then decode through the single-token attention kernel).
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -60,17 +62,40 @@ filter algorithms of Table 1 against the CPU route.
    (d) the eight filter algorithms, ``pack_vertices`` with a partial
    subset and ``filter_edges`` on graph E, compressed and CSR, on the card
    equal to the CPU route exactly; ``triangle_count`` on graph B.
+10. The LM serving path (kernel 6, ``decode_attention``): (a) the kernel
+   against its plain version on the card at the JAX sweep's shapes,
+   qwen2-1.5B's (B, S, Hq, Hkv, D) = (8, 1000, 12, 2, 128) and qwen1.5-4B's
+   MHA (4, 777, 20, 20, 128), float32 and bfloat16, every sequence at
+   length 1, 128 and S, and a mixed batch with a length on a split boundary
+   and one past it: the relative L2 difference of each (sequence, head) row
+   within ``ATTN_REL_TOL`` (1e-5 and 2^-7); (b) its device time, its plain
+   version's and ``scaled_dot_product_attention``'s (a yardstick the port
+   never calls) at B=32, S=pos=32,768, 12 q heads over 2 KV heads, D=128,
+   bfloat16, first held to the plain version within the same limit, which
+   three planted faults there exceed (one row short, a split's rows dropped,
+   the wrong KV head), beside the bytes bound; (c) qwen2-1.5B's full
+   configuration in bfloat16, random weights from seed 0 drawn on the card:
+   8 prompts of 512 tokens, prefill into a 1,024-row cache, 64 greedy
+   decode steps (kernel 6 launched 28 x 64 times), held teacher-forced to
+   the plain route's logits, beside the logits of the three faults on the
+   same tokens; (d) a batch of 32 over a 32,768-row cache
+   filled in place from a seeded generator up to row 32,752 (a real prefill
+   of 32 x 32k tokens would take minutes), 16 decode steps (28 x 16
+   launches), the first held to the plain route (and the faults' read), and
+   one more step under ``torch.profiler``.
 8. Last, the graph tensors of A, B and E, compressed and CSR, are unchanged
    (SHA-256 before and after every phase).
 
 Each path resets the launch counts just before it and reads them just after:
 phases 4-5 for kernel 1, graph A's ``spmv_vertex`` for kernel 3, phase 6
-for kernel 2, phase 9(c) for kernel 4.  Any failed check raises and the
-run exits non-zero.  Without a CUDA device, or outside a checkout of the
-repository, the script exits with code 2 and prints no result.
+for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6.
+Any failed check raises and the run exits non-zero.  Without a CUDA device,
+or outside a checkout of the repository, the script exits with code 2 and
+prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import hashlib
 import json
@@ -102,7 +127,24 @@ KERNEL_SOURCES = {
     "compressed": "src/repro_torch/kernels/compressed_spmv/csrc/compressed_spmv.cu",
     "edge": "src/repro_torch/kernels/edge_block_spmv/csrc/edge_block_spmv.cu",
     "filter": "src/repro_torch/kernels/filter_pack/csrc/filter_pack.cu",
+    "attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
 }
+F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores: kernel 6's arithmetic
+ATTN_SHAPES = [        # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5B, qwen1.5-4B's MHA
+    (2, 64, 4, 4, 8), (6, 300, 8, 2, 16), (3, 128, 6, 1, 32), (8, 1000, 12, 2, 128),
+    (4, 777, 20, 20, 128),
+]
+ATTN_TIMED = (32, 32768, 12, 2, 128)   # qwen2-1.5B heads at the long-context shape
+LM_SERVE = (8, 512, 1024, 64)   # batch, prompt tokens, max_seq, greedy decode steps
+LM_LONG = (32, 32768, 16)       # batch (128 in decode_32k, over 80 GB), max_seq, steps
+# qwen2-1.5B logits, kernel route against the plain route, teacher-forced: the
+# norm of the difference over the norm of the plain logits, per sequence and
+# step (the max abs difference is printed beside it).  Phase 10 reads the
+# planted faults of `attention_faults` beside it.  On an H100 at 28 layers the
+# kernel route reads 0.031 (c) and 0.037 (d); the faults 0.26-1.19 (c), and
+# 0.42-1.15 (d) but for one row short of 32,752 (0.047), which the row limit
+# of (a) and (b) rejects instead.  0.1 lies between them.
+LOGITS_REL_TOL = 0.1
 
 
 def log(*args):
@@ -666,29 +708,27 @@ def rounds_of(algorithm):
     return 0 if c is None else int(c.value(algorithm=algorithm))
 
 
-def profile_matching(g, top=8):
-    """One ``maximal_matching`` over ``g`` under ``torch.profiler``: its
-    wall seconds, the device time summed over its kernels (ms), and the
+def profile_run(fn, top=8):
+    """One ``fn()`` under ``torch.profiler``: its wall seconds, the device
+    time summed over its kernels (ms), the number of kernel launches, and the
     ``top`` kernels by device time as (name, ms, calls).  Only the kernel
     events count: an operator's own event repeats its kernels' time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.algorithms import maximal_matching
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
-        maximal_matching(g)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - ts
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    return wall, busy_ms, [(e.key, e.self_device_time_total / 1e3, e.count)
-                           for e in kernels[:top]]
+    return wall, busy_ms, sum(e.count for e in kernels), [
+        (e.key, e.self_device_time_total / 1e3, e.count) for e in kernels[:top]]
 
 
 def filter_results(g, pri, sets, rng_seed):
@@ -734,7 +774,369 @@ def same_result(a, b) -> bool:
     return a == b
 
 
-def main() -> int:
+# ----------------------------------------------------------------------
+# phase 10: the LM serving path (kernel 6)
+# ----------------------------------------------------------------------
+def attn_case(B, S, Hq, Hkv, D, dtype, dev, seed):
+    """Random q (B, Hq, D) and cache k, v (B, S, Hkv, D) of ``dtype`` on
+    ``dev``, drawn from ``seed``."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+
+
+def attn_lengths(B, S, rows, rng):
+    """The cache lengths of phase 10(a): every sequence at 1, at a tile
+    boundary (128), at S, and a mix in one batch with a split boundary
+    (``rows``) and the row after it, the rest random in [1, S]."""
+    import numpy as np
+
+    mix = rng.integers(1, S + 1, B)
+    fixed = [min(rows, S), min(rows + 1, S), 1, S, min(128, S)]
+    mix[:min(B, len(fixed))] = fixed[:B]
+    return {"1": np.full(B, 1), "tile": np.full(B, min(128, S)), "S": np.full(B, S),
+            "mix": mix}
+
+
+def compare_decode_attention(dev, rng, stats):
+    """Kernel 6 against its plain version on the card at every shape of
+    ``ATTN_SHAPES``, float32 and bfloat16, every length set of
+    ``attn_lengths``, each case within ``ATTN_REL_TOL``.  Returns the max abs
+    error and the max relative error per dtype."""
+    import torch
+
+    from repro_torch.kernels import (
+        ATTN_REL_TOL,
+        decode_attention,
+        decode_attention_ref,
+        decode_attention_rel_err,
+    )
+    from repro_torch.kernels.decode_attention.decode_attention import split_rows
+
+    err, rel = {}, {}
+    for i, (B, S, Hq, Hkv, D) in enumerate(ATTN_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            q, k, v = attn_case(B, S, Hq, Hkv, D, dtype, dev, SEED + i)
+            rows = split_rows(q, k)[1]
+            for name, lengths in attn_lengths(B, S, rows, rng).items():
+                pos = torch.from_numpy(lengths.astype("int32")).to(dev)
+                got = decode_attention(q, k, v, pos)
+                want = decode_attention_ref(q, k, v, pos)
+                r = decode_attention_rel_err(got, want)
+                check(got.dtype == dtype and r <= ATTN_REL_TOL[dtype],
+                      f"kernel 6 (B,S,Hq,Hkv,D)={(B, S, Hq, Hkv, D)} {dtype} pos {name}: "
+                      f"relative error {r} (> {ATTN_REL_TOL[dtype]})")
+                err[dname] = max(err.get(dname, 0.0),
+                                 float((got.float() - want.float()).abs().max()))
+                rel[dname] = max(rel.get(dname, 0.0), r)
+                stats["kernel 6"] += 1
+    return err, rel
+
+
+def without_rows(k, pos, lo, hi):
+    """The cache ``k`` with rows [lo, hi) taken out, and the lengths that
+    leave the other rows below ``pos`` valid."""
+    import torch
+
+    return torch.cat([k[:, :lo], k[:, hi:]], 1), pos - (pos - lo).clamp(0, hi - lo)
+
+
+def attention_faults(rows):
+    """Decode attentions with a planted fault, each the plain version on
+    altered inputs: every sequence one row short; the second split's rows
+    [rows, 2 rows) dropped; q heads read the wrong KV head (the groups
+    interleaved).  Phase 10 shows that its limits reject them."""
+    from repro_torch.kernels import decode_attention_ref
+
+    def one_row_short(q, k, v, pos):
+        return decode_attention_ref(q, k, v, pos - 1)
+
+    def split_dropped(q, k, v, pos):
+        k2, p2 = without_rows(k, pos, rows, 2 * rows)
+        return decode_attention_ref(q, k2, without_rows(v, pos, rows, 2 * rows)[0], p2)
+
+    def wrong_kv_head(q, k, v, pos):
+        b, hq, d = q.shape
+        q = q.reshape(b, hq // k.shape[2], k.shape[2], d).transpose(1, 2).reshape(b, hq, d)
+        return decode_attention_ref(q, k, v, pos)
+
+    return {"one row short": one_row_short, "split dropped": split_dropped,
+            "wrong KV head": wrong_kv_head}
+
+
+def attn_bytes(q, k, pos):
+    """Bytes kernel 6 must move: the K and V rows below each length, q, the
+    lengths and the output."""
+    B, S, Hkv, D = k.shape
+    rows = int(pos.clamp(0, S).sum())
+    return 2 * rows * Hkv * D * k.element_size() + 2 * q.numel() * q.element_size() + 4 * B
+
+
+def attn_flops(q, k, pos):
+    """Multiply-adds of kernel 6, two operations each: q.k and p.v for every
+    q head over the rows below each length."""
+    B, Hq, D = q.shape
+    return 4 * int(pos.clamp(0, k.shape[1]).sum()) * Hq * D
+
+
+def time_decode_attention(dev):
+    """Device ms of kernel 6, of its plain version and of
+    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
+    ``ATTN_TIMED``, bfloat16, every sequence at its full length; the kernel
+    and the yardstick are first held to the plain version within
+    ``ATTN_REL_TOL``, and the planted faults of ``attention_faults`` shown to
+    lie outside it.  And the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        ATTN_REL_TOL,
+        decode_attention,
+        decode_attention_ref,
+        decode_attention_rel_err,
+    )
+    from repro_torch.kernels.decode_attention.decode_attention import split_rows
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    B, S, Hq, Hkv, D = ATTN_TIMED
+    q, k, v = attn_case(B, S, Hq, Hkv, D, torch.bfloat16, dev, SEED)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] < pos[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True)[:, :, 0]
+
+    tol = ATTN_REL_TOL[torch.bfloat16]
+    want = decode_attention_ref(q, k, v, pos)
+    rel = {"kernel": decode_attention_rel_err(decode_attention(q, k, v, pos), want),
+           "sdpa": decode_attention_rel_err(sdpa(), want)}
+    for name, r in rel.items():
+        check(r <= tol, f"{name} at the timed shape differs from plain by {r} relative")
+    for name, fault in attention_faults(split_rows(q, k)[1]).items():
+        rel[name] = decode_attention_rel_err(fault(q, k, v, pos), want)
+        check(rel[name] > tol, f"the limit {tol} does not reject '{name}' ({rel[name]})")
+    del want
+    nbytes, flops = attn_bytes(q, k, pos), attn_flops(q, k, pos)
+    out = dict(
+        ms=device_ms(lambda: decode_attention(q, k, v, pos)),
+        plain_ms=device_ms(lambda: decode_attention_ref(q, k, v, pos), runs=5, per_run=3),
+        library_ms=device_ms(sdpa, runs=5, per_run=3),
+        bytes=nbytes,
+        flops=flops,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+        rel=rel,
+    )
+    del q, k, v, mask
+    return out
+
+
+def greedy_decode(params, caches, logits, pos0, steps, cfg):
+    """``steps`` greedy ``decode_step``s from the prefill's ``logits``;
+    returns the tokens fed in and the logits of every step."""
+    from repro_torch.models.transformer_lm import decode_step
+
+    tokens, out = [], []
+    for i in range(steps):
+        tok = logits.argmax(dim=-1, keepdim=True)
+        logits, caches = decode_step(params, caches, tok, pos0 + i, cfg)
+        tokens.append(tok)
+        out.append(logits)
+    return tokens, out
+
+
+def logits_rel_err(got, want) -> float:
+    """Max over sequences of |got - want| / |want| (L2 norms over the vocab)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+def weight_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(weight_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def fault_line(readings) -> str:
+    return ", ".join(f"{name} {r!r}" for name, r in readings.items())
+
+
+def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
+    """Phase 10: kernel 6 against its plain version and timed; then
+    qwen2-1.5B serving on the card: ``serve`` = (batch, prompt tokens,
+    max_seq, greedy steps) through prefill and ``decode_step``, held to the
+    plain route teacher-forced; ``long`` = (batch, max_seq, steps) decode
+    over a cache filled to max_seq - steps.  The logits of the planted
+    faults of ``attention_faults`` are read beside the kernel route's, on
+    the same tokens.  Returns kernel 6's record."""
+    import torch
+
+    from repro_torch.kernels import ATTN_REL_TOL, decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention.decode_attention import split_rows
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats["kernel 6"] = 0
+    err, rel_a = compare_decode_attention(dev, rng, stats)
+    timing = time_decode_attention(dev)
+    log(f"[10] kernel 6 == plain on the card in {stats['kernel 6']} cases (relative L2 per "
+        f"(sequence, head): float32 within {ATTN_REL_TOL[torch.float32]}, bfloat16 within "
+        f"{ATTN_REL_TOL[torch.bfloat16]}); max relative err float32 {rel_a['float32']!r}, "
+        f"bfloat16 {rel_a['bfloat16']!r}; max abs err float32 {err['float32']!r}, bfloat16 "
+        f"{err['bfloat16']!r}")
+    log(f"[10] kernel 6 at (B,S,Hq,Hkv,D)={ATTN_TIMED} bfloat16, pos=S: kernel "
+        f"{timing['ms']!r} ms, plain {timing['plain_ms']!r} ms, scaled_dot_product_attention "
+        f"(yardstick) {timing['library_ms']!r} ms, bound {timing['bound_ms']!r} ms "
+        f"({timing['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s; {timing['flops']} flops); "
+        f"relative err against plain: {fault_line(timing['rel'])} (limit "
+        f"{ATTN_REL_TOL[torch.bfloat16]}: the last three are planted faults)")
+
+    # (c) requests end to end: prefill, then greedy decode
+    B, P, max_seq, steps = serve
+    params = lm.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    wbytes = weight_bytes(params)
+    prompts = torch.randint(0, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    logits0, caches = lm.prefill(params, prompts, cfg, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - ts
+    cache0 = {"main": {k: t.clone() for k, t in caches["main"].items()}}
+    decode_attention.launches = 0
+    ts = time.perf_counter()
+    tokens, kernel_logits = greedy_decode(params, caches, logits0, P, steps, cfg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - ts
+    launches_c = decode_attention.launches
+    check(launches_c == cfg.n_layers * steps,
+          f"serving: {launches_c} kernel 6 launches, not {cfg.n_layers} x {steps}")
+
+    def teacher_forced(attention):
+        cache = {"main": {k: t.clone() for k, t in cache0["main"].items()}}
+        out = []
+        for i, tok in enumerate(tokens):
+            logits, cache = lm.decode_step(params, cache, tok, P + i, cfg, attention=attention)
+            out.append(logits)
+        return out
+
+    plain = teacher_forced(decode_attention_ref)
+    worst, rel, agree = 0.0, 0.0, 0
+    for i, (got, want) in enumerate(zip(kernel_logits, plain)):
+        check(bool(torch.isfinite(got).all()), f"serving step {i}: logits not finite")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        rel = max(rel, logits_rel_err(got, want))
+        agree += int((want.argmax(-1) == got.argmax(-1)).sum())
+    check(rel <= LOGITS_REL_TOL, f"serving: kernel route logits differ from the plain route "
+                                 f"by {rel} relative (> {LOGITS_REL_TOL})")
+    k0 = cache0["main"]["k"][0]
+    rows_c = split_rows(k0.new_empty((B, cfg.n_heads, cfg.d_head)), k0)[1]
+    faults_c = {name: max(logits_rel_err(got, want) for got, want in zip(teacher_forced(fn), plain))
+                for name, fn in attention_faults(rows_c).items()}
+    check(min(faults_c.values()) > LOGITS_REL_TOL,
+          f"serving: the logits limit does not reject every fault: {fault_line(faults_c)}")
+    ms_c = decode_s / steps * 1e3
+    bound_c = (wbytes + 2 * cfg.n_layers * B * (P + steps / 2) * cfg.n_kv_heads * cfg.d_head
+               * 2) / HBM_BYTES_PER_S * 1e3
+    log(f"[10] {cfg.name} serving, {B} prompts x {P} tokens, max_seq {max_seq}: prefill "
+        f"{prefill_s:.3f} s; {steps} greedy decode steps in {decode_s:.3f} s = {ms_c:.3f} "
+        f"ms/step = {B * steps / decode_s:.1f} tokens/s (bytes bound {bound_c:.3f} ms/step: "
+        f"{wbytes} B of weights and the cache); kernel 6 launches {launches_c} = "
+        f"{cfg.n_layers} x {steps}; teacher-forced plain route: logits relative diff "
+        f"{rel!r} (tolerance {LOGITS_REL_TOL}), max abs diff {worst!r}, greedy tokens agree "
+        f"{agree}/{B * steps}; planted faults (split of {rows_c} rows): {fault_line(faults_c)}")
+    del caches, cache0, plain, kernel_logits, tokens, logits0, prompts
+    torch.cuda.empty_cache()
+
+    # (d) long context at full width: a cache filled in place, then decode
+    B, max_seq, steps = long
+    fill = max_seq - steps
+    caches = lm.make_cache(cfg, B, max_seq, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    for t in (caches["main"]["k"], caches["main"]["v"]):
+        for layer in t:
+            layer[:, :fill].normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=torch.Generator().manual_seed(SEED))
+    tok = tok.to(dev)
+    # the plain route's first step and the faults' on the same cache: each
+    # writes row `fill` itself before it attends, and reads the fill below it
+    want, caches = lm.decode_step(params, caches, tok, fill, cfg, attention=decode_attention_ref)
+    k0 = caches["main"]["k"][0]
+    rows_d = split_rows(k0.new_empty((B, cfg.n_heads, cfg.d_head)), k0)[1]
+    faults_d = {name: logits_rel_err(lm.decode_step(params, caches, tok, fill, cfg,
+                                                    attention=fn)[0], want)
+                for name, fn in attention_faults(rows_d).items()}
+    torch.cuda.synchronize()
+    decode_attention.launches = 0
+    ts = time.perf_counter()
+    first = None
+    for i in range(steps):
+        logits, caches = lm.decode_step(params, caches, tok, fill + i, cfg)
+        first = logits if first is None else first
+        tok = logits.argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - ts
+    launches_d = decode_attention.launches
+    check(launches_d == cfg.n_layers * steps,
+          f"long context: {launches_d} kernel 6 launches, not {cfg.n_layers} x {steps}")
+    check(bool(torch.isfinite(logits).all()), "long context: logits not finite")
+    diff_d = float((first.float() - want.float()).abs().max())
+    rel_d = logits_rel_err(first, want)
+    check(rel_d <= LOGITS_REL_TOL, f"long context: first step differs from the plain route by "
+                                   f"{rel_d} relative")
+    # one row of 32k moves the logits about as little as the rounding does
+    check(min(r for name, r in faults_d.items() if name != "one row short") > LOGITS_REL_TOL,
+          f"long context: the logits limit does not reject a fault: {fault_line(faults_d)}")
+    cache_bytes = 2 * cfg.n_layers * B * (fill + steps / 2) * cfg.n_kv_heads * cfg.d_head * 2
+    bound_d = (wbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    prof_s, busy_ms, n_kernels, top = profile_run(
+        lambda: lm.decode_step(params, caches, tok, max_seq - 1, cfg))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms_d = long_s / steps * 1e3
+    log(f"[10] {cfg.name} long context, batch {B}, cache {max_seq} (filled to {fill} from a "
+        f"seeded generator, {2 * cfg.n_layers * B * max_seq * cfg.n_kv_heads * cfg.d_head * 2}"
+        f" B): {steps} decode steps in {long_s:.3f} s = {ms_d:.3f} ms/step = "
+        f"{B * steps / long_s:.1f} tokens/s; bytes bound {bound_d:.3f} ms/step = "
+        f"{B / bound_d * 1e3:.1f} tokens/s; kernel 6 launches {launches_d} = "
+        f"{cfg.n_layers} x {steps}; first step against the plain route: logits relative diff "
+        f"{rel_d!r}, max abs diff {diff_d!r}; planted faults (split of {rows_d} rows): "
+        f"{fault_line(faults_d)}; peak device memory {peak} B")
+    log(f"[10] one long-context step under torch.profiler: wall {prof_s:.4f} s, {n_kernels} "
+        f"kernels, {busy_ms:.3f} ms of device time: busy {busy_ms / 1e3 / prof_s:.3f} of the "
+        f"profiled step, {busy_ms / ms_d:.3f} of the unprofiled {ms_d:.3f} ms step (the "
+        f"profiler slows the host, not the card)")
+    for name, ms, calls in top:
+        log(f"[10]   {ms:10.3f} ms  {calls:5d} calls  {name[:110]}")
+    del caches, params, logits, first, want
+    torch.cuda.empty_cache()
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": KERNEL_SOURCES["attention"],
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:65",
+        "launches": launches_c + launches_d,
+        "max_abs_err": max(err.values()),
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": "bytes" if timing["bytes"] / HBM_BYTES_PER_S >= timing["flops"] / F32_FLOPS
+        else "operations",
+        "library_ms": timing["library_ms"],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="build the kernels and run phase 10 alone (kernel 6 and the LM "
+                         "serving path): a quick check after editing kernel 6")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}: run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -762,7 +1164,16 @@ def main() -> int:
     log(f"[1] kernel build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    kernels = drive(dev)
+    if args.lm_only:
+        import numpy as np
+
+        from repro_torch.configs import qwen2_1_5b
+
+        t0 = time.perf_counter()
+        kernels = [drive_lm(dev, np.random.default_rng(SEED), {}, qwen2_1_5b.full_config())]
+        log(f"wall seconds: LM serving {time.perf_counter() - t0:.1f}")
+    else:
+        kernels = drive(dev)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
@@ -771,7 +1182,7 @@ def main() -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 9 on ``dev`` (8, the SHA-256 check, last); returns the
+    """Phases 2 to 10 on ``dev`` (8, the SHA-256 check, last); returns the
     kernels' records."""
     import numpy as np
     import torch
@@ -785,6 +1196,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         triangle_count,
         wbfs,
     )
+    from repro_torch.configs import qwen2_1_5b
     from repro_torch.core import edgemap_reduce, edgemap_reduce_batched, exception_dense
     from repro_torch.core import make_plan
     from repro_torch.kernels import (
@@ -1054,7 +1466,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     log(f"[9] graph A CSR set_cover (sets: ids < n/3): {sc_rounds} rounds, cover "
         f"{int(cover.sum())} sets for {coverable} coverable elements, invariants held, "
         f"kernel 4 launches {sc_launches} (1 + rounds), wall {sc_s:.3f} s")
-    prof_s, busy_ms, top = profile_matching(gcsr)
+    prof_s, busy_ms, _, top = profile_run(lambda: maximal_matching(gcsr))
     log(f"[9] graph A CSR maximal_matching under torch.profiler: wall {prof_s:.3f} s, kernels "
         f"{busy_ms:.1f} ms of device time (busy share {busy_ms / 1e3 / prof_s:.3f})")
     for name, ms, calls in top:
@@ -1088,6 +1500,11 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     log(f"[9] graph B triangle_count on the card: {tri} triangles, oriented dmax {dmax}, "
         f"wall {tri_s:.3f} s")
     wall["filter path"] = time.perf_counter() - t0
+
+    # 10. the LM serving path (kernel 6) ---------------------------------
+    t0 = time.perf_counter()
+    record6 = drive_lm(dev, rng, stats, qwen2_1_5b.full_config())
+    wall["LM serving"] = time.perf_counter() - t0
 
     # 8. large memory is never written (after every phase) ---------------
     check(graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr) == digests, "a graph tensor changed")
@@ -1148,6 +1565,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
             "bound_by": "bytes",
             "library_ms": times4["A"]["library_ms"],
         },
+        record6,
     ]
 
 

@@ -96,3 +96,40 @@ def filter_to_reference_arrays(f: GraphFilter) -> tuple[dict, dict]:
     arrays = {name: getattr(f, name).cpu().numpy() for name in FILTER_FIELDS}
     arrays["bits"] = arrays["bits"].view(np.uint32)
     return arrays, {k: getattr(f, k) for k in FILTER_META}
+
+
+def lm_params_from_reference(tree: dict, cfg, device=None) -> dict:
+    """The port's LM parameters from the JAX package's ``init`` tree, given
+    as nested dicts of numpy arrays, placed on ``device`` (default ``cuda``).
+
+    The tree must have exactly the leaves of ``transformer_lm.param_specs``
+    with their shapes; a float32 config takes float32 arrays, a bfloat16
+    config the bit patterns (uint16 or int16 views of the JAX arrays, or
+    the JAX arrays' own 2-byte ``bfloat16`` dtype), which are reinterpreted,
+    never rounded.  Anything else raises."""
+    from ..models.transformer_lm import param_specs  # here: models imports kernels, kernels core
+
+    dev = resolve_device(device)
+    dtype = cfg.activation_dtype
+
+    def carry(spec, node, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict):
+                raise ValueError(f"{path or 'tree'}: expected a dict of leaves")
+            if set(node) != set(spec):
+                raise ValueError(f"{path or 'tree'}: leaves {sorted(node)} differ from "
+                                 f"{sorted(spec)}")
+            return {k: carry(spec[k], node[k], f"{path}/{k}") for k in spec}
+        shape, _ = spec
+        a = np.asarray(node)
+        if a.shape != tuple(shape):
+            raise ValueError(f"{path}: shape {a.shape}, the port's is {tuple(shape)}")
+        if dtype == torch.float32 and a.dtype == np.float32:
+            return torch.from_numpy(a.copy()).to(dev)
+        if dtype == torch.bfloat16 and a.dtype.itemsize == 2 and (
+                a.dtype in (np.uint16, np.int16) or a.dtype.name == "bfloat16"):
+            bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+            return bits.view(torch.bfloat16).to(dev)
+        raise TypeError(f"{path}: dtype {a.dtype} does not carry the port's {dtype}")
+
+    return carry(param_specs(cfg), tree, "")

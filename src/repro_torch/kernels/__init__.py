@@ -23,3 +23,9 @@ from .edge_block_spmv import (
     spmv_vertex_ref,
 )
 from .filter_pack import filter_pack, filter_pack_ref, filter_pack_words
+from .decode_attention import (
+    ATTN_REL_TOL,
+    decode_attention,
+    decode_attention_ref,
+    decode_attention_rel_err,
+)

@@ -7,8 +7,14 @@ PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
 decode, filter words and int32 sums must match exactly; float sums within rtol 1e-5,
-because the kernels add the slots of a block in a warp-tree order.
+because the kernels add the slots of a block in a warp-tree order.  Decode
+attention within ``ATTN_REL_TOL``, the relative L2 difference of each
+(sequence, head) row: 1e-5 in float32 (the kernel sums the rows in split
+ranges and lane groups) and 2^-7 in bfloat16 (one ulp an element, from a
+float32 value rounded once).
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,6 +23,7 @@ import numpy as np
 
 from repro_torch.algorithms import bfs, maximal_matching, wbfs
 from repro_torch.core import compress, make_filter, make_plan, pack_vertices
+from repro_torch.configs import qwen2_1_5b
 from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
 from repro_torch.data import rmat_graph
 from repro_torch.kernels import (
@@ -26,12 +33,18 @@ from repro_torch.kernels import (
     compressed_chunked_spmv_ref,
     compressed_spmv_vertex,
     compressed_spmv_vertex_batched,
+    ATTN_REL_TOL,
+    decode_attention,
+    decode_attention_ref,
+    decode_attention_rel_err,
     edge_block_spmv,
     edge_block_spmv_ref,
     filter_pack_ref,
     filter_pack_words,
     spmv_vertex,
 )
+from repro_torch.kernels.decode_attention.decode_attention import split_rows
+from repro_torch.models import transformer_lm as lm
 from repro_torch.tuning import DEFAULT_TILE_BLOCKS
 
 SUM_RTOL = 1e-5  # float sums: warp-tree order against a sequential sum
@@ -242,3 +255,78 @@ def test_filter_pack_rejects_bad_operands(cuda):
         filter_pack_words(torch.zeros(50, 3, dtype=torch.int32, device=cuda),
                           torch.zeros(50, 96, dtype=torch.bool, device=cuda), sub)
     assert filter_pack_words.launches == before
+
+
+# qwen2-1.5b's smoke logits, kernel route against the plain route, element by
+# element: float32 sums in another order; in bfloat16 the attention output
+# moves by an ulp, which two layers carry into the logits
+LOGITS_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+ATTN_SHAPES = [  # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5b, an MHA, a group over 8 heads
+    (2, 64, 4, 4, 8), (6, 300, 8, 2, 16), (3, 128, 6, 1, 32), (8, 1000, 12, 2, 128),
+    (4, 777, 20, 20, 128), (3, 500, 24, 2, 64),
+]
+
+
+def _attn_case(B, S, Hq, Hkv, D, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(dev)
+               for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    _, rows = split_rows(q, k)
+    pos = torch.randint(1, S + 1, (B,), generator=g, dtype=torch.int32)
+    # 1, S, a tile boundary, and a split boundary with the row after it
+    fixed = [1, S, min(128, S), min(rows, S), min(rows + 1, S)]
+    pos[:len(fixed)] = torch.tensor(fixed[:B], dtype=torch.int32)
+    return q, k, v, pos.to(dev)
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain(cuda, shape, dtype):
+    q, k, v, pos = _attn_case(*shape, dtype, cuda, sum(shape))
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, pos)
+    assert decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert decode_attention_rel_err(got, want) <= ATTN_REL_TOL[dtype]
+
+
+def test_decode_attention_rejects_bad_operands(cuda):
+    q, k, v, pos = _attn_case(2, 64, 6, 2, 32, torch.float32, cuda, 0)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                         v[..., :24].contiguous(), pos)
+    with pytest.raises(ValueError, match="group"):
+        decode_attention(q[:, :5].contiguous(), k, v, pos)
+    with pytest.raises(TypeError):
+        decode_attention(q, k.bfloat16(), v, pos)
+    with pytest.raises(TypeError):
+        decode_attention(q.half(), k.half(), v.half(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, pos)
+    with pytest.raises(TypeError):
+        decode_attention(q, k, v, pos.long())
+    assert decode_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_step_kernel_route_matches_plain(cuda, dtype):
+    """qwen2-1.5b's smoke config on the card: one kernel launch a layer a
+    step, and the logits of the plain route on the same caches."""
+    cfg = dataclasses.replace(qwen2_1_5b.smoke_config(), dtype=dtype)
+    params = lm.init(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (3, 20), generator=torch.Generator().manual_seed(1))
+    toks = toks.to(cuda)
+    _, cache = lm.prefill(params, toks[:, :12], cfg, max_seq=20)
+    tol = LOGITS_TOL[cfg.activation_dtype]
+    for p in range(12, 20):
+        plain_cache = {"main": {k: t.clone() for k, t in cache["main"].items()}}
+        before = decode_attention.launches
+        logits, _ = lm.decode_step(params, cache, toks[:, p:p + 1], p, cfg)
+        assert decode_attention.launches == before + cfg.n_layers
+        want, _ = lm.decode_step(params, plain_cache, toks[:, p:p + 1], p, cfg,
+                                 attention=decode_attention_ref)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(logits.float(), want.float(), rtol=tol, atol=tol)
