@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --lm-only  # phase 10 alone (kernel 6, the LM serving path)
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --lm-only      # phase 10 alone (kernel 6, the LM serving path)
+    python3 chip_smoke.py --recsys-only  # phase 11 alone (kernel 5, SASRec serving)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version on the
@@ -11,7 +12,9 @@ BFS / wBFS / PageRank -> QueryEngine; the pull SpMV over graph A at full
 width; calibration on the card, and the plan it measures; the graphFilter
 packing under maximal matching and set cover at full width, and the
 filter algorithms of Table 1 against the CPU route; qwen2-1.5B's serving
-path (prefill, then decode through the single-token attention kernel).
+path (prefill, then decode through the single-token attention kernel);
+SASRec's serving path (full-catalog top-100 and candidate retrieval, every
+item lookup through the EmbeddingBag kernel).
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -83,12 +86,31 @@ path (prefill, then decode through the single-token attention kernel).
    of 32 x 32k tokens would take minutes), 16 decode steps (28 x 16
    launches), the first held to the plain route (and the faults' read), and
    one more step under ``torch.profiler``.
+11. SASRec serving (kernel 5, ``embedding_bag_sums``): (a) the kernel
+   against its plain version on the card at the JAX sweep's (V, D, B, L),
+   kernels_micro's (4096, 64, 512, 16), D=50 and D=33, float32 and
+   bfloat16, sum and mean, weighted and not, with ids -1, -7, V and V+3
+   and a NaN weight on a padding slot: float32 within rtol 1e-5, bfloat16
+   within one ulp; bags of one exactly the rows, ``take_rows`` on the card
+   exactly the CPU route's; (b) its device time, its plain version's and a
+   yardstick's (``F.embedding``, ``F.embedding_bag``) over the 2^20 x 50
+   float32 catalog at retrieval's 1,000,448 bags of one and 65,536 bags of
+   50 (train_batch's histories), beside the bytes bound; (c) ``serve_p99``:
+   SASRec's full configuration, float32 (no TF32), random weights from
+   seed 0 drawn on the card, 512 users of ``make_sasrec_batch_fn``: full
+   catalog scores and the top 100, 5 timed calls (kernel 5 once each), the
+   first 8 users' scores and top 100 held to the CPU route; (d)
+   ``retrieval_cand``: user 0 against 1,000,448 candidates, 5 timed calls
+   (kernel 5 twice each), held to the CPU route and to (c)'s full-catalog
+   scores at the same items; one call of (c) and of (d) under
+   ``torch.profiler``; (e) the item table unchanged (SHA-256).
 8. Last, the graph tensors of A, B and E, compressed and CSR, are unchanged
    (SHA-256 before and after every phase).
 
 Each path resets the launch counts just before it and reads them just after:
 phases 4-5 for kernel 1, graph A's ``spmv_vertex`` for kernel 3, phase 6
-for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6.
+for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6,
+phase 11(c) and (d) for kernel 5.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
 or outside a checkout of the repository, the script exits with code 2 and
 prints no result.
@@ -128,6 +150,7 @@ KERNEL_SOURCES = {
     "edge": "src/repro_torch/kernels/edge_block_spmv/csrc/edge_block_spmv.cu",
     "filter": "src/repro_torch/kernels/filter_pack/csrc/filter_pack.cu",
     "attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "embedding_bag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
 }
 F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores: kernel 6's arithmetic
 ATTN_SHAPES = [        # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5B, qwen1.5-4B's MHA
@@ -137,6 +160,19 @@ ATTN_SHAPES = [        # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5B, qwen1.5-
 ATTN_TIMED = (32, 32768, 12, 2, 128)   # qwen2-1.5B heads at the long-context shape
 LM_SERVE = (8, 512, 1024, 64)   # batch, prompt tokens, max_seq, greedy decode steps
 LM_LONG = (32, 32768, 16)       # batch (128 in decode_32k, over 80 GB), max_seq, steps
+BAG_SHAPES = [         # (V, D, B, L): the JAX sweep, kernels_micro's, SASRec's width, D=33
+    (50, 8, 16, 4), (100, 16, 37, 5), (200, 32, 64, 9), (4096, 64, 512, 16),
+    (3000, 50, 1000, 50), (500, 33, 77, 3),
+]
+BAG_TIMED = {          # SASRec's catalog: retrieval's candidates, train_batch's histories
+    "retrieval": (1 << 20, 50, 1_000_448, 1),
+    "history": (1 << 20, 50, 65_536, 50),
+}
+RECSYS_CALLS = 5       # timed calls of each SASRec serving step
+CHECK_USERS = 8        # serve_p99 users held to the CPU route
+# SASRec scores, the card against the CPU route: float32 through two blocks
+# and a K=50 product, summed in other orders (full float32: no TF32)
+SCORE_TOL = 1e-5
 # qwen2-1.5B logits, kernel route against the plain route, teacher-forced: the
 # norm of the difference over the norm of the plain logits, per sequence and
 # step (the max abs difference is printed beside it).  Phase 10 reads the
@@ -1131,11 +1167,314 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
     }
 
 
+# ----------------------------------------------------------------------
+# phase 11: SASRec serving (kernel 5)
+# ----------------------------------------------------------------------
+def tensor_digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def plain_bag(table, idx, w, mode):
+    """``ops.embedding_bag`` with the plain version in place of the kernel."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag_ref
+
+    out = embedding_bag_ref(table, idx, w)
+    if mode == "mean":
+        out = out / torch.clamp_min((idx >= 0).to(table.dtype).sum(dim=1, keepdim=True), 1)
+    return out
+
+
+def bag_err(got, want, what):
+    """Kernel 5's output against the plain version's: float32 within rtol
+    ``SUM_RTOL`` (atol ``SUM_ATOL``), bfloat16 within one ulp.  Returns the
+    max abs error and whether the two are bit for bit equal."""
+    import torch
+
+    from repro_torch.kernels import bf16_ulps
+
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype or shape")
+    if want.dtype == torch.bfloat16:
+        ulps = int(bf16_ulps(got, want).max()) if want.numel() else 0
+        check(ulps <= 1, f"{what}: {ulps} bfloat16 ulps from the plain version")
+    else:
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL, msg=what)
+    diff = (got.float() - want.float()).abs()
+    return (float(diff.max()) if diff.numel() else 0.0), bool(torch.equal(got, want))
+
+
+def compare_embedding_bag(dev, stats):
+    """Kernel 5 against its plain version on the card at ``BAG_SHAPES``,
+    float32 and bfloat16, sum and mean, with padding and out-of-range ids;
+    bags of one (weights 1 and None) and ``take_rows`` exactly the rows.
+    Returns the max abs error and the count of cases equal bit for bit."""
+    import torch
+
+    from repro_torch.kernels import bag_case, embedding_bag, embedding_bag_sums, take_rows
+
+    err, exact = 0.0, 0
+    for i, (V, D, B, L) in enumerate(BAG_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            table, idx, w = bag_case(V, D, B, L, dtype, SEED + i, dev)
+            for mode in ("sum", "mean"):
+                for weights in (w, None):
+                    e, same = bag_err(embedding_bag(table, idx, weights, mode=mode),
+                                      plain_bag(table, idx, weights, mode),
+                                      f"kernel 5 (V,D,B,L)={(V, D, B, L)} {dtype} {mode} "
+                                      f"weights={weights is not None}")
+                    err, exact = max(err, e), exact + same
+                    stats["kernel 5"] += 1
+            ones = idx[:, :1].clamp(0, V - 1).contiguous()
+            rows = table[ones[:, 0].long()]
+            for weights in (None, torch.ones((B, 1), dtype=dtype, device=dev)):
+                got = embedding_bag_sums(table, ones, weights)
+                torch.cuda.synchronize()
+                check(torch.equal(got, rows), f"kernel 5 bags of one {(V, D)} {dtype}: not the "
+                                              "rows exactly")
+                stats["kernel 5"] += 1
+            mixed = torch.randint(-V - 5, V + 5, (7, 301), generator=torch.Generator(dev)
+                                  .manual_seed(SEED + i), device=dev, dtype=torch.int32)
+            got = take_rows(table, mixed)
+            torch.cuda.synchronize()
+            check(torch.equal(got.cpu(), take_rows(table.cpu(), mixed.cpu())),
+                  f"take_rows {(V, D)} {dtype}: differs from the CPU route")
+            stats["kernel 5"] += 1
+    return err, exact
+
+
+def bag_bytes(table, idx, w):
+    """Bytes kernel 5 must move: the ids and weights once, one row for every
+    valid slot, the output once."""
+    V, D = table.shape
+    valid = int(((idx >= 0) & (idx < V)).sum())
+    row = D * table.element_size()
+    wbytes = 0 if w is None else w.numel() * table.element_size()
+    return idx.numel() * 4 + wbytes + valid * row + idx.shape[0] * row, valid
+
+
+def time_embedding_bag(dev, name, V, D, B, L):
+    """Device ms of kernel 5, its plain version and a yardstick the port
+    never calls (``F.embedding`` for bags of one, else ``F.embedding_bag``
+    with ``per_sample_weights`` over clamped ids and zeroed padding weights),
+    on a float32 (V, D) table drawn on the card, each first held to the
+    plain version; and the bytes bound.  ``retrieval``: SASRec's candidates,
+    every id valid, no weights (the call ``take_rows`` makes).  ``history``:
+    the histories of a ``make_sasrec_batch_fn`` batch, padding item 0 as
+    padding, normal weights."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.data import make_candidates, make_sasrec_batch_fn
+    from repro_torch.kernels import embedding_bag_ref, embedding_bag_sums
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    table = torch.randn((V, D), generator=gen, device=dev)
+    if L == 1:
+        idx = make_candidates(gen, B, 1, V, device=dev).reshape(B, 1)
+        w = None
+
+        def library():
+            return F.embedding(idx[:, 0], table)
+    else:
+        seq = make_sasrec_batch_fn(V, B, L, device=dev)(SEED)["seq"]
+        idx = torch.where(seq > 0, seq, -1)
+        w = torch.randn((B, L), generator=gen, device=dev)
+        valid = (idx >= 0) & (idx < V)
+        safe, w0 = torch.where(valid, idx, 0), torch.where(valid, w, 0.0)
+
+        def library():
+            return F.embedding_bag(safe, table, per_sample_weights=w0, mode="sum")
+
+    want = embedding_bag_ref(table, idx, w)
+    err, same = bag_err(embedding_bag_sums(table, idx, w), want, f"kernel 5 timed {name}")
+    lib = library()
+    lib_err = float((lib - want).abs().max())
+    check(lib_err <= 1e-4, f"yardstick at {name} differs from plain by {lib_err}")
+    del want, lib
+    nbytes, valid_slots = bag_bytes(table, idx, w)
+    return dict(
+        shape=(V, D, B, L),
+        ms=device_ms(lambda: embedding_bag_sums(table, idx, w)),
+        plain_ms=device_ms(lambda: embedding_bag_ref(table, idx, w), runs=5, per_run=3),
+        library_ms=device_ms(library),
+        bytes=nbytes,
+        valid=valid_slots,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, 2 * valid_slots * D / F32_FLOPS) * 1e3,
+        err=err,
+        exact=same,
+        lib_err=lib_err,
+    )
+
+
+def timed_calls(fn):
+    """Host seconds of each of ``RECSYS_CALLS`` calls of ``fn``, each ending
+    in ``torch.cuda.synchronize()``, and the last call's result."""
+    import torch
+
+    times, out = [], None
+    for _ in range(RECSYS_CALLS):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    return times, out
+
+
+def drive_recsys(dev, stats):
+    """Phase 11: kernel 5 against its plain version and timed; then SASRec's
+    full configuration served on the card: ``serve_p99`` (512 users, the
+    full catalog, top 100) and ``retrieval_cand`` (one query, 1,000,448
+    candidates), each ``RECSYS_CALLS`` times, held to the CPU route of the same
+    parameters; the item table is never written.  Returns kernel 5's record."""
+    import torch
+
+    from repro_torch.configs import sasrec as sasrec_config
+    from repro_torch.data import make_candidates, make_sasrec_batch_fn
+    from repro_torch.kernels import embedding_bag_sums
+    from repro_torch.launch import (
+        TOP_K,
+        assert_topk_agrees,
+        sasrec_retrieval_step,
+        sasrec_serve_step,
+    )
+    from repro_torch.models import sasrec
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
+    check(torch.get_float32_matmul_precision() == "highest", "float32 products must be full")
+    stats["kernel 5"] = 0
+    err, exact = compare_embedding_bag(dev, stats)
+    log(f"[11] kernel 5 == plain on the card in {stats['kernel 5']} cases (float32 rtol "
+        f"{SUM_RTOL}, bfloat16 one ulp; bags of one and take_rows exactly); bit for bit in "
+        f"{exact} of the {len(BAG_SHAPES) * 8} bag-sum cases; max abs err {err!r}")
+    timing = {name: time_embedding_bag(dev, name, *shape) for name, shape in BAG_TIMED.items()}
+    for name, t in timing.items():
+        log(f"[11] kernel 5 at {name} (V,D,B,L)={t['shape']} float32: kernel {t['ms']!r} ms, "
+            f"plain {t['plain_ms']!r} ms, yardstick {t['library_ms']!r} ms, bound "
+            f"{t['bound_ms']!r} ms ({t['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s, "
+            f"{t['valid']} valid slots); against plain max abs err {t['err']!r} (bit for bit "
+            f"{t['exact']}), yardstick {t['lib_err']!r}")
+
+    # (c) serve_p99 at full width
+    cfg = sasrec_config.full_config()
+    users = sasrec_config.SHAPES["serve_p99"]["batch"]
+    params = sasrec.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    digest = tensor_digest(params["item_emb"])
+    batch = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)(SEED)
+    sasrec_serve_step(params, batch, cfg)  # warm-up: cuBLAS and top-k workspaces
+    embedding_bag_sums.launches = 0
+    serve_s, top = timed_calls(lambda: sasrec_serve_step(params, batch, cfg))
+    launches_c = embedding_bag_sums.launches
+    check(launches_c == RECSYS_CALLS,
+          f"serve_p99: {launches_c} kernel 5 launches in {RECSYS_CALLS} calls")
+    check(top["values"].shape == (users, TOP_K) and bool(torch.isfinite(top["values"]).all()),
+          "serve_p99: top-k values not finite or of the wrong shape")
+    full = sasrec.serve_scores(params, batch, cfg)[:CHECK_USERS].clone()
+    host = sasrec.params_to(params, "cpu")
+    few = {"seq": batch["seq"][:CHECK_USERS].cpu()}
+    want_scores = sasrec.serve_scores(host, few, cfg)
+    score_err = float((full.cpu() - want_scores).abs().max())
+    torch.testing.assert_close(full.cpu(), want_scores, rtol=SCORE_TOL, atol=SCORE_TOL,
+                               msg="serve_p99 scores against the CPU route")
+    want_top = sasrec_serve_step(host, few, cfg)
+    ties = assert_topk_agrees({k: v[:CHECK_USERS].cpu() for k, v in top.items()}, want_top,
+                              want_scores, SCORE_TOL, "serve_p99 top-100")
+    ms_c = statistics.median(serve_s) * 1e3
+    flops = 2 * users * cfg.vocab * cfg.embed_dim
+    nbytes = (cfg.vocab + users) * cfg.embed_dim * 4 + users * cfg.vocab * 4
+    bound_c = max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    prof_c = profile_run(lambda: sasrec_serve_step(params, batch, cfg))
+    log(f"[11] {cfg.name} serve_p99: {users} users x {cfg.vocab} items, {RECSYS_CALLS} calls: "
+        f"{ms_c:.3f} ms a batch (median; each: "
+        f"{', '.join(f'{s * 1e3:.3f}' for s in serve_s)}) = {users / (ms_c / 1e3):.1f} users/s; "
+        f"catalog product bound {bound_c:.3f} ms ({flops} flops at {F32_FLOPS / 1e12} TFLOP/s, "
+        f"{nbytes} B); kernel 5 launches {launches_c} = 1 x {RECSYS_CALLS}; first {CHECK_USERS} "
+        f"users "
+        f"against the CPU route: scores max abs diff {score_err!r} (tolerance {SCORE_TOL}), "
+        f"top-{TOP_K} near-tie swaps {ties}")
+    log_profile("11 serve_p99", prof_c, ms_c)
+    del top
+
+    # (d) retrieval_cand at full width: user 0 of (c) against 1,000,448 candidates
+    n_cand = sasrec_config.SHAPES["retrieval_cand"]["n_candidates"]
+    query = {"seq": batch["seq"][:1],
+             "candidates": make_candidates(torch.Generator(dev).manual_seed(SEED + 1), 1, n_cand,
+                                           cfg.vocab, device=dev)}
+    sasrec_retrieval_step(params, query, cfg)  # warm-up
+    embedding_bag_sums.launches = 0
+    ret_s, scores = timed_calls(lambda: sasrec_retrieval_step(params, query, cfg))
+    launches_d = embedding_bag_sums.launches
+    check(launches_d == 2 * RECSYS_CALLS, f"retrieval_cand: {launches_d} kernel 5 launches in "
+                                   f"{RECSYS_CALLS} calls, not 2 x {RECSYS_CALLS}")
+    check(scores.shape == (1, n_cand) and bool(torch.isfinite(scores).all()),
+          "retrieval_cand: scores not finite or of the wrong shape")
+    want_ret = sasrec_retrieval_step(host, {k: v.cpu() for k, v in query.items()}, cfg)
+    ret_err = float((scores.cpu() - want_ret).abs().max())
+    torch.testing.assert_close(scores.cpu(), want_ret, rtol=SCORE_TOL, atol=SCORE_TOL,
+                               msg="retrieval_cand against the CPU route")
+    at_items = full[:1].gather(1, query["candidates"].long())
+    cross_err = float((scores - at_items).abs().max())
+    torch.testing.assert_close(scores, at_items, rtol=SCORE_TOL, atol=SCORE_TOL,
+                               msg="retrieval_cand against serve_p99's scores at the same items")
+    ms_d = statistics.median(ret_s) * 1e3
+    ret_bytes = n_cand * (4 + cfg.embed_dim * 4 + 4)
+    prof_d = profile_run(lambda: sasrec_retrieval_step(params, query, cfg))
+    log(f"[11] {cfg.name} retrieval_cand: 1 query x {n_cand} candidates, {RECSYS_CALLS} calls: "
+        f"{ms_d:.3f} ms a query (median; each: {', '.join(f'{s * 1e3:.3f}' for s in ret_s)}); "
+        f"bytes bound {ret_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({ret_bytes} B: ids, rows, "
+        f"scores); kernel 5 launches {launches_d} = 2 x {RECSYS_CALLS}; against the CPU route "
+        f"max abs "
+        f"diff {ret_err!r}, against serve_p99's full-catalog scores at the same items "
+        f"{cross_err!r} (tolerance {SCORE_TOL})")
+    log_profile("11 retrieval_cand", prof_d, ms_d)
+
+    # (e) the item table, SASRec's large memory, is never written
+    check(tensor_digest(params["item_emb"]) == digest, "SASRec's item table changed")
+    log(f"[11] item_emb unchanged (SHA-256 before and after the phase); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    del params, host, batch, full, scores, query
+    torch.cuda.empty_cache()
+    t = timing["retrieval"]
+    return {
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": KERNEL_SOURCES["embedding_bag"],
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:38",
+        "launches": launches_c + launches_d,
+        "max_abs_err": max(err, *(x["err"] for x in timing.values())),
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": t["library_ms"],
+    }
+
+
+def log_profile(tag, prof, ms):
+    """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
+    wall, busy_ms, n_kernels, top = prof
+    log(f"[{tag}] one call under torch.profiler: wall {wall * 1e3:.3f} ms, {n_kernels} kernels, "
+        f"{busy_ms:.3f} ms of device time: busy {busy_ms / ms:.3f} of the unprofiled "
+        f"{ms:.3f} ms call")
+    for name, kms, count in top:
+        log(f"[{tag}]   {kms:10.3f} ms  {count:5d} calls  {name[:110]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
-    ap.add_argument("--lm-only", action="store_true",
-                    help="build the kernels and run phase 10 alone (kernel 6 and the LM "
-                         "serving path): a quick check after editing kernel 6")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--lm-only", action="store_true",
+                      help="build the kernels and run phase 10 alone (kernel 6 and the LM "
+                           "serving path): a quick check after editing kernel 6")
+    only.add_argument("--recsys-only", action="store_true",
+                      help="build the kernels and run phase 11 alone (kernel 5 and SASRec "
+                           "serving): a quick check after editing kernel 5")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}: run it from a "
@@ -1148,7 +1487,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.build import build_all, resource_usage
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1163,6 +1502,9 @@ def main(argv=None) -> int:
     build_all([ROOT / s for s in KERNEL_SOURCES.values()])
     log(f"[1] kernel build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
         f"{time.perf_counter() - t0:.1f} s")
+    for name, source in KERNEL_SOURCES.items():
+        for entry, (regs, spill) in resource_usage(ROOT / source).items():
+            log(f"[1] ptxas {name} {entry}: {regs} registers a thread, {spill} B spill stores")
 
     if args.lm_only:
         import numpy as np
@@ -1172,6 +1514,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         kernels = [drive_lm(dev, np.random.default_rng(SEED), {}, qwen2_1_5b.full_config())]
         log(f"wall seconds: LM serving {time.perf_counter() - t0:.1f}")
+    elif args.recsys_only:
+        t0 = time.perf_counter()
+        kernels = [drive_recsys(dev, {})]
+        log(f"wall seconds: SASRec serving {time.perf_counter() - t0:.1f}")
     else:
         kernels = drive(dev)
     log(json.dumps({"kernels": kernels}))
@@ -1182,7 +1528,7 @@ def main(argv=None) -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 10 on ``dev`` (8, the SHA-256 check, last); returns the
+    """Phases 2 to 11 on ``dev`` (8, the SHA-256 check, last); returns the
     kernels' records."""
     import numpy as np
     import torch
@@ -1506,6 +1852,11 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     record6 = drive_lm(dev, rng, stats, qwen2_1_5b.full_config())
     wall["LM serving"] = time.perf_counter() - t0
 
+    # 11. SASRec serving (kernel 5) --------------------------------------
+    t0 = time.perf_counter()
+    record5 = drive_recsys(dev, stats)
+    wall["SASRec serving"] = time.perf_counter() - t0
+
     # 8. large memory is never written (after every phase) ---------------
     check(graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr) == digests, "a graph tensor changed")
     log("[8] graph A, B and E tensors, compressed and CSR, unchanged (SHA-256)")
@@ -1565,6 +1916,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
             "bound_by": "bytes",
             "library_ms": times4["A"]["library_ms"],
         },
+        record5,
         record6,
     ]
 

@@ -133,3 +133,37 @@ def lm_params_from_reference(tree: dict, cfg, device=None) -> dict:
         raise TypeError(f"{path}: dtype {a.dtype} does not carry the port's {dtype}")
 
     return carry(param_specs(cfg), tree, "")
+
+
+def sasrec_params_from_reference(tree: dict, cfg, device=None) -> dict:
+    """The port's SASRec parameters from the JAX package's ``init`` tree,
+    given as nested dicts (``blocks`` a list) of float32 numpy arrays,
+    placed on ``device`` (default ``cuda``).
+
+    The tree must have exactly the leaves of ``sasrec.param_shapes`` with
+    their shapes, and every leaf float32; anything else raises."""
+    from ..models.sasrec import param_shapes  # here: models imports kernels, kernels core
+
+    dev = resolve_device(device)
+
+    def carry(spec, node, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict):
+                raise ValueError(f"{path or 'tree'}: expected a dict of leaves")
+            if set(node) != set(spec):
+                raise ValueError(f"{path or 'tree'}: leaves {sorted(node)} differ from "
+                                 f"{sorted(spec)}")
+            return {k: carry(spec[k], node[k], f"{path}/{k}") for k in spec}
+        if isinstance(spec, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(spec):
+                raise ValueError(f"{path}: expected a list of {len(spec)} blocks")
+            return [carry(s, n, f"{path}/{i}") for i, (s, n) in enumerate(zip(spec, node))]
+        shape, _ = spec
+        a = np.asarray(node)
+        if a.shape != tuple(shape):
+            raise ValueError(f"{path}: shape {a.shape}, the port's is {tuple(shape)}")
+        if a.dtype != np.float32:
+            raise TypeError(f"{path}: dtype {a.dtype}, the port's is float32")
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return carry(param_shapes(cfg), tree, "")

@@ -23,6 +23,14 @@ from .edge_block_spmv import (
     spmv_vertex_ref,
 )
 from .filter_pack import filter_pack, filter_pack_ref, filter_pack_words
+from .embedding_bag import (
+    bag_case,
+    bf16_ulps,
+    embedding_bag,
+    embedding_bag_ref,
+    embedding_bag_sums,
+    take_rows,
+)
 from .decode_attention import (
     ATTN_REL_TOL,
     decode_attention,

@@ -3,7 +3,9 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point.  On first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/`` at the repository root, keyed by a hash of the
-source and the flags, and loaded with ``ctypes``.  A failed build raises;
+source and the flags, and loaded with ``ctypes``; ptxas's report of each
+kernel's registers and spills is kept beside it (``resource_usage``).  A
+failed build raises;
 nothing falls back.  Which calls reach a kernel at all is decided by the
 device of their tensors (``repro_torch.device.kernel_route``).
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import pathlib
 import shutil
 import subprocess
@@ -22,6 +25,7 @@ import torch
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # report each kernel's registers and spills
 )
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 BLOCK_SIZES = (32, 64, 128)  # F_B the kernels take: FB/32 slots per lane
@@ -74,11 +78,31 @@ def build_all(sources) -> None:
         for source, lib, tmp, proc in started:  # wait for all before raising
             out, _ = proc.communicate()
             if proc.returncode == 0:
+                lib.with_suffix(".ptxas").write_text(out)
                 os.replace(tmp, lib)
             else:
                 failed.append(f"nvcc failed on {source} (exit {proc.returncode}):\n{out}")
         if failed:
             raise RuntimeError("\n".join(failed))
+
+
+def resource_usage(source) -> dict[str, tuple[int, int]]:
+    """What ptxas reported when ``source`` was built: ``{kernel: (registers
+    a thread, spill store bytes)}`` by mangled name; empty when this
+    build's report is not at hand."""
+    report = _library_path(pathlib.Path(source)).with_suffix(".ptxas")
+    if not report.exists():
+        return {}
+    usage, name, spill = {}, None, 0
+    for line in report.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            usage[name] = (int(m.group(1)), spill)
+            name = None
+    return usage
 
 
 def load_library(source) -> ctypes.CDLL:

@@ -1,0 +1,250 @@
+// EmbeddingBag (gather + weighted bag sum) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel embedding_bag_pallas
+// (src/repro/kernels/embedding_bag/embedding_bag.py, body _kernel): for every
+// bag b of a (B, L) id matrix,
+//
+//   out[b, :] = sum over slots s with 0 <= ids[b, s] < V of
+//               w[b, s] * table[ids[b, s], :]
+//
+// in float32, rounded once to the table's dtype (float32 or bfloat16).  Any
+// other id (negative padding, or >= V) is skipped: neither its row nor its
+// weight is read into the sum.  `weights` may be NULL: every weight is 1.
+// The weights come in the table's dtype (the wrapper casts them, as the JAX
+// kernel does).  The table is the read-only large memory: never written.
+//
+// Bound on the H100: bandwidth.  A call must read the ids and weights once,
+// one row of D elements for every valid slot, and write B rows: for SASRec's
+// retrieval (1,000,448 bags of one over a 2^20 x 50 float32 catalog, no
+// weights), 404 MB, 0.121 ms at 3.35 TB/s.  The arithmetic is one multiply-add an
+// element read.
+//
+// Design: one warp per bag, kBags (8) bags per CTA, no padding: the last CTA's
+// surplus warps exit on a bounds check.  Lanes load up to 32 slots' ids and
+// weights at once; a ballot of the valid slots is walked in slot order, and
+// each valid slot's id and weight are broadcast with __shfl_sync, so padding
+// costs no row read and the loop is uniform across the warp.  Lanes split a
+// row into vectors of VB bytes (16, 8, 4 or one element, chosen by the
+// wrapper from D * elt and the pointers' alignment: SASRec's 200-byte
+// float32 rows take 8 B, its 100-byte bfloat16 rows 4 B), one vector a lane,
+// 32 vectors a column tile.  Up to four rows are loaded before they are
+// added, to keep more bytes in flight.  The products and the sum use
+// __fmul_rn and __fadd_rn (no fused multiply-add) in slot order, the plain
+// version's arithmetic, so a bag of one with weight 1 is its row exactly.
+// Row offsets are 64-bit.  The TPU's VMEM-resident table and its padding of
+// the batch to a tile are not carried over.
+// Left for later: at D = 50 and L = 1 a warp moves one 200-byte row and 7
+// lanes idle; several bags a warp would put more bytes in flight.
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <type_traits>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kAhead = 4;  // rows loaded before they are added
+constexpr int kBags = 8;   // bags per CTA, a warp each
+// CTAs an SM must hold at once: 64 warps, the most an SM takes, which caps a
+// thread at 32 registers.  The kernel is latency-bound, so its time follows
+// the warps an SM holds: on an H100 SXM (700 W), retrieval's shape took
+// 0.230 ms so, and 0.277 ms or 0.318 ms when the compiler, uncapped, took
+// registers enough to fit fewer warps.  The cap may cost the 16-byte builds
+// a few spilled words (chip_smoke.py prints ptxas's report).
+constexpr int kMinCtas = 2048 / (32 * kBags);
+
+template <int VB>
+__device__ __forceinline__ void load_words(const void* p, unsigned (&w)[VB / 4]) {
+  if constexpr (VB == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (VB == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  }
+}
+
+template <int VB>
+__device__ __forceinline__ void store_words(void* p, const unsigned (&w)[VB / 4]) {
+  if constexpr (VB == 16) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (VB == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<unsigned*>(p) = w[0];
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+// One vector of VB bytes of a row as float32 values (bfloat16 widens exactly).
+template <typename T, int VB>
+__device__ __forceinline__ void load_vec(const T* p, float (&f)[VB / sizeof(T)]) {
+  if constexpr (VB == 2) {
+    f[0] = __uint_as_float(static_cast<unsigned>(
+               __ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+  } else {
+    unsigned w[VB / 4];
+    load_words<VB>(p, w);
+#pragma unroll
+    for (int i = 0; i < VB / 4; ++i) {
+      if constexpr (std::is_same_v<T, float>) {
+        f[i] = __uint_as_float(w[i]);
+      } else {  // little-endian: the low half is the first element
+        f[2 * i] = __uint_as_float(w[i] << 16);
+        f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void store_vec(T* p, const float (&f)[VB / sizeof(T)]) {
+  if constexpr (VB == 2) {
+    *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(bf16_bits(f[0]));
+  } else {
+    unsigned w[VB / 4];
+#pragma unroll
+    for (int i = 0; i < VB / 4; ++i) {
+      if constexpr (std::is_same_v<T, float>) {
+        w[i] = __float_as_uint(f[i]);
+      } else {
+        w[i] = bf16_bits(f[2 * i]) | (bf16_bits(f[2 * i + 1]) << 16);
+      }
+    }
+    store_words<VB>(p, w);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float weight_of(const T* w) {
+  if constexpr (std::is_same_v<T, float>) {
+    return __ldg(w);
+  } else {
+    return __uint_as_float(static_cast<unsigned>(
+               __ldg(reinterpret_cast<const unsigned short*>(w))) << 16);
+  }
+}
+
+template <typename T, int VB>
+__global__ void __launch_bounds__(32 * kBags, kMinCtas)
+embedding_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ ids,
+                     const T* __restrict__ weights, int V, int D, int B, int L,
+                     T* __restrict__ out) {
+  constexpr int N = VB / sizeof(T);  // elements a lane loads at once
+  const int lane = threadIdx.x & 31;
+  const int bag = blockIdx.x * kBags + (threadIdx.x >> 5);
+  if (bag >= B) return;  // uniform across the warp
+  const int nvec = D / N;
+  const int32_t* bag_ids = ids + static_cast<int64_t>(bag) * L;
+  const T* bag_w = weights == nullptr ? nullptr : weights + static_cast<int64_t>(bag) * L;
+  T* orow = out + static_cast<int64_t>(bag) * D;
+
+  for (int c0 = 0; c0 < nvec; c0 += 32) {  // column tiles of 32 vectors
+    const int col = (c0 + lane) * N;
+    const bool active = c0 + lane < nvec;
+    float acc[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] = 0.f;
+    for (int s0 = 0; s0 < L; s0 += 32) {
+      int my_id = -1;
+      float my_w = 1.f;
+      if (s0 + lane < L) {
+        my_id = __ldg(bag_ids + s0 + lane);
+        if (bag_w != nullptr) my_w = weight_of<T>(bag_w + s0 + lane);
+      }
+      unsigned todo = __ballot_sync(kFull, my_id >= 0 && my_id < V);
+      while (todo != 0u) {  // the valid slots in order, kAhead at a time
+        float row[kAhead][N];
+        float wt[kAhead];
+        bool have[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          have[u] = todo != 0u;
+          const int src = have[u] ? __ffs(todo) - 1 : 0;
+          todo &= todo - 1u;
+          const int id = __shfl_sync(kFull, my_id, src);
+          wt[u] = __shfl_sync(kFull, my_w, src);
+          if (have[u] && active) {
+            load_vec<T, VB>(table + static_cast<int64_t>(id) * D + col, row[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < N; ++e) row[u][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          if (have[u]) {
+#pragma unroll
+            for (int e = 0; e < N; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(row[u][e], wt[u]));
+          }
+        }
+      }
+    }
+    if (active) store_vec<T, VB>(orow + col, acc);
+  }
+}
+
+template <typename T, int VB>
+cudaError_t launch(const void* table, const int32_t* ids, const void* weights, int V, int D,
+                   int B, int L, void* out, cudaStream_t stream) {
+  const dim3 grid((B + kBags - 1) / kBags);
+  const dim3 block(32 * kBags);
+  embedding_bag_kernel<T, VB><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(table), ids, static_cast<const T*>(weights), V, D, B, L,
+      static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_vb(int vec_bytes, const void* table, const int32_t* ids,
+                      const void* weights, int V, int D, int B, int L, void* out,
+                      cudaStream_t stream) {
+  switch (vec_bytes) {
+    case 16:
+      return launch<T, 16>(table, ids, weights, V, D, B, L, out, stream);
+    case 8:
+      return launch<T, 8>(table, ids, weights, V, D, B, L, out, stream);
+    case 4:
+      return launch<T, 4>(table, ids, weights, V, D, B, L, out, stream);
+    case 2:  // one bfloat16 element; a float32 element is 4 bytes
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        return launch<T, 2>(table, ids, weights, V, D, B, L, out, stream);
+      }
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// table (V, D) of dtype 0 (float32) or 1 (bfloat16); ids (B, L) int32;
+// weights (B, L) of the table's dtype, or NULL for weights of 1; writes out
+// (B, D) of the table's dtype.  `vec_bytes` (16, 8, 4, or 2 for bfloat16)
+// must divide D * elt and the table's and the output's addresses.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int embedding_bag_launch(const void* table, const int32_t* ids, const void* weights,
+                                    int V, int D, int B, int L, int dtype, int vec_bytes,
+                                    void* out, void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  if (V < 0 || L < 0) return cudaErrorInvalidValue;
+  const int elt = dtype == 0 ? 4 : 2;
+  if (vec_bytes < elt || (D * elt) % vec_bytes != 0 ||
+      reinterpret_cast<uintptr_t>(table) % vec_bytes != 0 ||
+      reinterpret_cast<uintptr_t>(out) % vec_bytes != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_vb<float>(vec_bytes, table, ids, weights, V, D, B, L, out, s);
+    case 1:
+      return launch_vb<__nv_bfloat16>(vec_bytes, table, ids, weights, V, D, B, L, out, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

@@ -1,2 +1,3 @@
-"""Models of the port: the dense-GQA transformer LM's serving path."""
-from . import transformer_lm
+"""Models of the port: the dense-GQA transformer LM's serving path and
+SASRec's serving path."""
+from . import sasrec, transformer_lm

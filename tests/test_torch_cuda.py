@@ -11,7 +11,9 @@ because the kernels add the slots of a block in a warp-tree order.  Decode
 attention within ``ATTN_REL_TOL``, the relative L2 difference of each
 (sequence, head) row: 1e-5 in float32 (the kernel sums the rows in split
 ranges and lane groups) and 2^-7 in bfloat16 (one ulp an element, from a
-float32 value rounded once).
+float32 value rounded once).  EmbeddingBag sums within rtol 1e-5 in
+float32 and one ulp in bfloat16 (a float32 sum rounded once); bags of one,
+and so ``take_rows``, exactly.
 """
 import dataclasses
 
@@ -24,6 +26,7 @@ import numpy as np
 from repro_torch.algorithms import bfs, maximal_matching, wbfs
 from repro_torch.core import compress, make_filter, make_plan, pack_vertices
 from repro_torch.configs import qwen2_1_5b
+from repro_torch.configs import sasrec as sasrec_config
 from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
 from repro_torch.data import rmat_graph
 from repro_torch.kernels import (
@@ -39,11 +42,20 @@ from repro_torch.kernels import (
     decode_attention_rel_err,
     edge_block_spmv,
     edge_block_spmv_ref,
+    bag_case,
+    bf16_ulps,
+    embedding_bag,
+    embedding_bag_ref,
+    embedding_bag_sums,
     filter_pack_ref,
     filter_pack_words,
     spmv_vertex,
+    take_rows,
 )
 from repro_torch.kernels.decode_attention.decode_attention import split_rows
+from repro_torch.data import make_candidates
+from repro_torch.launch import assert_topk_agrees, sasrec_retrieval_step, sasrec_serve_step
+from repro_torch.models import sasrec
 from repro_torch.models import transformer_lm as lm
 from repro_torch.tuning import DEFAULT_TILE_BLOCKS
 
@@ -330,3 +342,98 @@ def test_decode_step_kernel_route_matches_plain(cuda, dtype):
                                  attention=decode_attention_ref)
         torch.cuda.synchronize()
         torch.testing.assert_close(logits.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (V, D, B, L): the JAX sweep, kernels_micro's, SASRec's width, an odd width
+BAG_SHAPES = [(50, 8, 16, 4), (100, 16, 37, 5), (200, 32, 64, 9), (4096, 64, 512, 16),
+              (3000, 50, 1000, 50), (500, 33, 77, 3)]
+
+
+def _assert_bags(got, want):
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype == torch.bfloat16:
+        assert int(bf16_ulps(got, want).max()) <= 1
+    else:
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", BAG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_matches_plain(cuda, shape, dtype, mode):
+    """Kernel 5, B not a multiple of the warps per CTA for most shapes."""
+    table, idx, w = bag_case(*shape, dtype, sum(shape))
+    before = embedding_bag_sums.launches
+    got = embedding_bag(table.to(cuda), idx.to(cuda), w.to(cuda), mode=mode)
+    assert embedding_bag_sums.launches == before + 1
+    _assert_bags(got, embedding_bag(table, idx, w, mode=mode))
+    _assert_bags(embedding_bag_sums(table.to(cuda), idx.to(cuda)), embedding_bag_ref(table, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bags_of_one_and_take_rows_are_exact(cuda, dtype):
+    V = 1000
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.standard_normal((V, 50)).astype(np.float32)).to(dtype)
+    ids = torch.from_numpy(rng.integers(0, V, (4099, 1)).astype(np.int32))
+    want = table[ids[:, 0].long()]
+    for w in (None, torch.ones(4099, 1, dtype=dtype)):
+        got = embedding_bag_sums(table.to(cuda), ids.to(cuda), None if w is None else w.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    mixed = torch.from_numpy(rng.integers(-V - 5, V + 5, (7, 301)).astype(np.int32))
+    before = embedding_bag_sums.launches
+    got = take_rows(table.to(cuda), mixed.to(cuda))
+    assert embedding_bag_sums.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), take_rows(table, mixed))
+    buf = torch.empty(table.numel() + 1, dtype=dtype, device=cuda)
+    buf[1:] = table.flatten().to(cuda)
+    odd = buf[1:].view(table.shape)  # the rows one element off: narrower loads
+    assert torch.equal(take_rows(odd, mixed.to(cuda)).cpu(), take_rows(table, mixed))
+
+
+def test_embedding_bag_rejects_bad_operands(cuda):
+    table, idx, w = bag_case(50, 8, 16, 4, torch.float32, 0, cuda)
+    before = embedding_bag_sums.launches
+    with pytest.raises(TypeError):
+        embedding_bag_sums(table, idx.long(), w)
+    with pytest.raises(TypeError):
+        embedding_bag_sums(table.half(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_sums(table.T.contiguous().T, idx, w)
+    with pytest.raises(ValueError):
+        embedding_bag_sums(table, idx.cpu(), w)
+    with pytest.raises(ValueError):
+        embedding_bag_sums(table, idx, w[:, :3].contiguous())
+    with pytest.raises(ValueError):
+        embedding_bag_sums(table[0], idx, w)
+    assert embedding_bag_sums.launches == before
+
+
+def test_sasrec_serving_on_the_card_matches_the_cpu_route(cuda):
+    """SASRec's smoke config: one kernel launch a serve step, two a
+    retrieval step, and the CPU route's scores and top-100."""
+    cfg = sasrec_config.smoke_config()
+    params = sasrec.init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    batch = sasrec_config.smoke_batch(0, device="cpu")
+    on_card = sasrec.params_to(params, cuda)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    before = embedding_bag_sums.launches
+    got = sasrec_serve_step(on_card, card_batch, cfg)
+    assert embedding_bag_sums.launches == before + 1
+    want = sasrec_serve_step(params, batch, cfg)
+    torch.cuda.synchronize()
+    assert_topk_agrees({k: v.cpu() for k, v in got.items()}, want,
+                       sasrec.serve_scores(params, batch, cfg), 1e-5)
+    before = embedding_bag_sums.launches
+    got = sasrec_retrieval_step(on_card, card_batch, cfg)
+    assert embedding_bag_sums.launches == before + 2
+    torch.testing.assert_close(got.cpu(), sasrec_retrieval_step(params, batch, cfg),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="generator"):
+        make_candidates(torch.Generator(), 1, 8, cfg.vocab, device=cuda)
+    cand = make_candidates(torch.Generator(cuda).manual_seed(0), 1, 8, cfg.vocab)
+    assert cand.device.type == "cuda"

@@ -363,3 +363,22 @@ def test_whole_graph_kernels_reject_bad_tiles():
         with pytest.raises(ValueError, match="tile_blocks"):
             compressed_block_spmv(x, c.block_first, c.deltas, c.valid_count, None, n=c.n,
                                   tile_blocks=tb)
+
+
+def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    source = tmp_path / "k.cu"
+    source.write_text("// a kernel")
+    assert build.resource_usage(source) == {}
+    build._library_path(source).with_suffix(".ptxas").write_text(
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aPf\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 0 barriers, 8 bytes cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 0 barriers\n")
+    assert build.resource_usage(source) == {"_Z1aPf": (32, 8), "_Z1bPf": (40, 0)}
