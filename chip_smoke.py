@@ -25,18 +25,22 @@ item lookup through the EmbeddingBag kernel).
    within rtol 1e-5 (the kernel adds a block's slots in a warp-tree order).
    Then kernels 2 (``compressed_block_spmv``) and 3 (``edge_block_spmv``)
    against theirs on graphs B and E: one query and B=8, weighted and
-   unweighted, with and without ``edge_active``, tile_blocks 4/8/16; int32
+   unweighted, with and without ``edge_active``, tile_blocks 4/8/16, kernel
+   3 with the owner arrays (real slots only) and without (whole rows); int32
    sums exactly, float32 within rtol 1e-5; each batched lane equal to its
    single run; the patched ops on graph E equal to the CPU route; the
    compressed and the uncompressed op equal on graph B for int32 x.  Then
-   the device time of each kernel, of its plain version and of a one-call
-   yardstick (cuSPARSE for the SpMVs) at graph B's shape.
+   the device time of each kernel (kernel 3 both ways), of its plain
+   version and of a one-call yardstick (cuSPARSE for the SpMVs) at graph
+   B's shape, beside the bytes bound (kernel 3's counts the real slots).
 3. Graph A, the full ``sage-graph`` configuration (n=2^20, m=2^24, weighted,
    F_B=128, seed 0): dense PageRank and direction-optimised BFS, checked on
    the card.  The graph is exception-dense, so ``sparse_streamed`` runs the
    plain ``sparse`` path and launches no kernel, as the JAX package does.
-   Then ``spmv_vertex`` over graph A's CSR (kernel 3 at full width), equal to
-   ``compressed_spmv_vertex`` for int32 x, with kernel 3's device time there.
+   Then ``spmv_vertex`` over graph A's CSR (kernel 3 at full width, real
+   slots, no filter words), equal to ``compressed_spmv_vertex`` for int32 x,
+   its host wall beside that of a call that builds the all-true filter
+   first, and kernel 3's device time there, both ways.
 4. Graph B (n=2^16, m=2^23, weighted, F_B=128, seed 0), which has no
    exceptions: BFS and wBFS on a ``sparse_streamed`` plan launch kernel 1
    and equal the CPU route exactly; PageRank with ``eps=0`` and a fixed
@@ -90,9 +94,13 @@ item lookup through the EmbeddingBag kernel).
    against its plain version on the card at the JAX sweep's (V, D, B, L),
    kernels_micro's (4096, 64, 512, 16), D=50 and D=33, float32 and
    bfloat16, sum and mean, weighted and not, with ids -1, -7, V and V+3
-   and a NaN weight on a padding slot: float32 within rtol 1e-5, bfloat16
-   within one ulp; bags of one exactly the rows, ``take_rows`` on the card
-   exactly the CPU route's; (b) its device time, its plain version's and a
+   and a NaN weight on a padding slot: every bag sum bit for bit the plain
+   version's (float32 within rtol 1e-5 and bfloat16 within one ulp
+   checked first); bags of one exactly the rows, ``take_rows`` on the card
+   exactly the CPU route's; the bags-of-one path (L = 1) at B = 1, 31, 33
+   and 1000, float32 and bfloat16 rows of every load width, -0.0 and
+   out-of-range ids planted, weighted and not, bit for bit; (b) its device
+   time, its plain version's and a
    yardstick's (``F.embedding``, ``F.embedding_bag``) over the 2^20 x 50
    float32 catalog at retrieval's 1,000,448 bags of one and 65,536 bags of
    50 (train_batch's histories), beside the bytes bound; (c) ``serve_p99``:
@@ -107,6 +115,8 @@ item lookup through the EmbeddingBag kernel).
 8. Last, the graph tensors of A, B and E, compressed and CSR, are unchanged
    (SHA-256 before and after every phase).
 
+No timed call, kernel or library yardstick of the same function, may read
+under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
 phases 4-5 for kernel 1, graph A's ``spmv_vertex`` for kernel 3, phase 6
 for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6,
@@ -141,6 +151,7 @@ TILES = (4, 8, 16)             # calibration's tile grid: blocks (warps) per CTA
 TILE = 8                       # DEFAULT_TILE_BLOCKS: the timed launch shape
 SUM_RTOL = 1e-5    # float sums: warp-tree order against a sequential sum
 SUM_ATOL = 1e-6    # the same, for blocks whose sum is near 0
+BOUND_SLACK = 0.05  # no timed call may read under its bound by more than this share
 PR_SUM_TOL = 1e-4  # PageRank mass, float32 over 2^20 scores
 PR_ATOL = 1e-6     # PageRank on B against the CPU route: scores ~1.5e-5, other sum order
 PR_ITERS = 10
@@ -163,6 +174,11 @@ LM_LONG = (32, 32768, 16)       # batch (128 in decode_32k, over 80 GB), max_seq
 BAG_SHAPES = [         # (V, D, B, L): the JAX sweep, kernels_micro's, SASRec's width, D=33
     (50, 8, 16, 4), (100, 16, 37, 5), (200, 32, 64, 9), (4096, 64, 512, 16),
     (3000, 50, 1000, 50), (500, 33, 77, 3),
+]
+BAG_ONE_B = (1, 31, 33, 1000)    # bags of one: a warp's 32, one short, one over, many
+BAG_ONE_ROWS = [                 # (dtype, D): row loads of 16, 8, 4 and 2 B
+    ("float32", 64), ("float32", 50), ("float32", 33),
+    ("bfloat16", 64), ("bfloat16", 50), ("bfloat16", 33),
 ]
 BAG_TIMED = {          # SASRec's catalog: retrieval's candidates, train_batch's histories
     "retrieval": (1 << 20, 50, 1_000_448, 1),
@@ -275,6 +291,17 @@ def sums_err(got, want, exact, what):
     return float((got.double() - want.double()).abs().max())
 
 
+def check_bound(what, t):
+    """No timed call reads under its bound by more than ``BOUND_SLACK``: not
+    the kernel, and not a library call that computes the same function
+    (``library_ms``).  A reading under the bound means the bound is wrong."""
+    for key in ("ms", "library_ms"):
+        ms = t.get(key)
+        check(ms is None or ms >= (1 - BOUND_SLACK) * t["bound_ms"],
+              f"{what}: {key} {ms!r} reads under the bound {t['bound_ms']!r} ms")
+    return t
+
+
 # ----------------------------------------------------------------------
 # phase 2: the kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -342,8 +369,12 @@ def compare_chunked_kernel(g, rng, stats):
 
 def compare_whole_graph_kernels(G, rng, stats):
     """Kernels 2 and 3 against their plain versions over every block of one
-    graph, for every tile in TILES; each batched lane against its single
-    run.  Returns the largest absolute differences (kernel 2, kernel 3)."""
+    graph, for every tile in TILES; kernel 3 with the owner arrays (real
+    slots only) and without (whole rows); each batched lane against its
+    single run.  Returns the largest absolute differences (kernel 2,
+    kernel 3)."""
+    import functools
+
     import torch
 
     from repro_torch.core import make_filter
@@ -379,9 +410,11 @@ def compare_whole_graph_kernels(G, rng, stats):
                               (c.block_first, c.deltas, c.valid_count, bits, act, weights),
                               f"kernel 2 {xname} weighted={weights is not None} "
                               f"active={act is not None}")
-            against_plain(3, edge_block_spmv, edge_block_spmv_ref, x,
-                          (csr.block_dst, csr.block_w, bits, act),
-                          f"kernel 3 {xname} active={act is not None}")
+            for owners in (None, (csr.block_src, csr.block_offsets, csr.degrees)):
+                against_plain(3, functools.partial(edge_block_spmv, owners=owners),
+                              edge_block_spmv_ref, x, (csr.block_dst, csr.block_w, bits, act),
+                              f"kernel 3 {xname} active={act is not None} "
+                              f"owners={owners is not None}")
     return err[2], err[3]
 
 
@@ -456,8 +489,9 @@ def time_chunked_kernel(g, rng):
     read = 4 * C + int(C * (4 + 2 + 4 * FB) + 2 * vc.sum())  # ids; first, count, w; deltas
     write = C * FB * (4 + 4)                                 # dst, w
     bound_ms = (read + write) / HBM_BYTES_PER_S * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, yardstick_ms=yardstick_ms,
-                bound_ms=bound_ms, bytes=read + write)
+    return check_bound("kernel 1", dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                        yardstick_ms=yardstick_ms, bound_ms=bound_ms,
+                                        bytes=read + write))
 
 
 def cusparse_matrix(csr):
@@ -478,10 +512,12 @@ def spmv_bytes(g, B, kind):
 
     kernel 2 reads, per block, its first target and valid count, the deltas
     and weights of its valid slots (a lane loads no slot past the valid
-    count) and the filter words covering them; kernel 3 reads whole rows of
-    targets and weights (it learns which slots are real from the targets)
-    and every filter word."""
+    count) and the filter words covering them; kernel 3, per block, its
+    owner, the target and weight of each real slot (the count its owner's
+    degree leaves it) and the filter words covering them."""
     import torch
+
+    from repro_torch.kernels import real_slot_counts
 
     NB, FB = g.num_blocks, g.block_size
     vec = (g.n * 4 + NB * 4) * B                             # x once; out once
@@ -491,13 +527,19 @@ def spmv_bytes(g, B, kind):
         words = int(((vc + 31) // 32).sum())
         w = 4 * slots if g.weighted else 0
         return NB * (4 + 2) + 2 * slots + w + 4 * words + vec
-    return NB * FB * (4 + 4) + NB * (FB // 32) * 4 + vec
+    cnt = real_slot_counts(g.block_src, g.block_offsets, g.degrees, n=g.n,
+                           block_size=FB).to(torch.int64)
+    slots = int(cnt.sum())
+    words = int(((cnt + 31) // 32).sum())
+    return NB * 4 + slots * (4 + 4) + 4 * words + vec
 
 
 def time_whole_graph_kernels(G):
     """Device ms of kernels 2 and 3 on graph ``G`` (F_B=128, weighted, the
     filter bits, tile TILE), one query and B=8, beside their plain versions,
-    cuSPARSE (``A @ x``, ``A @ X``) and the bytes bound."""
+    cuSPARSE (``A @ x``, ``A @ X``) and the bytes bound; kernel 3 with the
+    owner arrays (``"edge"``, real slots only, as ``spmv_vertex`` calls it)
+    and without (``"edge rows"``, whole rows), first held to each other."""
     import torch
 
     from repro_torch.core import make_filter
@@ -521,6 +563,12 @@ def time_whole_graph_kernels(G):
         lib = device_ms(lambda: A @ xt)
         a2 = (c.block_first, c.deltas, c.valid_count, bits, None, c.block_weights)
         a3 = (csr.block_dst, csr.block_w, bits, None)
+        owners = (csr.block_src, csr.block_offsets, csr.degrees)
+        sums_err(edge_block_spmv(x, *a3, n=c.n, tile_blocks=TILE, owners=owners),
+                 edge_block_spmv(x, *a3, n=c.n, tile_blocks=TILE), False,
+                 f"kernel 3 B={B}: real slots against whole rows")
+        bound3 = spmv_bytes(csr, B, "edge") / HBM_BYTES_PER_S * 1e3
+        plain3 = device_ms(lambda: edge_block_spmv_ref(x, *a3, n=c.n), runs=5, per_run=3)
         out[("compressed", B)] = dict(
             ms=device_ms(lambda: compressed_block_spmv(x, *a2, n=c.n, tile_blocks=TILE)),
             plain_ms=device_ms(lambda: compressed_block_spmv_ref(x, *a2, n=c.n), runs=5,
@@ -528,20 +576,25 @@ def time_whole_graph_kernels(G):
             library_ms=lib,
             bound_ms=spmv_bytes(c, B, "compressed") / HBM_BYTES_PER_S * 1e3,
         )
-        out[("edge", B)] = dict(
-            ms=device_ms(lambda: edge_block_spmv(x, *a3, n=c.n, tile_blocks=TILE)),
-            plain_ms=device_ms(lambda: edge_block_spmv_ref(x, *a3, n=c.n), runs=5,
-                               per_run=3),
-            library_ms=lib,
-            bound_ms=spmv_bytes(csr, B, "edge") / HBM_BYTES_PER_S * 1e3,
-        )
+        for kind, own in (("edge", owners), ("edge rows", None)):
+            out[(kind, B)] = dict(
+                ms=device_ms(lambda: edge_block_spmv(x, *a3, n=c.n, tile_blocks=TILE,
+                                                     owners=own)),
+                plain_ms=plain3,
+                library_ms=lib,
+                bound_ms=bound3,
+            )
+    for (kind, B), t in out.items():
+        check_bound(f"{kind} B={B}", t)
     return out
 
 
 def log_times(tag, times):
+    names = {"compressed": "kernel 2 compressed_block_spmv",
+             "edge": "kernel 3 edge_block_spmv (real slots)",
+             "edge rows": "kernel 3 edge_block_spmv (whole rows)"}
     for (kind, B), t in sorted(times.items()):
-        name = "kernel 2 compressed_block_spmv" if kind == "compressed" else \
-            "kernel 3 edge_block_spmv"
+        name = names[kind]
         log(f"[{tag}] {name} B={B} TB={TILE}: kernel {t['ms']!r} ms, plain "
             f"{t['plain_ms']!r} ms, cuSPARSE {t['library_ms']!r} ms, bound "
             f"{t['bound_ms']!r} ms")
@@ -690,13 +743,13 @@ def time_filter_pack(g):
     keep = (g.edge_dst % 2 == 0).reshape(g.num_blocks, g.block_size)
     sub = torch.ones(g.num_blocks, dtype=torch.bool, device=g.device)
     same_pack(bits, keep, sub, f"timed inputs, n={g.n} NB={g.num_blocks}")
-    return dict(
+    return check_bound(f"kernel 4, n={g.n}", dict(
         ms=device_ms(lambda: filter_pack_words(bits, keep, sub)),
         plain_ms=device_ms(lambda: filter_pack_ref(bits, keep, sub), runs=5, per_run=3),
         library_ms=None,   # no one PyTorch call packs, ANDs and counts
         bound_ms=pack_bytes(g.num_blocks, g.block_size) / HBM_BYTES_PER_S * 1e3,
         bytes=pack_bytes(g.num_blocks, g.block_size),
-    )
+    ))
 
 
 def check_matching(g, partner):
@@ -968,7 +1021,7 @@ def time_decode_attention(dev):
         rel=rel,
     )
     del q, k, v, mask
-    return out
+    return check_bound("kernel 6", out)
 
 
 def greedy_decode(params, caches, logits, pos0, steps, cfg):
@@ -1189,10 +1242,11 @@ def plain_bag(table, idx, w, mode):
 def bag_err(got, want, what):
     """Kernel 5's output against the plain version's: float32 within rtol
     ``SUM_RTOL`` (atol ``SUM_ATOL``), bfloat16 within one ulp.  Returns the
-    max abs error and whether the two are bit for bit equal."""
+    max abs error and whether the two are bit for bit equal (-0.0 is not
+    +0.0)."""
     import torch
 
-    from repro_torch.kernels import bf16_ulps
+    from repro_torch.kernels import bf16_ulps, same_bits
 
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype or shape")
@@ -1202,17 +1256,27 @@ def bag_err(got, want, what):
     else:
         torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL, msg=what)
     diff = (got.float() - want.float()).abs()
-    return (float(diff.max()) if diff.numel() else 0.0), bool(torch.equal(got, want))
+    return (float(diff.max()) if diff.numel() else 0.0), same_bits(got, want)
 
 
 def compare_embedding_bag(dev, stats):
     """Kernel 5 against its plain version on the card at ``BAG_SHAPES``,
     float32 and bfloat16, sum and mean, with padding and out-of-range ids;
-    bags of one (weights 1 and None) and ``take_rows`` exactly the rows.
-    Returns the max abs error and the count of cases equal bit for bit."""
+    bags of one (weights 1 and None) and ``take_rows`` exactly the rows;
+    then its bags-of-one path at every B of ``BAG_ONE_B`` and row of
+    ``BAG_ONE_ROWS``, weighted and not, with -0.0 and out-of-range ids
+    planted.  Every bag-sum case must equal the plain version bit for bit.
+    Returns the max abs error and the count of bag-sum cases."""
     import torch
 
-    from repro_torch.kernels import bag_case, embedding_bag, embedding_bag_sums, take_rows
+    from repro_torch.kernels import (
+        bag_case,
+        bag_of_one_case,
+        embedding_bag,
+        embedding_bag_ref,
+        embedding_bag_sums,
+        take_rows,
+    )
 
     err, exact = 0.0, 0
     for i, (V, D, B, L) in enumerate(BAG_SHAPES):
@@ -1224,6 +1288,8 @@ def compare_embedding_bag(dev, stats):
                                       plain_bag(table, idx, weights, mode),
                                       f"kernel 5 (V,D,B,L)={(V, D, B, L)} {dtype} {mode} "
                                       f"weights={weights is not None}")
+                    check(same, f"kernel 5 (V,D,B,L)={(V, D, B, L)} {dtype} {mode}: not bit "
+                                "for bit the plain version's")
                     err, exact = max(err, e), exact + same
                     stats["kernel 5"] += 1
             ones = idx[:, :1].clamp(0, V - 1).contiguous()
@@ -1241,6 +1307,18 @@ def compare_embedding_bag(dev, stats):
             check(torch.equal(got.cpu(), take_rows(table.cpu(), mixed.cpu())),
                   f"take_rows {(V, D)} {dtype}: differs from the CPU route")
             stats["kernel 5"] += 1
+    for B in BAG_ONE_B:
+        for dname, D in BAG_ONE_ROWS:
+            dtype = getattr(torch, dname)
+            table, idx, w = bag_of_one_case(997, D, B, dtype, SEED + B + D, dev)
+            for weights in (w, None):
+                e, same = bag_err(embedding_bag_sums(table, idx, weights),
+                                  embedding_bag_ref(table, idx, weights),
+                                  f"kernel 5 bags of one B={B} D={D} {dname} "
+                                  f"weights={weights is not None}")
+                check(same, f"kernel 5 bags of one B={B} D={D} {dname}: not bit for bit")
+                err, exact = max(err, e), exact + same
+                stats["kernel 5"] += 1
     return err, exact
 
 
@@ -1259,8 +1337,9 @@ def time_embedding_bag(dev, name, V, D, B, L):
     never calls (``F.embedding`` for bags of one, else ``F.embedding_bag``
     with ``per_sample_weights`` over clamped ids and zeroed padding weights),
     on a float32 (V, D) table drawn on the card, each first held to the
-    plain version; and the bytes bound.  ``retrieval``: SASRec's candidates,
-    every id valid, no weights (the call ``take_rows`` makes).  ``history``:
+    plain version (the kernel bit for bit); and the bytes bound.
+    ``retrieval``: SASRec's candidates, every id valid, no weights (the call
+    ``take_rows`` makes), -0.0 planted in the first candidate's row.  ``history``:
     the histories of a ``make_sasrec_batch_fn`` batch, padding item 0 as
     padding, normal weights."""
     import torch
@@ -1275,6 +1354,7 @@ def time_embedding_bag(dev, name, V, D, B, L):
     if L == 1:
         idx = make_candidates(gen, B, 1, V, device=dev).reshape(B, 1)
         w = None
+        table[idx[0, 0], ::3] = -0.0  # the kernel must give +0.0 there, as plain does
 
         def library():
             return F.embedding(idx[:, 0], table)
@@ -1290,12 +1370,13 @@ def time_embedding_bag(dev, name, V, D, B, L):
 
     want = embedding_bag_ref(table, idx, w)
     err, same = bag_err(embedding_bag_sums(table, idx, w), want, f"kernel 5 timed {name}")
+    check(same, f"kernel 5 timed {name}: not bit for bit the plain version's")
     lib = library()
     lib_err = float((lib - want).abs().max())
     check(lib_err <= 1e-4, f"yardstick at {name} differs from plain by {lib_err}")
     del want, lib
     nbytes, valid_slots = bag_bytes(table, idx, w)
-    return dict(
+    return check_bound(f"kernel 5 at {name}", dict(
         shape=(V, D, B, L),
         ms=device_ms(lambda: embedding_bag_sums(table, idx, w)),
         plain_ms=device_ms(lambda: embedding_bag_ref(table, idx, w), runs=5, per_run=3),
@@ -1306,7 +1387,7 @@ def time_embedding_bag(dev, name, V, D, B, L):
         err=err,
         exact=same,
         lib_err=lib_err,
-    )
+    ))
 
 
 def timed_calls(fn):
@@ -1350,9 +1431,10 @@ def drive_recsys(dev, stats):
     check(torch.get_float32_matmul_precision() == "highest", "float32 products must be full")
     stats["kernel 5"] = 0
     err, exact = compare_embedding_bag(dev, stats)
-    log(f"[11] kernel 5 == plain on the card in {stats['kernel 5']} cases (float32 rtol "
-        f"{SUM_RTOL}, bfloat16 one ulp; bags of one and take_rows exactly); bit for bit in "
-        f"{exact} of the {len(BAG_SHAPES) * 8} bag-sum cases; max abs err {err!r}")
+    log(f"[11] kernel 5 == plain on the card in {stats['kernel 5']} cases: all {exact} "
+        f"bag-sum cases bit for bit ({len(BAG_SHAPES) * 8} at BAG_SHAPES, "
+        f"{len(BAG_ONE_B) * len(BAG_ONE_ROWS) * 2} bags-of-one cases with -0.0 planted), "
+        f"bags of one and take_rows exactly the rows; max abs err {err!r}")
     timing = {name: time_embedding_bag(dev, name, *shape) for name, shape in BAG_TIMED.items()}
     for name, t in timing.items():
         log(f"[11] kernel 5 at {name} (V,D,B,L)={t['shape']} float32: kernel {t['ms']!r} ms, "
@@ -1544,7 +1626,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     )
     from repro_torch.configs import qwen2_1_5b
     from repro_torch.core import edgemap_reduce, edgemap_reduce_batched, exception_dense
-    from repro_torch.core import make_plan
+    from repro_torch.core import make_filter, make_plan
     from repro_torch.kernels import (
         compressed_block_spmv,
         compressed_chunked_spmv,
@@ -1639,10 +1721,17 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     want = compressed_spmv_vertex(gA, x)   # exception-dense: the exact plain decode
     check(torch.equal(got, want), "graph A: spmv_vertex != compressed_spmv_vertex (int32 x)")
     check(launches3 > 0, "spmv_vertex on graph A did not launch kernel 3")
+    # the earlier default: the filter built on every call, its words read
+    ts = time.perf_counter()
+    again = spmv_vertex(A_.csr, x, make_filter(A_.csr))
+    torch.cuda.synchronize()
+    filtered_s = time.perf_counter() - ts
+    check(torch.equal(again, got), "graph A: spmv_vertex with the all-true filter differs")
     times_a = time_whole_graph_kernels(A_)
     log(f"[3] graph A spmv_vertex (kernel 3 over {A_.csr.num_blocks} blocks, "
         f"{A_.csr.m} edges): equals compressed_spmv_vertex for int32 x; {launches3} "
-        f"launches; host wall {spmv_a_s:.4f} s")
+        f"launches; host wall {spmv_a_s:.4f} s (no filter words); with make_filter(g) "
+        f"built first, as the call did when given no filter before: {filtered_s:.4f} s")
     log_times("3 graph A", times_a)
     wall["graph A"] = time.perf_counter() - t0
 

@@ -18,6 +18,7 @@ from .compressed_spmv import (
 from .edge_block_spmv import (
     edge_block_spmv,
     edge_block_spmv_ref,
+    real_slot_counts,
     spmv_vertex,
     spmv_vertex_batched,
     spmv_vertex_ref,
@@ -25,10 +26,12 @@ from .edge_block_spmv import (
 from .filter_pack import filter_pack, filter_pack_ref, filter_pack_words
 from .embedding_bag import (
     bag_case,
+    bag_of_one_case,
     bf16_ulps,
     embedding_bag,
     embedding_bag_ref,
     embedding_bag_sums,
+    same_bits,
     take_rows,
 )
 from .decode_attention import (

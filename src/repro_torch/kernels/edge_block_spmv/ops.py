@@ -2,24 +2,28 @@
 
 ``spmv_vertex`` (+``_batched``) run ``edge_block_spmv`` over every block of
 a ``CSRGraph`` and reduce the per-block sums onto their owners by
-``block_src``, outside the kernel, as the JAX package does.
+``block_src``, outside the kernel, as the JAX package does.  They pass the
+graph's owner arrays, so the kernel reads only the real slots; with no
+filter they pass no filter words, since ``dst < n`` already masks the
+padding.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.csr import CSRGraph
-from ...core.graph_filter import GraphFilter, edge_active_words, make_filter
+from ...core.graph_filter import GraphFilter, edge_active_words
 from ...core.primitives import segment_reduce
 from ...tuning.defaults import DEFAULT_TILE_BLOCKS
 from .edge_block_spmv import edge_block_spmv
 
 
 def _per_block_sums(g: CSRGraph, x, f, edge_active, tile_blocks):
-    bits = f.bits if f is not None else make_filter(g).bits
+    bits = None if f is None else f.bits
     active = None if edge_active is None else edge_active_words(edge_active, g.block_size)
     return edge_block_spmv(x, g.block_dst, g.block_w, bits, active, n=g.n,
-                           tile_blocks=tile_blocks)
+                           tile_blocks=tile_blocks,
+                           owners=(g.block_src, g.block_offsets, g.degrees))
 
 
 def spmv_vertex(

@@ -29,6 +29,20 @@ def _range_sums(x, dst, w, bits, edge_active, n):
     return contrib.sum(dim=1, dtype=contrib.dtype).to(x.dtype)
 
 
+def real_slot_counts(block_src, block_offsets, degrees, *, n: int, block_size: int):
+    """int32[NB]: the real slots of each block.  A vertex's edges fill its
+    blocks from the front, so block ``i`` of owner ``v = block_src[i]`` holds
+    ``min(F_B, degrees[v] - (i - block_offsets[v]) * F_B)`` of them, and a
+    block owned by the sentinel (``v >= n``) none; the kernel also clamps
+    the count at 0."""
+    NB = block_src.shape[0]
+    owned = block_src < n
+    v = torch.where(owned, block_src, 0).long()
+    i = torch.arange(NB, dtype=torch.int64, device=block_src.device)
+    c = degrees[v].long() - (i - block_offsets[v].long()) * block_size
+    return torch.where(owned, c.clamp(0, block_size), 0).to(torch.int32)
+
+
 def edge_block_spmv_ref(
     x: torch.Tensor,                            # (n_pad,) / (B, n_pad), float32 or int32
     block_dst: torch.Tensor,                    # (NB, FB) int32, sentinel n on padding
@@ -37,11 +51,14 @@ def edge_block_spmv_ref(
     edge_active: torch.Tensor | None = None,    # (NB, FB//32) int32 traversal mask
     *,
     n: int,
+    owners=None,                                # (block_src, block_offsets, degrees)
 ) -> torch.Tensor:
     """Per-block partial sums ``out[b] = Σ_slot mask · w · x[dst]``, with
     ``mask = dst < n ∧ bits ∧ edge_active``: (NB,) or (NB, B) for a batch.
     int32 ``x`` is multiplied by the float weights, summed in float32 and
-    truncated to int32, as the JAX package does."""
+    truncated to int32, as the JAX package does.  ``owners`` tells the
+    kernel which slots to read; this version masks by the targets alone, so
+    its result does not depend on it."""
     NB = block_dst.shape[0]
     R = DEFAULT_DENSE_RANGE_BLOCKS
     return torch.cat([

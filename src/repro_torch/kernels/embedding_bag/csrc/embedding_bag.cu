@@ -19,7 +19,7 @@
 // weights), 404 MB, 0.121 ms at 3.35 TB/s.  The arithmetic is one multiply-add an
 // element read.
 //
-// Design: one warp per bag, kBags (8) bags per CTA, no padding: the last CTA's
+// Design (L > 1): one warp per bag, kBags (8) bags per CTA, no padding: the last CTA's
 // surplus warps exit on a bounds check.  Lanes load up to 32 slots' ids and
 // weights at once; a ballot of the valid slots is walked in slot order, and
 // each valid slot's id and weight are broadcast with __shfl_sync, so padding
@@ -33,8 +33,19 @@
 // version's arithmetic, so a bag of one with weight 1 is its row exactly.
 // Row offsets are 64-bit.  The TPU's VMEM-resident table and its padding of
 // the batch to a tile are not carried over.
-// Left for later: at D = 50 and L = 1 a warp moves one 200-byte row and 7
-// lanes idle; several bags a warp would put more bytes in flight.
+// Design (L = 1, every take_rows call): a warp per bag would move one
+// 200-byte row behind a dependent id load, 7 lanes idle, and reached 52 % of
+// the bound.  So a warp takes 32 bags: its lanes load the 32 ids (and
+// weights) in one coalesced load each, then stream the 32 rows as one flat
+// run of 32 * D*elt/VB vectors.  Flat vector f is column f % nvec of bag
+// f / nvec, whose id and weight come by __shfl_sync from lane f / nvec; the
+// 32 output rows are contiguous, so vector f is stored at out + f.  A lane
+// loads kAheadOne vectors (32 B at VB = 16 and 8; 16 B and 8 B at the
+// narrower widths) before it stores them, held as raw words: ~1 KB a warp
+// in flight, against one 200-byte row before.  Each element is still
+// __fadd_rn(0, __fmul_rn(v, w)), the plain version's arithmetic (it turns a
+// -0.0 element into +0.0), not a copy.  Bags past B and ids outside [0, V)
+// give zero rows; no row or weight of theirs is read.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +131,36 @@ __device__ __forceinline__ void store_vec(T* p, const float (&f)[VB / sizeof(T)]
   }
 }
 
+// One vector of VB bytes kept as raw words (a 2-byte one in the low half),
+// and those words as float32 values: a bfloat16 vector waits in half the
+// registers its values take.
+template <int VB>
+__device__ __forceinline__ void load_raw(const void* p, unsigned (&w)[(VB + 3) / 4]) {
+  if constexpr (VB == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    load_words<VB>(p, w);
+  }
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void unpack(const unsigned (&w)[(VB + 3) / 4],
+                                       float (&f)[VB / sizeof(T)]) {
+  if constexpr (VB == 2) {
+    f[0] = __uint_as_float(w[0] << 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VB / 4; ++i) {
+      if constexpr (std::is_same_v<T, float>) {
+        f[i] = __uint_as_float(w[i]);
+      } else {  // little-endian: the low half is the first element
+        f[2 * i] = __uint_as_float(w[i] << 16);
+        f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ float weight_of(const T* w) {
   if constexpr (std::is_same_v<T, float>) {
@@ -189,14 +230,83 @@ embedding_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ id
   }
 }
 
+// Bags of one (L = 1): a warp takes 32 consecutive bags; see the note above.
+template <typename T, int VB>
+__global__ void __launch_bounds__(32 * kBags, kMinCtas)
+bags_of_one_kernel(const T* __restrict__ table, const int32_t* __restrict__ ids,
+                   const T* __restrict__ weights, int V, int D, int B,
+                   T* __restrict__ out) {
+  constexpr int N = VB / sizeof(T);                     // elements a vector
+  constexpr int kAheadOne = VB >= 8 ? 32 / VB : 4;      // vectors loaded before stored
+  constexpr int kWords = (VB + 3) / 4;
+  const int lane = threadIdx.x & 31;
+  const int64_t first = (static_cast<int64_t>(blockIdx.x) * kBags + (threadIdx.x >> 5)) * 32;
+  if (first >= B) return;  // uniform across the warp
+  const int rows = B - first < 32 ? static_cast<int>(B - first) : 32;  // bags of this warp
+  int my_id = -1;
+  float my_w = 1.f;
+  if (lane < rows) {
+    my_id = __ldg(ids + first + lane);
+    if (weights != nullptr) my_w = weight_of<T>(weights + first + lane);
+  }
+  if (my_id >= V) my_id = -1;
+  const bool weighted = weights != nullptr;
+  const int nvec = D / N;            // vectors a row
+  const int total = rows * nvec;     // vectors the warp stores
+  const int step_bag = 32 / nvec, step_col = 32 % nvec;  // (bag, column) of f += 32
+  int bag = lane / nvec, col = lane % nvec;
+  T* obase = out + first * D;
+  for (int c0 = 0; c0 < nvec; c0 += kAheadOne) {  // a lane's vectors: f = lane + 32 c
+    unsigned raw[kAheadOne][kWords];
+    float wt[kAheadOne];
+#pragma unroll
+    for (int u = 0; u < kAheadOne; ++u) {
+      const int f = lane + 32 * (c0 + u);
+      const int id = __shfl_sync(kFull, my_id, bag & 31);
+      wt[u] = weighted ? __shfl_sync(kFull, my_w, bag & 31) : 1.f;
+      if (f < total && id >= 0) {
+        load_raw<VB>(table + static_cast<int64_t>(id) * D + col * N, raw[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kWords; ++e) raw[u][e] = 0u;
+        wt[u] = 1.f;  // a zero row: 0 * 1, never a padding weight
+      }
+      bag += step_bag;
+      col += step_col;
+      if (col >= nvec) {
+        col -= nvec;
+        ++bag;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAheadOne; ++u) {
+      const int f = lane + 32 * (c0 + u);
+      if (f < total) {
+        float v[N];
+        unpack<T, VB>(raw[u], v);
+#pragma unroll
+        for (int e = 0; e < N; ++e) v[e] = __fadd_rn(0.f, __fmul_rn(v[e], wt[u]));
+        store_vec<T, VB>(obase + static_cast<int64_t>(f) * N, v);
+      }
+    }
+  }
+}
+
 template <typename T, int VB>
 cudaError_t launch(const void* table, const int32_t* ids, const void* weights, int V, int D,
                    int B, int L, void* out, cudaStream_t stream) {
-  const dim3 grid((B + kBags - 1) / kBags);
   const dim3 block(32 * kBags);
-  embedding_bag_kernel<T, VB><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(table), ids, static_cast<const T*>(weights), V, D, B, L,
-      static_cast<T*>(out));
+  if (L == 1) {
+    const dim3 grid(static_cast<unsigned>((B + 32LL * kBags - 1) / (32LL * kBags)));
+    bags_of_one_kernel<T, VB><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(table), ids, static_cast<const T*>(weights), V, D, B,
+        static_cast<T*>(out));
+  } else {
+    const dim3 grid((B + kBags - 1) / kBags);
+    embedding_bag_kernel<T, VB><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(table), ids, static_cast<const T*>(weights), V, D, B, L,
+        static_cast<T*>(out));
+  }
   return cudaGetLastError();
 }
 

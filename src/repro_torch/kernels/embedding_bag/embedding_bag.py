@@ -9,7 +9,9 @@ launch the hand-written kernel in ``csrc/embedding_bag.cu`` (built for
 ``sm_90a`` on first use), CPU tensors run the plain PyTorch version
 ``ref.embedding_bag_ref``.  A CUDA call that the kernel cannot take raises;
 nothing falls back.  Nothing is padded or copied: the kernel's last CTA
-bounds-checks its warps.
+bounds-checks its warps.  Bags of one (``L == 1``, every ``take_rows``
+call) take the kernel's own path for them, chosen from the shape: a warp
+streams 32 bags' rows at once.
 
 ``embedding_bag_sums.launches`` counts the kernel launches (a plain
 integer, bumped once per launch and nowhere else).

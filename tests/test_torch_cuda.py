@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro_torch.algorithms import bfs, maximal_matching, wbfs
-from repro_torch.core import compress, make_filter, make_plan, pack_vertices
+from repro_torch.core import build_csr, compress, make_filter, make_plan, pack_vertices
 from repro_torch.configs import qwen2_1_5b
 from repro_torch.configs import sasrec as sasrec_config
 from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
@@ -43,12 +43,15 @@ from repro_torch.kernels import (
     edge_block_spmv,
     edge_block_spmv_ref,
     bag_case,
+    bag_of_one_case,
     bf16_ulps,
     embedding_bag,
     embedding_bag_ref,
     embedding_bag_sums,
     filter_pack_ref,
     filter_pack_words,
+    real_slot_counts,
+    same_bits,
     spmv_vertex,
     take_rows,
 )
@@ -189,6 +192,55 @@ def test_whole_graph_kernels_match_plain(cuda, fb, weighted, tile_blocks):
             _assert_sums(got, want, x.dtype == torch.int32)
 
 
+@pytest.mark.parametrize("fb", [32, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tile_blocks", [1, 4, 8, 16, 32])
+def test_edge_block_spmv_reads_only_the_real_slots(cuda, fb, weighted, tile_blocks):
+    """Kernel 3 given the owner arrays against its plain version and against
+    its whole-row path, at every case of test_whole_graph_kernels_match_plain,
+    on a graph whose padding weights are NaN (never read into a sum)."""
+    csr = rmat_graph(700, 5000, weighted=weighted, seed=fb + tile_blocks, block_size=fb,
+                     device="cpu")
+    pad = csr.edge_dst == csr.n
+    assert bool(pad.any())
+    csr = dataclasses.replace(csr, edge_w=torch.where(pad, float("nan"), csr.edge_w))
+    g = _to(csr, cuda)
+    own = (g.block_src, g.block_offsets, g.degrees)
+    rng = np.random.default_rng(tile_blocks)
+    NB = csr.num_blocks
+    active = torch.from_numpy(rng.integers(-2**31, 2**31, (NB, fb // 32)).astype(np.int32))
+    bits = make_filter(csr).bits
+    for x in (torch.rand(csr.n), torch.rand(3, csr.n),
+              torch.randint(-9, 9, (csr.n,), dtype=torch.int32),
+              torch.randint(-9, 9, (2, csr.n), dtype=torch.int32)):
+        exact = x.dtype == torch.int32
+        for b, act in ((None, None), (bits, None), (bits, active), (None, active)):
+            dev_b, dev_a = (None if t is None else t.to(cuda) for t in (b, act))
+            want = edge_block_spmv_ref(x, csr.block_dst, csr.block_w, b, act, n=csr.n)
+            assert bool(torch.isfinite(want.float()).all())
+            got = edge_block_spmv(x.to(cuda), g.block_dst, g.block_w, dev_b, dev_a, n=csr.n,
+                                  tile_blocks=tile_blocks, owners=own)
+            _assert_sums(got, want, exact)
+            rows = edge_block_spmv(x.to(cuda), g.block_dst, g.block_w, dev_b, dev_a, n=csr.n,
+                                   tile_blocks=tile_blocks)
+            _assert_sums(got, rows.cpu(), exact)
+
+
+def test_edge_block_spmv_owners_on_an_edgeless_graph(cuda):
+    """The dummy block of an edgeless graph is owned by the sentinel: no
+    slot of it is read, and its sum is 0."""
+    e = np.zeros(0, np.int64)
+    g = build_csr(5, e, e, block_size=32, device=cuda)
+    assert g.num_blocks == 1 and int(g.block_src[0]) == g.n
+    assert int(real_slot_counts(g.block_src, g.block_offsets, g.degrees, n=g.n,
+                                block_size=32)[0]) == 0
+    for x in (torch.rand(5, device=cuda), torch.ones(2, 5, dtype=torch.int32, device=cuda)):
+        got = edge_block_spmv(x, g.block_dst, g.block_w, None, n=g.n,
+                              owners=(g.block_src, g.block_offsets, g.degrees))
+        torch.cuda.synchronize()
+        assert not bool(got.any())
+
+
 def test_whole_graph_ops_and_launch_counts(cuda):
     c = _graph(64, True, n=1024, m=8192, seed=2)
     csr = rmat_graph(1024, 8192, weighted=True, seed=2, block_size=64, device="cpu")
@@ -208,6 +260,12 @@ def test_whole_graph_ops_and_launch_counts(cuda):
                               n=c.n, tile_blocks=64)
     with pytest.raises(TypeError):
         edge_block_spmv(x.double().to(cuda), gcsr.block_dst, gcsr.block_w, None, n=c.n)
+    with pytest.raises(ValueError, match="block_offsets"):
+        edge_block_spmv(x.to(cuda), gcsr.block_dst, gcsr.block_w, None, n=c.n,
+                        owners=(gcsr.block_src, gcsr.block_offsets[:-1], gcsr.degrees))
+    with pytest.raises(TypeError):
+        edge_block_spmv(x.to(cuda), gcsr.block_dst, gcsr.block_w, None, n=c.n,
+                        owners=(gcsr.block_src.long(), gcsr.block_offsets, gcsr.degrees))
     assert (compressed_block_spmv.launches, edge_block_spmv.launches) == before
 
 
@@ -393,6 +451,33 @@ def test_bags_of_one_and_take_rows_are_exact(cuda, dtype):
     buf[1:] = table.flatten().to(cuda)
     odd = buf[1:].view(table.shape)  # the rows one element off: narrower loads
     assert torch.equal(take_rows(odd, mixed.to(cuda)).cpu(), take_rows(table, mixed))
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1000])
+@pytest.mark.parametrize("dtype,D,vb", [(torch.float32, 64, 16), (torch.float32, 50, 8),
+                                        (torch.float32, 33, 4), (torch.bfloat16, 64, 16),
+                                        (torch.bfloat16, 50, 4), (torch.bfloat16, 33, 2)])
+def test_bags_of_one_path_is_the_plain_version_bit_for_bit(cuda, B, dtype, D, vb):
+    """Kernel 5 at L = 1 (its bags-of-one path): a warp's 32 bags, one short,
+    one over and many; every row load width; -0.0 planted (the plain
+    version's 0 + 0 * w turns it into +0.0, a copy of the row would not);
+    ids -1, -7, V, V+3 and a NaN weight on one of them; with and without
+    weights."""
+    from repro_torch.kernels.embedding_bag.embedding_bag import vector_bytes
+
+    table, idx, w = bag_of_one_case(997, D, B, dtype, seed=B + D)
+    gt = table.to(cuda)
+    out = torch.empty((B, D), dtype=dtype, device=cuda)
+    assert vector_bytes(D * table.element_size(), table.element_size(), gt.data_ptr(),
+                        out.data_ptr()) == vb
+    for weights in (w, None):
+        want = embedding_bag_ref(table, idx, weights)
+        before = embedding_bag_sums.launches
+        got = embedding_bag_sums(gt, idx.to(cuda), None if weights is None else weights.to(cuda))
+        assert embedding_bag_sums.launches == before + 1
+        torch.cuda.synchronize()
+        assert same_bits(got.cpu(), want)
+    assert not bool(torch.signbit(want[0, ::3]).any())  # +0.0 where the row held -0.0
 
 
 def test_embedding_bag_rejects_bad_operands(cuda):

@@ -33,7 +33,7 @@ from repro.kernels.compressed_spmv.ref import compressed_chunked_spmv_ref as jor
 from repro.kernels.edge_block_spmv.edge_block_spmv import edge_block_spmv_pallas
 from repro.kernels.edge_block_spmv.ref import edge_block_spmv_ref as jedge_oracle
 from repro.kernels.edge_block_spmv.ref import spmv_vertex_ref as jspmv_oracle
-from repro_torch.core import make_filter
+from repro_torch.core import build_csr, make_filter
 from repro_torch.kernels import (
     compressed_block_spmv,
     compressed_chunked_spmv,
@@ -44,6 +44,7 @@ from repro_torch.kernels import (
     compressed_spmv_vertex_chunked,
     compressed_spmv_vertex_ref,
     edge_block_spmv,
+    real_slot_counts,
     spmv_vertex,
     spmv_vertex_batched,
     spmv_vertex_ref,
@@ -269,8 +270,9 @@ def test_block_spmv_matches_pallas_interpret(name, weighted, with_active, batch,
 
 @pytest.mark.parametrize("name,weighted,with_active,batch,tb", WHOLE_CASES)
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("owners", [False, True])
 def test_edge_block_spmv_matches_pallas_interpret(name, weighted, with_active, batch, tb,
-                                                  dtype):
+                                                  dtype, owners):
     jg, active, x = _whole_inputs(name, weighted, with_active, batch, dtype)
     g = port_graph(jg)
     bits_j, bits_t = jmake_filter(jg).bits, make_filter(g).bits
@@ -278,8 +280,9 @@ def test_edge_block_spmv_matches_pallas_interpret(name, weighted, with_active, b
     xj = _jax_x(x, True)  # the uncompressed kernel always multiplies by block_w
     want = edge_block_spmv_pallas(xj, jg.block_dst, jg.block_w, bits_j, act_j,
                                   n=jg.n, tile_blocks=tb, interpret=True)
+    own = (g.block_src, g.block_offsets, g.degrees) if owners else None
     got = edge_block_spmv(torch.from_numpy(x), g.block_dst, g.block_w, bits_t, act_t, n=g.n,
-                          tile_blocks=tb)
+                          tile_blocks=tb, owners=own)
     _close(got, want, dtype == np.int32)
     _close(got, jedge_oracle(xj, jg.block_dst, jg.block_w, bits_j, act_j, n=jg.n),
            dtype == np.int32)
@@ -338,13 +341,17 @@ def test_compressed_spmv_vertex_matches_jax(name, weighted, with_active, batch, 
 
 
 @pytest.mark.parametrize("name,weighted,with_active,batch", OPS_CASES[:4])
-def test_spmv_vertex_matches_jax(name, weighted, with_active, batch):
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_spmv_vertex_matches_jax(name, weighted, with_active, batch, with_filter):
+    """The op passes the owner arrays to the kernel, and no filter words
+    when it is given no filter; with one, its words.  Both equal JAX."""
     jg, active, x = _whole_inputs(name, weighted, with_active, batch, np.int32, seed=6)
     g = port_graph(jg)
     jfn = jspmv_vertex_batched if batch else jspmv_vertex
     fn = spmv_vertex_batched if batch else spmv_vertex
-    want = jfn(jg, _jax_x(x, True), edge_active=_opt(active, jnp.asarray), interpret=True)
-    got = fn(g, torch.from_numpy(x), edge_active=_opt(active, _t_words))
+    jf, f = (jmake_filter(jg), make_filter(g)) if with_filter else (None, None)
+    want = jfn(jg, _jax_x(x, True), jf, edge_active=_opt(active, jnp.asarray), interpret=True)
+    got = fn(g, torch.from_numpy(x), f, edge_active=_opt(active, _t_words))
     _close(got, want, True)
     xf = np.random.default_rng(7).random(x.shape).astype(np.float32)
     want = jfn(jg, jnp.asarray(xf), interpret=True, tile_blocks=16)
@@ -354,6 +361,52 @@ def test_spmv_vertex_matches_jax(name, weighted, with_active, batch):
             np.testing.assert_array_equal(
                 to_np(got[q]), to_np(spmv_vertex(g, torch.from_numpy(x[q]),
                                                  edge_active=_opt(active, _t_words))))
+
+
+def _count_graph(source, fb):
+    """An R-MAT graph at block size ``fb`` with, planted beside it, vertex
+    700 of degree exactly 2·fb, vertex 701 of degree fb + 1 and isolated
+    vertices 702..799: built by the JAX package and carried over, or built
+    by the port."""
+    rng = np.random.default_rng(fb)
+    n = 800
+    src = np.concatenate([rng.integers(0, 600, 6000), np.full(2 * fb, 700),
+                          np.full(fb + 1, 701)])
+    dst = np.concatenate([rng.integers(0, 600, 6000), np.arange(2 * fb), np.arange(fb + 1)])
+    if source == "jax":
+        return port_graph(jbuild_csr(n, src, dst, block_size=fb))
+    return build_csr(n, src, dst, block_size=fb, device="cpu")
+
+
+@pytest.mark.parametrize("source", ["jax", "port"])
+@pytest.mark.parametrize("fb", [32, 64, 128, "edgeless"])
+def test_real_slot_counts_are_the_real_slots(source, fb):
+    """The count kernel 3 derives from ``block_src``, ``block_offsets`` and
+    ``degrees`` is ``(block_dst < n).sum(1)``: every slot before it real,
+    every slot from it on the sentinel n."""
+    if fb == "edgeless":
+        e = np.zeros(0, np.int64)
+        g = (port_graph(jbuild_csr(5, e, e, block_size=32)) if source == "jax"
+             else build_csr(5, e, e, block_size=32, device="cpu"))
+        assert g.num_blocks == 1 and int(g.block_src[0]) == g.n  # the dummy block
+    else:
+        g = _count_graph(source, fb)
+        deg = to_np(g.degrees)
+        assert deg[700] == 2 * fb and deg[701] == fb + 1 and (deg[702:] == 0).all()
+        assert (deg[:600] > 0).all() and (deg[:600] % fb == 0).sum() == 0
+    cnt = real_slot_counts(g.block_src, g.block_offsets, g.degrees, n=g.n,
+                           block_size=g.block_size)
+    assert cnt.dtype == torch.int32
+    np.testing.assert_array_equal(to_np(cnt), to_np((g.block_dst < g.n).sum(1)))
+    slot = torch.arange(g.block_size)[None, :]
+    before = slot < cnt[:, None].long()
+    assert bool((g.block_dst[before] < g.n).all())
+    assert bool((g.block_dst[~before] == g.n).all())
+    if fb != "edgeless":
+        full = to_np(g.block_offsets)[700]
+        assert to_np(cnt)[full:full + 2].tolist() == [fb, fb]          # degree 2·fb
+        full = to_np(g.block_offsets)[701]
+        assert to_np(cnt)[full:full + 2].tolist() == [fb, 1]           # degree fb + 1
 
 
 def test_whole_graph_kernels_reject_bad_tiles():
