@@ -49,7 +49,8 @@ item lookup through the EmbeddingBag kernel).
    each equal to its single-query run.
 6. Calibration on the card: ``calibrate`` in full mode on the unweighted
    graph B workload; its tile sweep launches kernel 2.  The table is saved
-   under ``build/``, reloaded and compared.
+   under ``build/``, reloaded and compared, and its tile decision printed
+   beside the shipped ``default_table.json``'s.
 7. The measured plan on graph B: BFS and wBFS equal the constants plan's;
    a ``QueryEngine`` sized by the table answers phase 5's requests, each
    equal to its single run; batched auto rounds with a flavor crossover on
@@ -80,7 +81,9 @@ item lookup through the EmbeddingBag kernel).
    never calls) at B=32, S=pos=32,768, 12 q heads over 2 KV heads, D=128,
    bfloat16, first held to the plain version within the same limit, which
    three planted faults there exceed (one row short, a split's rows dropped,
-   the wrong KV head), beside the bytes bound; (c) qwen2-1.5B's full
+   the wrong KV head), beside the bytes bound, with the kernel's
+   configuration (body, copy mechanism, ring stages, warps and CTAs an SM,
+   splits) and its row error beside the limit; (c) qwen2-1.5B's full
    configuration in bfloat16, random weights from seed 0 drawn on the card:
    8 prompts of 512 tokens, prefill into a 1,024-row cache, 64 greedy
    decode steps (kernel 6 launched 28 x 64 times), held teacher-forced to
@@ -163,7 +166,8 @@ KERNEL_SOURCES = {
     "attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "embedding_bag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
 }
-F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores: kernel 6's arithmetic
+F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense: kernel 6's products at bf16
 ATTN_SHAPES = [        # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5B, qwen1.5-4B's MHA
     (2, 64, 4, 4, 8), (6, 300, 8, 2, 16), (3, 128, 6, 1, 32), (8, 1000, 12, 2, 128),
     (4, 777, 20, 20, 128),
@@ -987,7 +991,7 @@ def time_decode_attention(dev):
         decode_attention_ref,
         decode_attention_rel_err,
     )
-    from repro_torch.kernels.decode_attention.decode_attention import split_rows
+    from repro_torch.kernels.decode_attention.decode_attention import kernel_config, split_rows
     from repro_torch.tuning import HBM_BYTES_PER_S
 
     B, S, Hq, Hkv, D = ATTN_TIMED
@@ -1017,8 +1021,9 @@ def time_decode_attention(dev):
         library_ms=device_ms(sdpa, runs=5, per_run=3),
         bytes=nbytes,
         flops=flops,
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         rel=rel,
+        config=kernel_config(q, k),
     )
     del q, k, v, mask
     return check_bound("kernel 6", out)
@@ -1079,12 +1084,17 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
         f"{ATTN_REL_TOL[torch.bfloat16]}); max relative err float32 {rel_a['float32']!r}, "
         f"bfloat16 {rel_a['bfloat16']!r}; max abs err float32 {err['float32']!r}, bfloat16 "
         f"{err['bfloat16']!r}")
+    cfg6 = timing["config"]
+    log(f"[10] kernel 6 at (B,S,Hq,Hkv,D)={ATTN_TIMED} bfloat16: "
+        + ", ".join(f"{k} {v}" for k, v in cfg6.items()))
     log(f"[10] kernel 6 at (B,S,Hq,Hkv,D)={ATTN_TIMED} bfloat16, pos=S: kernel "
         f"{timing['ms']!r} ms, plain {timing['plain_ms']!r} ms, scaled_dot_product_attention "
         f"(yardstick) {timing['library_ms']!r} ms, bound {timing['bound_ms']!r} ms "
-        f"({timing['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s; {timing['flops']} flops); "
-        f"relative err against plain: {fault_line(timing['rel'])} (limit "
-        f"{ATTN_REL_TOL[torch.bfloat16]}: the last three are planted faults)")
+        f"({timing['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s; {timing['flops']} flops at "
+        f"{BF16_FLOPS / 1e12} TFLOP/s); row error (relative L2) against plain: kernel "
+        f"{timing['rel']['kernel']!r} beside the limit ATTN_REL_TOL "
+        f"{ATTN_REL_TOL[torch.bfloat16]!r} (2^-8 = {2.0 ** -8!r}); "
+        f"{fault_line(timing['rel'])} (the last three are planted faults, rejected)")
 
     # (c) requests end to end: prefill, then greedy decode
     B, P, max_seq, steps = serve
@@ -1214,7 +1224,7 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
-        "bound_by": "bytes" if timing["bytes"] / HBM_BYTES_PER_S >= timing["flops"] / F32_FLOPS
+        "bound_by": "bytes" if timing["bytes"] / HBM_BYTES_PER_S >= timing["flops"] / BF16_FLOPS
         else "operations",
         "library_ms": timing["library_ms"],
     }
@@ -1636,7 +1646,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         spmv_vertex,
     )
     from repro_torch.serving import QueryEngine
-    from repro_torch.tuning import HBM_BYTES_PER_S, TuningTable, calibrate
+    from repro_torch.tuning import HBM_BYTES_PER_S, TuningTable, calibrate, default_table
 
     wall = {}
     # graphs: built on the host, moved to the card ---------------------
@@ -1806,6 +1816,10 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
             f"{d.batched_flavor_crossover!r}, max_batch {d.max_batch}, tile_blocks "
             f"{d.tile_blocks}")
     log(f"[6]   tile sweep: {table.to_dict()['backends']['compressed']['tile_sweep']}")
+    shipped, measured = default_table().tile_blocks("compressed"), table.tile_blocks("compressed")
+    log(f"[6]   kernel 2 tile decision: {measured} warps a CTA "
+        f"({'changed from' if measured != shipped else 'unchanged from'} the shipped "
+        f"default_table.json's {shipped})")
     wall["calibration"] = calib_s
 
     # 7. the measured plan on the main path ----------------------------

@@ -1,7 +1,6 @@
 """The compressed-block kernels: wrappers and dispatch.
 
-Two kernels share one CUDA source (``csrc/compressed_spmv.cu``) and its warp
-decode:
+Two kernels share one CUDA source (``csrc/compressed_spmv.cu``):
 
 * ``compressed_chunked_spmv`` is the port of ``compressed_chunked_spmv_pallas``.
   Given one chunk of the compacted live-block id list it decodes only those
@@ -10,7 +9,8 @@ decode:
   (``emit="sums"``, single query or a (B, n) batch decoded once per block).
 * ``compressed_block_spmv`` is the port of ``compressed_block_spmv_pallas``:
   the same fused decode and masked weighted gather-sum over every block of
-  the graph, (NB,) or (NB, B), with ``tile_blocks`` blocks (warps) per CTA.
+  the graph, (NB,) or (NB, B), with ``tile_blocks`` warps per CTA, each
+  warp a tile of 32 blocks (4 for a batch).
 
 Dispatch follows the device of the graph tensors and nothing else: CUDA
 tensors launch the hand-written kernel (built for ``sm_90a`` on first use),
@@ -181,7 +181,9 @@ def compressed_block_spmv(
     and blocks holding ESCAPE deltas decode wrong on purpose (the callers in
     ``ops.py`` patch them).  ``x`` is (n_pad,) → (NB,) or a (B, n_pad) batch
     → (NB, B), float32 or int32.  ``tile_blocks`` (1..32) is the number of
-    blocks, one warp each, per CTA on the card.  Same results as
+    warps per CTA on the card; each warp takes a tile of 32 consecutive
+    blocks (4 for a batch), 16 lanes a block at F_B = 128 and 8 below.
+    Same results as
     ``compressed_block_spmv_ref`` (exactly for int32 ``x``, up to float
     summation order for float32)."""
     tile_blocks = check_tile_blocks(tile_blocks)

@@ -1,14 +1,14 @@
 // Decode of compressed graph blocks fused with the masked SpMV, for Hopper (sm_90a).
 //
-// Two kernels share one warp decode (decode_row below):
+// Two kernels:
 //
 // 1. chunked_kernel replaces the TPU kernel compressed_chunked_spmv_pallas
 //    (src/repro/kernels/compressed_spmv/compressed_spmv.py, body _chunked_kernel,
 //    tiled grid _chunked_tiled_call): it decodes only the blocks named by one
-//    chunk of the compacted live-block id list.
+//    chunk of the compacted live-block id list, a warp a block (decode_row).
 // 2. block_kernel replaces the TPU kernel compressed_block_spmv_pallas
 //    (same file, body _kernel): it sums every block of the graph, the pull
-//    SpMV behind compressed_spmv_vertex.
+//    SpMV behind compressed_spmv_vertex and calibration's tile sweep.
 //
 // For a block row:
 //
@@ -30,18 +30,38 @@
 // 3.35 TB/s.  sums also gathers x[dst] (256 KB to 4 MB here, resident in the
 // 50 MB L2) and writes 4*B bytes per block.
 //
-// Design: one warp per block.  Each lane holds FB/32 consecutive slots, loaded
-// as one vector (8 bytes of deltas at FB = 128) when all of them are valid;
-// the prefix sum is a local prefix plus a warp inclusive scan (__shfl_up_sync)
-// of the lane totals, in 32-bit unsigned arithmetic so it wraps exactly like
-// the int32 cumsum of the reference.  sums loops over the B queries inside the
-// warp, so a block is decoded once for the whole batch, and reduces with
-// __shfl_xor_sync.  The chunked kernel runs 8 warps per CTA; the block kernel
-// runs tile_blocks warps per CTA (1..32), the knob calibration sweeps.  No
-// array is padded: the last CTA's surplus warps exit on a bounds check.
-// Left for later: no cp.async/TMA staging of the next rows, the grid is not
-// persistent, and x is gathered from L2 rather than staged in shared memory.
+// chunked_kernel: one warp per block, 8 warps a CTA.  Each lane holds FB/32
+// consecutive slots, loaded as one vector when all of them are valid; the
+// prefix sum is a local prefix plus a warp inclusive scan (__shfl_up_sync) of
+// the lane totals, in 32-bit unsigned arithmetic so it wraps exactly like the
+// int32 cumsum of the reference.  sums loops over the B queries inside the
+// warp, so a block is decoded once for the whole batch.
+//
+// block_kernel: a warp takes a tile of 32 consecutive blocks (4 for a batch
+// of queries); lane k loads block k's valid count and first target (one
+// coalesced load of each per tile, and the count is stored, so nothing is
+// derived).  Groups of L lanes then take the tile's blocks 32 / L at a
+// time, a lane FB / L consecutive slots (L = 16 at FB = 128, else 8: with 8
+// lanes and 16 slots a lane the F_B = 128 builds spilled under the
+// 64-register cap of 1024-thread CTAs).  All of a round's deltas,
+// weights and filter words are loaded before any is used, in chunks of
+// FB/32 slots (the widths the wrapper's alignment checks guarantee), and a
+// chunk past valid_count is not loaded.  Rows stream (__ldcs), so that L1
+// and L2 keep x.  The prefix is the lane's own plus an L-lane
+// __shfl_up_sync scan (3 or 4 steps, not 5), in uint32.  All of a round's
+// x gathers are in flight before the sum; a batch of B queries reuses the
+// decoded row, QB = 2 queries at a time (1 for one query), each an L-lane
+// __shfl_xor_sync sum.  int32 unweighted sums stay uint32 (exact,
+// wrapping); int32 weighted sums are float, truncated, as the reference's
+// are.  The grid has a warp for every tile, tile_blocks warps a CTA (1..32,
+// the knob calibration sweeps), and no persistent loop: the card balances
+// the tiles.  No array is padded: lanes past NB load nothing and store
+// nothing.
+// Left for later: chunked_kernel keeps a warp a block and one round trip
+// after another (its lever is fewer launches); x is gathered from L2, not
+// staged in shared memory.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -262,34 +282,180 @@ chunked_kernel(const int32_t* __restrict__ ids, int C,
   }
 }
 
-template <int S, int MODE>
-__global__ void __launch_bounds__(1024)
+// ---- block_kernel: every block of the graph, a warp a tile of 32 ----------
+
+// S slots of this lane, [j, j + S): S deltas in one load when all lie below
+// cnt, one by one when some do, none (0) when none do.
+template <int S>
+__device__ __forceinline__ void load_delta_chunk(const uint16_t* row, int j, int cnt,
+                                                 uint32_t* d) {
+  if (j + S <= cnt) {
+    if constexpr (S == 4) {
+      const uint2 v = __ldcs(reinterpret_cast<const uint2*>(row + j));
+      d[0] = v.x & 0xffffu; d[1] = v.x >> 16; d[2] = v.y & 0xffffu; d[3] = v.y >> 16;
+    } else if constexpr (S == 2) {
+      const uint32_t v = __ldcs(reinterpret_cast<const unsigned int*>(row + j));
+      d[0] = v & 0xffffu; d[1] = v >> 16;
+    } else {
+      d[0] = __ldcs(row + j);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < S; ++e) d[e] = j + e < cnt ? __ldcs(row + j + e) : 0u;
+  }
+}
+
+// The same for weights (0 past cnt).
+template <int S>
+__device__ __forceinline__ void load_weight_chunk(const float* row, int j, int cnt, float* w) {
+  if (j + S <= cnt) {
+    if constexpr (S == 4) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(row + j));
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else if constexpr (S == 2) {
+      const float2 v = __ldcs(reinterpret_cast<const float2*>(row + j));
+      w[0] = v.x; w[1] = v.y;
+    } else {
+      w[0] = __ldcs(row + j);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < S; ++e) w[e] = j + e < cnt ? __ldcs(row + j + e) : 0.0f;
+  }
+}
+
+template <int L, typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// T: consecutive blocks a warp takes (32 or 4), a lane's count and first
+// target each.
+template <int S, int MODE, int QB, int T>
+__global__ void __launch_bounds__(1024, 1)
 block_kernel(const int32_t* __restrict__ block_first,
              const uint16_t* __restrict__ deltas,
              const uint16_t* __restrict__ valid_count,
              const uint32_t* __restrict__ bits,
              const uint32_t* __restrict__ edge_active,
              const float* __restrict__ block_weights,
-             int NB, int n, int warps,
+             int NB, int n,
              const void* __restrict__ x, int B, long long x_stride,
              void* __restrict__ sums_out) {
   constexpr int FB = 32 * S;
+  constexpr int W = FB / 32;              // mask words a block
+  constexpr int L = FB == 128 ? 16 : 8;   // lanes a block
+  constexpr int N = FB / L;               // consecutive slots a lane holds
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * warps + (threadIdx.x >> 5);
-  if (i >= NB) return;  // uniform across the warp
-  const size_t row = static_cast<size_t>(i);
-  int32_t dst[S];
-  bool m[S];
-  float w[S];
-  const int vc = decode_row<S>(row, lane, block_first, deltas, valid_count, bits,
-                               edge_active, dst, m);
-  if (block_weights != nullptr) {
-    load_valid_weights<S>(block_weights + row * FB, lane, vc, w);
-  } else {
+  const int group = lane / L;
+  const int sub = lane % L;
+  const int t = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (t >= (NB + T - 1) / T) return;  // uniform across the warp
+  const int base = t * T;
+  // lane k: block base + k's stored count and first target, one coalesced
+  // load of each for the tile
+  const bool mine = lane < T && base + lane < NB;
+  const int count = mine ? static_cast<int>(__ldcs(valid_count + base + lane)) : 0;
+  const int first = mine ? __ldcs(block_first + base + lane) : 0;
+  const int j0 = sub * N;  // the lane's first slot
+#pragma unroll 1
+  for (int k0 = 0; k0 < T && base + k0 < NB; k0 += 32 / L) {
+    const int i = base + k0 + group;
+    const int cnt = __shfl_sync(kFull, count, k0 + group);
+    const uint32_t start = static_cast<uint32_t>(__shfl_sync(kFull, first, k0 + group));
+    const size_t row = static_cast<size_t>(i) * FB;
+    // every load of the round first, then their uses
+    uint32_t d[N];
+    float w[N];
 #pragma unroll
-    for (int s = 0; s < S; ++s) w[s] = 1.0f;
+    for (int q = 0; q < N / S; ++q) {
+      load_delta_chunk<S>(deltas + row, j0 + q * S, cnt, d + q * S);
+      if (block_weights != nullptr) {
+        load_weight_chunk<S>(block_weights + row, j0 + q * S, cnt, w + q * S);
+      } else {
+#pragma unroll
+        for (int e = 0; e < S; ++e) w[q * S + e] = 1.0f;
+      }
+    }
+    uint32_t word = kFull;
+    if (j0 < cnt) {
+      const size_t wi = static_cast<size_t>(i) * W + (j0 >> 5);
+      if (bits != nullptr) word = __ldcs(bits + wi);
+      if (edge_active != nullptr) word &= __ldcs(edge_active + wi);
+    }
+    // dst = first + inclusive prefix of the deltas, slot 0 zeroed: the lane's
+    // own prefix, then a scan of the lane totals over the block's lanes, in
+    // uint32 so it wraps like the reference's int32 cumsum
+    if (sub == 0) d[0] = 0;
+    uint32_t tot = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) { tot += d[j]; d[j] = tot; }
+    uint32_t incl = tot;
+#pragma unroll
+    for (int off = 1; off < L; off <<= 1) {
+      const uint32_t v = __shfl_up_sync(kFull, incl, off, L);
+      if (sub >= off) incl += v;
+    }
+    const uint32_t at = start + (incl - tot);
+    // -1: masked, x not read; a masked-in target >= n reads x[0], as the
+    // reference's safe index does
+    int32_t dst[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int32_t v = static_cast<int32_t>(at + d[j]);
+      const bool m = j0 + j < cnt && ((word >> ((j0 + j) & 31)) & 1u);
+      dst[j] = m ? (v < n ? v : 0) : -1;
+    }
+    for (int q0 = 0; q0 < B; q0 += QB) {
+      using Acc = std::conditional_t<MODE == kSumsInt, uint32_t, float>;
+      Acc acc[QB];
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        acc[u] = 0;
+        if (QB > 1 && q0 + u >= B) continue;  // uniform across the warp
+        const long long off = static_cast<long long>(q0 + u) * x_stride;
+        if constexpr (MODE == kSumsInt) {
+          const int32_t* xb = static_cast<const int32_t*>(x) + off;
+          uint32_t xv[N];  // all gathers of the round in flight before the sum
+#pragma unroll
+          for (int j = 0; j < N; ++j) xv[j] = dst[j] >= 0 ? __ldg(xb + dst[j]) : 0;
+#pragma unroll
+          for (int j = 0; j < N; ++j) acc[u] += xv[j];
+        } else {
+          float xv[N];
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            if constexpr (MODE == kSumsFloat) {
+              xv[j] = dst[j] >= 0 ? __ldg(static_cast<const float*>(x) + off + dst[j]) : 0.0f;
+            } else {
+              xv[j] = dst[j] >= 0
+                  ? static_cast<float>(__ldg(static_cast<const int32_t*>(x) + off + dst[j]))
+                  : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < N; ++j) acc[u] += dst[j] >= 0 ? xv[j] * w[j] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < QB; ++u) acc[u] = group_sum<L>(acc[u]);
+      if (sub == 0 && i < NB) {
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+          if (QB == 1 || q0 + u < B) {
+            const size_t o = static_cast<size_t>(i) * B + q0 + u;
+            if constexpr (MODE == kSumsFloat) {
+              static_cast<float*>(sums_out)[o] = acc[u];
+            } else {
+              static_cast<int32_t*>(sums_out)[o] = static_cast<int32_t>(acc[u]);
+            }
+          }
+        }
+      }
+    }
   }
-  emit_sums<S, MODE>(row, lane, n, dst, m, w, x, B, x_stride, sums_out);
 }
 
 template <int S>
@@ -315,17 +481,30 @@ cudaError_t launch_chunked(int mode, int C, cudaStream_t stream, const int32_t* 
   return cudaGetLastError();
 }
 
+// A warp a tile of 32 blocks for one query; of 4 blocks for a batch, whose
+// gathers make a warp's tile B times the work: at B = 8 on graph B, tiles
+// of 32 left most of the card's warp slots empty and read slower than a
+// warp a block; tiles of 4, two queries at a time, read the least of tiles
+// of 4 and 8 at QB of 1, 2, 4 and 8.
 template <int S>
 cudaError_t launch_block(int mode, int warps, cudaStream_t stream, const int32_t* first,
                          const uint16_t* deltas, const uint16_t* vc, const uint32_t* bits,
                          const uint32_t* active, const float* weights, int NB, int n,
                          const void* x, int B, long long x_stride, void* sums_out) {
-  const dim3 grid((NB + warps - 1) / warps);
+  const int tile = B == 1 ? 32 : 4;
+  const long long tiles = (NB + tile - 1) / tile;
+  const dim3 grid(static_cast<unsigned>((tiles + warps - 1) / warps));  // a warp a tile
   const dim3 block(32 * warps);
-#define SAGE_LAUNCH(M)                                                                  \
-  block_kernel<S, M><<<grid, block, 0, stream>>>(first, deltas, vc, bits, active,       \
-                                                  weights, NB, n, warps, x, B,          \
-                                                  x_stride, sums_out)
+#define SAGE_LAUNCH(M)                                                                   \
+  if (B == 1) {                                                                          \
+    block_kernel<S, M, 1, 32><<<grid, block, 0, stream>>>(first, deltas, vc, bits,       \
+                                                          active, weights, NB, n, x, B,  \
+                                                          x_stride, sums_out);           \
+  } else {                                                                               \
+    block_kernel<S, M, 2, 4><<<grid, block, 0, stream>>>(first, deltas, vc, bits,        \
+                                                         active, weights, NB, n, x, B,   \
+                                                         x_stride, sums_out);            \
+  }
   switch (mode) {
     case kSumsFloat: SAGE_LAUNCH(kSumsFloat); break;
     case kSumsInt: SAGE_LAUNCH(kSumsInt); break;
@@ -366,8 +545,8 @@ extern "C" int compressed_chunked_spmv_launch(
   }
 }
 
-// Per-block sums over all NB blocks, `warps` blocks per CTA (1..32).  mode as
-// above, without decode.  Returns the cudaError_t of the launch.
+// Per-block sums over all NB blocks, `warps` warps per CTA (1..32), each a
+// tile of 32 blocks.  mode as above, without decode.  Returns the cudaError_t of the launch.
 extern "C" int compressed_block_spmv_launch(
     const int32_t* block_first, const uint16_t* deltas, const uint16_t* valid_count,
     const uint32_t* bits, const uint32_t* edge_active, const float* block_weights, int NB,

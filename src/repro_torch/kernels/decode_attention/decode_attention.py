@@ -14,9 +14,18 @@ launch the hand-written kernel in ``csrc/decode_attention.cu`` (built for
 raises; nothing falls back.
 
 On the card the cache is cut into ``splits`` ranges of rows, so that
-``B · Hkv · head chunks · splits`` CTAs fill the SMs (``split_count``); each
-writes a partial ``(m, l, acc)`` to float32 scratch that this wrapper
-allocates, and a second kernel combines the splits into the output.
+``B · Hkv · head chunks · splits`` CTAs fill the SMs (``split_count``, from
+the CTAs an SM holds at once, which the card's occupancy calculator reads
+off the kernel the call takes).  bfloat16 at D >= 16 takes the tensor-core
+kernel: one lane of a producer warp keeps an 8-stage ring of 32-row K/V
+tiles in flight for four consumer warps, each tile TMA boxes of 4-D tensor
+maps over (D, Hkv, S, B) that the C entry point builds at every launch
+(129 KB of shared memory at D = 128, one CTA an SM: 8 splits at
+qwen2-1.5b's 32 × 32k shape on an H100); float32 and D = 8 take the
+CUDA-core kernel (3 CTAs an SM there).  Each CTA writes a partial
+``(m, l, acc)`` to float32 scratch that this wrapper allocates,
+``B · Hq · splits · (D + 2)`` floats, and a second kernel combines the
+splits into the output.
 
 ``decode_attention.launches`` counts the launches of the attention
 kernel (a plain integer, bumped once per launch and nowhere else).
@@ -77,8 +86,8 @@ def split_count(B: int, Hq: int, Hkv: int, S: int, resident: int) -> int:
 
     About ``WAVES`` waves of the ``resident`` CTAs the card holds at once,
     the last nearly full, so that the CTAs fill the SMs to the end; but no
-    range shorter than ``MIN_SPLIT_ROWS`` rows (a CTA's four warps take 32
-    rows each at a time), and at least one.  It reads the cache length
+    range shorter than ``MIN_SPLIT_ROWS`` rows (a CTA takes 32 rows a warp
+    at a time: a ring stage on the tensor-core kernel), and at least one.  It reads the cache length
     ``S``, not ``pos``, so it needs no read of the device; ranges past a
     sequence's ``pos`` exit at once."""
     per_split = B * Hkv * -(-(Hq // Hkv) // HEAD_CHUNK)
@@ -92,6 +101,31 @@ def split_rows(q: torch.Tensor, k: torch.Tensor) -> tuple[int, int]:
     resident = _resident_ctas(q.device.index or 0, q.dtype, D, Hq // Hkv)
     rows = -(-S // split_count(B, Hq, Hkv, S, resident))
     return -(-S // rows), rows
+
+
+def kernel_config(q: torch.Tensor, k: torch.Tensor) -> dict:
+    """What a launch on CUDA tensors ``q``, ``k`` runs: the body, its copy
+    mechanism, ring stages and rows a stage (the tensor-core body), warps
+    and CTAs an SM, and ``(splits, rows per split)``."""
+    B, Hq, D = q.shape
+    tensor_cores = q.dtype == torch.bfloat16 and D >= 16
+    per_sm = _resident_ctas(q.device.index or 0, q.dtype, D, Hq // k.shape[2]) // (
+        torch.cuda.get_device_properties(q.device.index or 0).multi_processor_count)
+    out = {"body": "tensor cores (mma.sync m16n8k16, bf16)" if tensor_cores
+           else "CUDA cores (float32 FMA)", "ctas_per_sm": per_sm, "split": split_rows(q, k)}
+    if tensor_cores:
+        fn = load_library(SOURCE).decode_attention_ring
+        fn.argtypes = [ctypes.POINTER(_I)] * 4
+        fn.restype = None
+        vals = [_I(0) for _ in range(4)]
+        fn(*(ctypes.byref(x) for x in vals))
+        stages, rows, consumers, heads = (x.value for x in vals)
+        out.update(copy="cp.async.bulk.tensor (TMA): boxes of a 4-D tensor map, mbarrier ring",
+                   stages=stages, rows_per_stage=rows, warps=consumers + 1,
+                   consumer_warps=consumers, heads_per_cta=heads)
+    else:
+        out.update(copy="cp.async 16 B, one tile in flight a warp", warps=4)
+    return out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

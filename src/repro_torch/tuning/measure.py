@@ -19,7 +19,7 @@ symmetrised, unweighted), both backends:
   ``batched_flavor_crossover``.
 * **Tile sweep** (compressed backend, full mode only) — time
   ``compressed_spmv_vertex``, the whole-graph kernel, across tile sizes
-  (blocks per CTA on the card).
+  (warps per CTA on the card, each a tile of 32 blocks).
 
 Timing: one warm-up call, then the **minimum** of ``reps`` host wall times,
 each ending in ``torch.cuda.synchronize()`` on the card.  A plan is chosen
@@ -231,7 +231,7 @@ def _batched_density_sweep(
 
 
 def _tile_sweep(g, grid, *, reps: int) -> list[dict]:
-    """Tile candidates (blocks per CTA) of the whole-graph compressed kernel."""
+    """Tile candidates (warps per CTA) of the whole-graph compressed kernel."""
     from ..kernels.compressed_spmv import compressed_spmv_vertex
 
     x0 = torch.arange(g.n, dtype=torch.float32, device=g.device)

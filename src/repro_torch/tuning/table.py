@@ -287,7 +287,7 @@ class TuningTable:
         return int(e["chunk_blocks"]) if e else DEFAULT_CHUNK_BLOCKS
 
     def tile_blocks(self, backend: str) -> int:
-        """Best measured whole-graph kernel tile (blocks per CTA), or the default."""
+        """Best measured whole-graph kernel tile (warps per CTA), or the default."""
         e = self._entry(backend)
         if e and e.get("tile_blocks"):
             return int(e["tile_blocks"])

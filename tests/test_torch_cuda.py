@@ -192,6 +192,56 @@ def test_whole_graph_kernels_match_plain(cuda, fb, weighted, tile_blocks):
             _assert_sums(got, want, x.dtype == torch.int32)
 
 
+def _block_case(fb, weighted, nb, seed):
+    """Compressed block arrays drawn from ``seed``: valid counts at 0, 1, 31,
+    32, 33, FB - 1 and FB among random ones, 0xFFFF deltas and NaN weights
+    past each count, random filter and traversal words."""
+    rng = np.random.default_rng(seed)
+    n = 5000
+    vc = rng.integers(0, fb + 1, nb)
+    edges = [c for c in (0, 1, 31, 32, 33, fb - 1, fb) if c <= fb]
+    vc[:len(edges)] = edges
+    past = np.arange(fb)[None, :] >= vc[:, None]
+    deltas = np.where(past, 0xFFFF, rng.integers(0, 8, (nb, fb))).astype(np.uint16)
+    first = rng.integers(0, n - 1000, nb).astype(np.int32)
+    first[-1] = n - 200      # a block whose targets run past n
+    w = np.where(past, np.nan, rng.random((nb, fb)) + 0.5).astype(np.float32)
+    words = lambda: rng.integers(-2**31, 2**31, (nb, fb // 32)).astype(np.int32)  # noqa: E731
+    arrays = dict(block_first=first, deltas=deltas.view(np.int16),
+                  valid_count=vc.astype(np.uint16).view(np.int16), bits=words(),
+                  edge_active=words(), block_weights=w if weighted else None)
+    return n, {k: None if a is None else torch.from_numpy(a) for k, a in arrays.items()}
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tile_blocks", [1, 8, 32])
+def test_block_spmv_tiles_match_plain(cuda, fb, weighted, tile_blocks):
+    """Kernel 2's tiles of 32 blocks against its plain version: NB not a
+    multiple of 32, every edge of a valid count, garbage past each count,
+    B of 1, 3, 5 and 8; int32 sums exactly, a wrapping one included."""
+    nb = 32 * 7 + 13
+    n, arrays = _block_case(fb, weighted, nb, fb + tile_blocks + weighted)
+    dev = {k: None if t is None else t.to(cuda) for k, t in arrays.items()}
+    order = ("block_first", "deltas", "valid_count", "bits", "edge_active", "block_weights")
+    rng = np.random.default_rng(tile_blocks)
+    for B in (1, 3, 5, 8):
+        shape = (n,) if B == 1 else (B, n)
+        xs = [torch.from_numpy(rng.random(shape).astype(np.float32)),
+              torch.from_numpy(rng.integers(-9, 9, shape).astype(np.int32))]
+        if not weighted:   # sums of 2^30-ish values wrap in int32
+            xs.append(torch.from_numpy(rng.integers(2**30, 2**31 - 1, shape).astype(np.int32)))
+        for x in xs:
+            for act in (None, dev["edge_active"]):
+                args = [dev[k] for k in order]
+                args[4] = act
+                want = compressed_block_spmv_ref(x.to(cuda), *args, n=n)
+                got = compressed_block_spmv(x.to(cuda), *args, n=n, tile_blocks=tile_blocks)
+                exact = x.dtype == torch.int32
+                assert bool(torch.isfinite(want.float()).all())
+                _assert_sums(got, want.cpu(), exact)
+
+
 @pytest.mark.parametrize("fb", [32, 64, 128])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("tile_blocks", [1, 4, 8, 16, 32])
@@ -334,13 +384,23 @@ LOGITS_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 ATTN_SHAPES = [  # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5b, an MHA, a group over 8 heads
     (2, 64, 4, 4, 8), (6, 300, 8, 2, 16), (3, 128, 6, 1, 32), (8, 1000, 12, 2, 128),
     (4, 777, 20, 20, 128), (3, 500, 24, 2, 64),
+    # groups of 2 and 8, and 12 (two head chunks) at D = 16; S not a multiple of 32
+    (5, 97, 4, 2, 64), (4, 201, 16, 2, 32), (2, 130, 12, 1, 16), (3, 95, 16, 2, 8),
 ]
+# the edges of the tensor-core kernel's ring: 1, one short of a 32-row stage,
+# one stage, one past it, two stages and around them, and S
+STAGE_EDGES = (1, 31, 32, 33, 63, 64, 65)
 
 
-def _attn_case(B, S, Hq, Hkv, D, dtype, dev, seed):
+def _attn_case(B, S, Hq, Hkv, D, dtype, dev, seed, lengths="mixed"):
     g = torch.Generator().manual_seed(seed)
+    if lengths == "stage edges":
+        B = len(STAGE_EDGES) + 1
     q, k, v = (torch.randn(shape, generator=g).to(dtype).to(dev)
                for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    if lengths == "stage edges":
+        pos = torch.tensor([min(p, S) for p in STAGE_EDGES] + [S], dtype=torch.int32)
+        return q, k, v, pos.to(dev)
     _, rows = split_rows(q, k)
     pos = torch.randint(1, S + 1, (B,), generator=g, dtype=torch.int32)
     # 1, S, a tile boundary, and a split boundary with the row after it
@@ -349,16 +409,31 @@ def _attn_case(B, S, Hq, Hkv, D, dtype, dev, seed):
     return q, k, v, pos.to(dev)
 
 
+def _plant_nan_past(t, pos):
+    """``t`` (B, S, H, D) with NaN in every row at and past each ``pos``."""
+    rows = torch.arange(t.shape[1], device=t.device)[None, :] >= pos[:, None].long()
+    return t.masked_fill(rows[:, :, None, None], float("nan"))
+
+
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_matches_plain(cuda, shape, dtype):
-    q, k, v, pos = _attn_case(*shape, dtype, cuda, sum(shape))
+@pytest.mark.parametrize("lengths", ["mixed", "stage edges"])
+@pytest.mark.parametrize("nan_past_pos", [False, True])
+def test_decode_attention_matches_plain(cuda, shape, dtype, lengths, nan_past_pos):
+    """Kernel 6 against its plain version within ``ATTN_REL_TOL``.  With NaN
+    planted in the K and V rows at and past pos, the kernel (which never
+    reads them) must stay finite and equal the plain version on the clean
+    cache."""
+    q, k, v, pos = _attn_case(*shape, dtype, cuda, sum(shape), lengths)
+    want = decode_attention_ref(q, k, v, pos)
+    if nan_past_pos:
+        k, v = _plant_nan_past(k, pos), _plant_nan_past(v, pos)
     before = decode_attention.launches
     got = decode_attention(q, k, v, pos)
     assert decode_attention.launches == before + 1
-    want = decode_attention_ref(q, k, v, pos)
     torch.cuda.synchronize()
     assert got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
     assert decode_attention_rel_err(got, want) <= ATTN_REL_TOL[dtype]
 
 

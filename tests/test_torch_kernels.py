@@ -8,6 +8,8 @@ within rtol 1e-5, because PyTorch and XLA add the slots of a block in
 different orders.  The CUDA kernels themselves are held to the plain
 versions on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -266,6 +268,46 @@ def test_block_spmv_matches_pallas_interpret(name, weighted, with_active, batch,
     if not c.n_exceptions:
         want = jblock_oracle(jc, _jax_x(x, weighted), bits_j, w_j, _opt(active, jnp.asarray))
         _close(got, want, dtype == np.int32)
+
+
+def _planted_past_count(jc):
+    """``jc`` with every slot at or past its block's valid count holding an
+    ESCAPE delta (0xFFFF) and, when weighted, a NaN weight."""
+    vc = np.asarray(jc.valid_count).astype(np.int64)
+    past = np.arange(jc.block_size)[None, :] >= vc[:, None]
+    assert past.any()
+    deltas = jnp.asarray(np.where(past, np.uint16(0xFFFF), np.asarray(jc.deltas)))
+    if jc.block_weights is None:
+        return dataclasses.replace(jc, deltas=deltas)
+    w = np.where(past, np.float32(np.nan), np.asarray(jc.block_weights))
+    return dataclasses.replace(jc, deltas=deltas, block_weights=jnp.asarray(w))
+
+
+@pytest.mark.parametrize("name,weighted,with_active,batch,tb", WHOLE_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_block_spmv_ignores_slots_past_valid_count(name, weighted, with_active, batch, tb,
+                                                   dtype):
+    """Kernel 2's plain version and the Pallas kernel give the sums of the
+    clean graph whatever lies past each block's valid count: garbage deltas
+    (0xFFFF) and NaN weights there reach no sum."""
+    jg, active, x = _whole_inputs(name, weighted, with_active, batch, dtype, seed=12)
+    jc = jcompress(jg)
+    jp = _planted_past_count(jc)
+    c, cp = port_graph(jc), port_graph(jp)
+    bits_j, bits_t = jmake_filter(jc).bits, make_filter(c).bits
+    act_t = _opt(active, _t_words)
+    want = compressed_block_spmv_pallas(
+        _jax_x(x, weighted), jp.block_first, jp.deltas, jp.valid_count, bits_j,
+        _opt(active, jnp.asarray), jp.block_weights, n=jp.n, tile_blocks=tb, interpret=True,
+    )
+    got = compressed_block_spmv(torch.from_numpy(x), cp.block_first, cp.deltas,
+                                cp.valid_count, bits_t, act_t, cp.block_weights, n=cp.n,
+                                tile_blocks=tb)
+    clean = compressed_block_spmv(torch.from_numpy(x), c.block_first, c.deltas, c.valid_count,
+                                  bits_t, act_t, c.block_weights, n=c.n, tile_blocks=tb)
+    assert np.isfinite(np.asarray(want)).all()
+    _close(got, want, dtype == np.int32)
+    _close(got, to_np(clean), True)
 
 
 @pytest.mark.parametrize("name,weighted,with_active,batch,tb", WHOLE_CASES)

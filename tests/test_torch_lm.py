@@ -199,12 +199,57 @@ def test_decode_attention_matches_jax(B, S, Hq, Hkv, D, dtype):
         assert decode_attention_rel_err(got, want) <= ATTN_REL_TOL[TDT[dtype]]
 
 
+# what a test plants at and past each sequence's pos: NaN K rows, finite
+# garbage V rows, and NaN V rows
+PLANTS = [("k", np.nan), ("v", 3e4), ("v", np.nan)]
+
+
+@pytest.mark.parametrize("which,value", PLANTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_past_pos_reach_no_output(which, value, dtype):
+    """The cache rows at and past ``pos`` against the plain version and the
+    JAX kernel in interpret mode (and its oracle).  A K row there is masked
+    by its score, so NaN K rows change nothing; a V row there is weighted
+    by p = 0, so finite garbage changes nothing.  A NaN V row is the one
+    content that reaches both references (0 · NaN is NaN), and both alike:
+    the card's kernel never reads those rows (``tests/test_torch_cuda.py``)."""
+    B, S, Hq, Hkv, D = 3, 100, 6, 2, 16
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    pos = np.array([1, 37, 64], np.int32)   # 1, mid-tile, a tile boundary; all < S
+    planted = {"k": k.copy(), "v": v.copy()}
+    for b in range(B):
+        planted[which][b, pos[b]:] = value
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, planted["k"], planted["v"]))
+    tpos = torch.from_numpy(pos)
+    got = decode_attention(tq, tk, tv, tpos)   # the CPU route: the plain version
+    jkern = np.asarray(jdecode_attention(jq, jk, jv, jnp.asarray(pos), seq_tile=32,
+                                         tile_batch=2, interpret=True), np.float32)
+    rep = Hq // Hkv
+    joracle = np.asarray(jdecode_ref(jq, jnp.repeat(jk, rep, axis=2),
+                                     jnp.repeat(jv, rep, axis=2), jnp.asarray(pos)), np.float32)
+    if which == "v" and np.isnan(value):
+        # every sequence is NaN in all three: each has rows past its pos
+        for out in (got.float().numpy(), jkern, joracle):
+            assert np.isnan(out).any(axis=(1, 2)).all()
+        return
+    clean = decode_attention_ref(*(_pair(a, dtype)[1] for a in (q, k, v)), tpos)
+    tol = F32_TOL if dtype == "float32" else BF16_ATTN_TOL
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, clean.float().numpy(), 0.0)
+    _close(got, jkern, tol)
+    _close(got, joracle, tol)
+
+
 @pytest.mark.parametrize("B,S,Hq,Hkv,resident,want", [
     (32, 32768, 12, 2, 396, 24),    # 1,536 CTAs: four waves of 396, the last 88 % full
     (8, 1024, 12, 2, 396, 8),       # capped: no split under 128 rows
     (2, 100, 4, 4, 396, 1),         # shorter than one split
     (64, 4096, 64, 8, 132, 1),      # more CTAs than four waves without splitting
     (4, 777, 20, 20, 660, 6),       # MHA: one head a CTA
+    (32, 32768, 12, 2, 132, 8),     # the tensor-core kernel's one CTA an SM: 512 CTAs
 ])
 def test_split_count(B, S, Hq, Hkv, resident, want):
     assert split_count(B, Hq, Hkv, S, resident) == want
@@ -214,9 +259,9 @@ def _one_row_short(q, k, v, pos):
     return decode_attention_ref(q, k, v, pos - 1)
 
 
-def _split_dropped(q, k, v, pos, rows=-(-32768 // 24)):
-    """The second of the 24 splits qwen2-1.5b's long-context shape takes on
-    an H100 left out (``test_split_count``'s first case)."""
+def _split_dropped(q, k, v, pos, rows=32768 // 8):
+    """The second of the 8 splits qwen2-1.5b's long-context shape takes on
+    an H100 left out (``test_split_count``'s last case)."""
     keep = torch.cat([torch.arange(rows), torch.arange(2 * rows, k.shape[1])])
     return decode_attention_ref(q, k[:, keep], v[:, keep], pos - rows)
 
