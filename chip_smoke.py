@@ -23,6 +23,16 @@ item lookup through the EmbeddingBag kernel).
    emits, one query and B=8, weighted and unweighted, with and without
    masks, chunks padded with ids >= NB.  Decode must match exactly, sums
    within rtol 1e-5 (the kernel adds a block's slots in a warp-tree order).
+   Kernel 1's fused round (``compressed_stream_round``, one launch a
+   ``sparse_streamed`` round of min over int32) against its plain version,
+   the chunk loop over kernel 1's decode (the same map untagged), on graphs B
+   and E: one query and B=8, BFS's identity and wBFS's saturating add, with
+   and without ``edge_active``, and a full frontier; out and touched bit for
+   bit.  Then one BFS round timed through each: the live set of today's
+   kernel 1 shape (a frontier owning exactly 256 blocks) and a full
+   frontier, the fused round's device ms and its bytes bound beside the
+   chunk loop's device ms (its kernels' sum under ``torch.profiler``), host
+   wall ms and kernel 1 launches, with the live blocks per tile of 8.
    Then kernels 2 (``compressed_block_spmv``) and 3 (``edge_block_spmv``)
    against theirs on graphs B and E: one query and B=8, weighted and
    unweighted, with and without ``edge_active``, tile_blocks 4/8/16, kernel
@@ -42,11 +52,17 @@ item lookup through the EmbeddingBag kernel).
    its host wall beside that of a call that builds the all-true filter
    first, and kernel 3's device time there, both ways.
 4. Graph B (n=2^16, m=2^23, weighted, F_B=128, seed 0), which has no
-   exceptions: BFS and wBFS on a ``sparse_streamed`` plan launch kernel 1
-   and equal the CPU route exactly; PageRank with ``eps=0`` and a fixed
-   iteration count agrees with the CPU route within atol 1e-6.
+   exceptions: BFS and wBFS on a ``sparse_streamed`` plan launch the fused
+   round once a round (and kernel 1's decode never) and equal the CPU route
+   exactly; PageRank with ``eps=0`` and a fixed iteration count agrees with
+   the CPU route within atol 1e-6.  Then k-core on graph E under a
+   ``sparse_streamed`` plan, whose int32 sums the fused round does not
+   take: the chunk loop over kernel 1's decode (and the exception patch),
+   equal to the CPU route.
 5. Serving: a ``QueryEngine`` on graph B answers 12 BFS and 4 wBFS queries,
-   each equal to its single-query run.
+   each equal to its single-query run, with at most one fused launch a
+   round of each drained batch; one more drain runs under ``torch.profiler``
+   for the device's busy share.
 6. Calibration on the card: ``calibrate`` in full mode on the unweighted
    graph B workload; its tile sweep launches kernel 2.  The table is saved
    under ``build/``, reloaded and compared, and its tile decision printed
@@ -54,8 +70,8 @@ item lookup through the EmbeddingBag kernel).
 7. The measured plan on graph B: BFS and wBFS equal the constants plan's;
    a ``QueryEngine`` sized by the table answers phase 5's requests, each
    equal to its single run; batched auto rounds with a flavor crossover on
-   each side of the batch's density run both branches, each lane equal to
-   its single run.
+   each side of the batch's density run both branches (one fused launch,
+   then none), each lane equal to its single run.
 9. The graphFilter path (kernel 4, ``filter_pack``): (a) the kernel against
    its plain version on the card, bits and counts exactly: F_B 32/64/128,
    NB=4099 (not a multiple of the warps per CTA), subsets all false, all
@@ -121,7 +137,7 @@ item lookup through the EmbeddingBag kernel).
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
-phases 4-5 for kernel 1, graph A's ``spmv_vertex`` for kernel 3, phase 6
+phases 4-5 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3, phase 6
 for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6,
 phase 11(c) and (d) for kernel 5.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
@@ -148,7 +164,8 @@ BLOCK = 128
 GRAPH_A = (1 << 20, 1 << 24)   # the JAX package's configs/sage_graph.py full_config
 GRAPH_B = (1 << 16, 1 << 23)   # gaps between sorted targets fit 16 bits: no exceptions
 GRAPH_E = (1 << 17, 1 << 18)   # a few thousand exceptions, under the 4,096 limit
-CHUNK = 256                    # DEFAULT_CHUNK_BLOCKS: ids per launch on the main path
+CHUNK = 256                    # DEFAULT_CHUNK_BLOCKS: ids per launch of the chunk loop
+ROUND_TILE = 8                 # kRoundTile of compressed_spmv.cu: blocks a warp of the fused round
 BATCH = 8
 TILES = (4, 8, 16)             # calibration's tile grid: blocks (warps) per CTA
 TILE = 8                       # DEFAULT_TILE_BLOCKS: the timed launch shape
@@ -498,6 +515,201 @@ def time_chunked_kernel(g, rng):
                                         bytes=read + write))
 
 
+def untagged(map_fn):
+    """``map_fn`` without its ``kernel_map`` tag: edgeMap then runs the chunk
+    loop, the fused round's plain version, on the card."""
+    def plain(xs, w):
+        return map_fn(xs, w)
+
+    return plain
+
+
+def round_maps():
+    from repro_torch.algorithms.traversal import _relax
+    from repro_torch.core.edgemap import _identity_map
+
+    return {"identity": _identity_map, "sat_add_i32": _relax}
+
+
+def run_round(g, frontier, x, map_fn, edge_active=None):
+    """One sparse_streamed edgeMap round of min, one query or a batch."""
+    from repro_torch.core import edgemap_chunked, edgemap_chunked_batched_streamed
+
+    if frontier.dim() == 1:
+        return edgemap_chunked(g, frontier, x, monoid="min", map_fn=map_fn,
+                               edge_active=edge_active, streamed=True)
+    return edgemap_chunked_batched_streamed(g, frontier, x, monoid="min", map_fn=map_fn,
+                                            edge_active=edge_active)
+
+
+def round_state(g, rng, B):
+    """A frontier (2 % of the vertices and the 8 highest-degree ones) and
+    int32 state with values at and near wBFS's saturation point, (n,) or
+    (B, n), on the card."""
+    import numpy as np
+    import torch
+
+    n, rows = g.n, 1 if B is None else B
+    frontier = rng.random((rows, n)) < 0.02
+    frontier[:, np.argsort(g.degrees.cpu().numpy())[-8:]] = True
+    x = rng.integers(0, 1 << 20, (rows, n)).astype(np.int32)
+    x[rng.random((rows, n)) < 0.05] = 2**31 - 1
+    x[rng.random((rows, n)) < 0.05] = 2**31 - 1 - (1 << 24)
+    f, xx = (torch.from_numpy(a).to(g.device) for a in (frontier, x))
+    return (f[0], xx[0]) if B is None else (f, xx)
+
+
+def compare_stream_round(g, rng, stats):
+    """The fused round (one ``compressed_stream_round`` launch) against its
+    plain version, the chunk loop over kernel 1's decode, on the same card
+    tensors: one query and B=BATCH, both maps, with and without
+    ``edge_active``, and a full frontier; out and touched bit for bit."""
+    import torch
+
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
+
+    active = torch.from_numpy(rng.random(g.num_blocks * g.block_size) < 0.7).to(g.device)
+    cases = [(B, round_state(g, rng, B)) for B in (None, BATCH)]
+    full = torch.ones(g.n, dtype=torch.bool, device=g.device)
+    cases.append(("full", (full, torch.arange(g.n, dtype=torch.int32, device=g.device))))
+    for B, (frontier, x) in cases:
+        for name, map_fn in round_maps().items():
+            for act in (None, active):
+                before = (compressed_stream_round.launches, compressed_chunked_spmv.launches)
+                got = run_round(g, frontier, x, map_fn, act)
+                check(compressed_stream_round.launches == before[0] + 1
+                      and compressed_chunked_spmv.launches == before[1],
+                      f"fused round {name} B={B}: not one fused launch")
+                want = run_round(g, frontier, x, untagged(map_fn), act)
+                check(compressed_chunked_spmv.launches > before[1],
+                      f"fused round {name} B={B}: the plain route launched no kernel 1")
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"fused round n={g.n} map={name} B={B} active={act is not None} "
+                      "differs from the chunk loop")
+                stats["fused round"] += 1
+    return 0.0  # every case is held to exact equality
+
+
+def frontier_of_blocks(g, rng, blocks):
+    """A frontier whose owned blocks number exactly ``blocks``: random
+    vertices, each taken while its blocks still fit."""
+    import numpy as np
+    import torch
+
+    per_vertex = np.bincount(g.block_src.cpu().numpy(), minlength=g.n + 1)[: g.n]
+    frontier = np.zeros(g.n, bool)
+    total = 0
+    for v in rng.permutation(np.flatnonzero(per_vertex)):
+        if total + per_vertex[v] <= blocks:
+            frontier[v] = True
+            total += per_vertex[v]
+        if total == blocks:
+            break
+    check(total == blocks, f"no frontier owns exactly {blocks} blocks")
+    return torch.from_numpy(frontier).to(g.device)
+
+
+def round_bytes(g, frontier, map_kind, edge_active=False):
+    """Bytes a fused round must move: each block's owner and the frontier
+    once (liveness), the live blocks' header, the deltas, weights (the
+    saturating add only) and traversal words of their valid slots, the
+    owners' x once a query, and out and touched written once."""
+    import torch
+
+    fr = frontier if frontier.dim() == 2 else frontier[None]
+    B, n, NB = fr.shape[0], g.n, g.num_blocks
+    src = g.block_src.long()
+    live = fr[:, src].any(dim=0)
+    vc = (g.valid_count.to(torch.int64) & 0xFFFF)[live]
+    slots = int(vc.sum())
+    words = int(((vc + 31) // 32).sum()) if edge_active else 0
+    weights = 4 * slots if map_kind == "sat_add_i32" and g.weighted else 0
+    owners = torch.zeros(n, dtype=torch.bool, device=g.device)
+    owners[src] = True
+    x_read = 4 * int((fr & owners[None]).sum())
+    live_bytes = int(live.sum()) * (4 + 2) + 2 * slots + weights + 4 * words
+    return NB * 4 + B * n + live_bytes + x_read + B * n * (4 + 1)
+
+
+def tile_occupancy(g, frontier):
+    """Live blocks per tile of the fused round (ROUND_TILE blocks), over the
+    tiles with any: (tiles with one, median, max, tiles with any)."""
+    import torch
+
+    live = frontier[g.block_src.long()]
+    NB = g.num_blocks
+    pad = torch.zeros(-NB % ROUND_TILE, dtype=torch.bool, device=g.device)
+    per_tile = torch.cat([live, pad]).reshape(-1, ROUND_TILE).sum(dim=1)
+    busy = per_tile[per_tile > 0]
+    if busy.numel() == 0:
+        return 0, 0, 0, 0
+    return (int((busy == 1).sum()), int(busy.median()), int(busy.max()), int(busy.numel()))
+
+
+def time_stream_round(g, frontier, what):
+    """Device ms of one BFS round (identity map, x = ids, one query) through
+    the fused kernel, beside the chunk loop's device ms (the sum of its
+    kernels under torch.profiler), host wall ms and kernel 1 launches, and
+    the fused round's bytes bound; the two first held equal."""
+    import torch
+
+    from repro_torch.core.edgemap import _identity_map
+    from repro_torch.kernels import compressed_chunked_spmv
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    x = torch.arange(g.n, dtype=torch.int32, device=g.device)
+    plain = untagged(_identity_map)
+    got, want = run_round(g, frontier, x, _identity_map), run_round(g, frontier, x, plain)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{what}: the fused round differs from the chunk loop")
+
+    def wall_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - ts) * 1e3)
+        return statistics.median(times)
+
+    before = compressed_chunked_spmv.launches
+    run_round(g, frontier, x, plain)
+    chunks = compressed_chunked_spmv.launches - before
+    _, plain_busy, plain_kernels, _ = profile_run(lambda: run_round(g, frontier, x, plain))
+    _, fused_busy, fused_kernels, _ = profile_run(lambda: run_round(g, frontier, x,
+                                                                    _identity_map))
+    nbytes = round_bytes(g, frontier, "identity")
+    return check_bound(what, dict(
+        ms=device_ms(lambda: run_round(g, frontier, x, _identity_map)),
+        plain_ms=plain_busy,
+        library_ms=None,   # no one PyTorch call runs an edgeMap round
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bytes=nbytes,
+        wall_ms=wall_ms(lambda: run_round(g, frontier, x, _identity_map)),
+        plain_wall_ms=wall_ms(lambda: run_round(g, frontier, x, plain)),
+        fused_profiled_ms=fused_busy,
+        fused_kernels=fused_kernels,
+        plain_kernels=plain_kernels,
+        chunk_launches=chunks,
+        live_blocks=int(frontier[g.block_src.long()].sum()),
+        tiles=tile_occupancy(g, frontier),
+    ))
+
+
+def log_round_time(tag, what, t):
+    one, med, mx, busy = t["tiles"]
+    log(f"[{tag}] fused round, {what} ({t['live_blocks']} live blocks; of {busy} tiles with "
+        f"any, {one} hold one, median {med}, max {mx}): device {t['ms']!r} ms "
+        f"({t['fused_kernels']} kernels, profiled {t['fused_profiled_ms']!r} ms), host wall "
+        f"{t['wall_ms']!r} ms; the chunk loop: {t['chunk_launches']} kernel 1 launches, "
+        f"{t['plain_kernels']} kernels, device {t['plain_ms']!r} ms, host wall "
+        f"{t['plain_wall_ms']!r} ms; bound {t['bound_ms']!r} ms ({t['bytes']} B at "
+        f"3.35 TB/s)")
+
+
 def cusparse_matrix(csr):
     """graph's adjacency as a torch sparse CSR matrix: the yardstick of the
     pull SpMVs (cuSPARSE), never used by the port."""
@@ -641,21 +853,40 @@ def check_bfs_tree(g, src, parents, levels):
     return int(reached.sum()), int(levels.max())
 
 
+def drain_rounds(reqs, results, max_batch):
+    """Rounds the engine's drained batches ran: its buckets are the requests
+    of one op in order, max_batch at a time; a BFS batch runs its deepest
+    level + 1 rounds, a wBFS batch one round per distinct finite distance of
+    its longest-running query."""
+    import torch
+
+    per_op = {}
+    for (op, _), res in zip(reqs, results):
+        if op == "bfs":
+            per_op.setdefault(op, []).append(int(res[1].max()) + 1)
+        else:
+            per_op.setdefault(op, []).append(int(torch.unique(res[res < 2**31 - 1]).numel()))
+    return sum(max(r[i:i + max_batch]) for r in per_op.values()
+               for i in range(0, len(r), max_batch))
+
+
 def serve(engine, reqs, plan):
     """Serve ``reqs``; check each result against its single run on ``plan``;
-    returns (seconds, kernel 1 launches)."""
+    returns (seconds, launches of kernel 1's two entries, rounds of the
+    drained batches)."""
     import torch
 
     from repro_torch.algorithms import bfs, wbfs
-    from repro_torch.kernels import compressed_chunked_spmv
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
 
     g = engine.graph
-    before = compressed_chunked_spmv.launches
+    before = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
     ts = time.perf_counter()
     results = engine.serve(reqs)
     torch.cuda.synchronize()
     secs = time.perf_counter() - ts
-    launches = compressed_chunked_spmv.launches - before
+    launches = {"decode": compressed_chunked_spmv.launches - before[0],
+                "fused": compressed_stream_round.launches - before[1]}
     for (op, params), res in zip(reqs, results):
         if op == "bfs":
             want = bfs(g, params["src"], plan=plan)
@@ -664,7 +895,7 @@ def serve(engine, reqs, plan):
         else:
             check(torch.equal(res, wbfs(g, params["src"], plan=plan)),
                   f"engine wBFS from {params['src']} differs from its single run")
-    return secs, launches
+    return secs, launches, drain_rounds(reqs, results, engine.max_batch)
 
 
 # ----------------------------------------------------------------------
@@ -1627,6 +1858,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
 
     from repro_torch.algorithms import (
         bfs,
+        kcore,
         maximal_matching,
         orientation_filter,
         pagerank,
@@ -1641,6 +1873,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         compressed_block_spmv,
         compressed_chunked_spmv,
         compressed_spmv_vertex,
+        compressed_stream_round,
         edge_block_spmv,
         filter_pack_words,
         spmv_vertex,
@@ -1671,8 +1904,9 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     # 2. the kernels against their plain versions ----------------------
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    stats = {"chunked": 0, "kernel 2": 0, "kernel 3": 0}
+    stats = {"chunked": 0, "fused round": 0, "kernel 2": 0, "kernel 3": 0}
     err1 = max(compare_chunked_kernel(gB, rng, stats), compare_chunked_kernel(gE, rng, stats))
+    err1f = max(compare_stream_round(gB, rng, stats), compare_stream_round(gE, rng, stats))
     err2 = err3 = 0.0
     for G in (B_, E_):
         e2, e3 = compare_whole_graph_kernels(G, rng, stats)
@@ -1680,9 +1914,18 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     err_patched = compare_patched_paths(E_, rng)
     cross_check_backends(B_, rng)
     timing1 = time_chunked_kernel(gB, rng)
+    round_chunk = time_stream_round(gB, frontier_of_blocks(gB, rng, CHUNK),
+                                    f"graph B, {CHUNK} live blocks")
+    round_full = time_stream_round(gB, torch.ones(gB.n, dtype=torch.bool, device=dev),
+                                   "graph B, full frontier")
+    check(round_full["ms"] < round_full["plain_ms"],
+          "the full-frontier round: the fused launch is not faster than the chunk loop")
     times_b = time_whole_graph_kernels(B_)
     log(f"[2] kernel 1 == plain on the card in {stats['chunked']} cases (decode exact, sums "
         f"rtol {SUM_RTOL}); max abs err {err1!r}")
+    log(f"[2] kernel 1's fused round == the chunk loop on the card in {stats['fused round']} "
+        f"cases (graphs B and E, one query and B={BATCH}, identity and saturating add, with "
+        f"and without edge_active, full frontier; out and touched bit for bit)")
     log(f"[2] kernel 2 == plain in {stats['kernel 2']} cases, kernel 3 == plain in "
         f"{stats['kernel 3']} cases (int32 exact, float32 rtol {SUM_RTOL}); max abs err "
         f"{err2!r} / {err3!r}; batched lanes equal single runs; patched ops on graph E "
@@ -1692,12 +1935,14 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         f"{timing1['ms']!r} ms, plain {timing1['plain_ms']!r} ms, yardstick (index_select + "
         f"cumsum) {timing1['yardstick_ms']!r} ms, bound {timing1['bound_ms']!r} ms "
         f"({timing1['bytes']} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    log_round_time("2", f"graph B, {CHUNK} live blocks", round_chunk)
+    log_round_time("2", "graph B, full frontier", round_full)
     log_times("2 graph B", times_b)
     wall["kernels"] = time.perf_counter() - t0
 
     # 3. graph A: the full configuration -------------------------------
     t0 = time.perf_counter()
-    before = compressed_chunked_spmv.launches
+    before = compressed_chunked_spmv.launches + compressed_stream_round.launches
     plan_a = make_plan(gA, strategy="auto")
     pr, iters = pagerank(gA, plan=plan_a)
     torch.cuda.synchronize()
@@ -1715,7 +1960,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     streamed = bfs(gA, srcs_a[0], plan=make_plan(gA, strategy="sparse_streamed"))
     check(torch.equal(streamed[0], first[0]) and torch.equal(streamed[1], first[1]),
           "graph A: the sparse_streamed BFS differs from the auto BFS")
-    launches_a = compressed_chunked_spmv.launches - before
+    launches_a = compressed_chunked_spmv.launches + compressed_stream_round.launches - before
     log(f"[3] graph A is exception-dense ({gA.n_exceptions} exceptions over the "
         f"limit): sparse_streamed runs plain sparse; kernel 1 launches {launches_a}")
     check(exception_dense(gA) and launches_a == 0, "graph A must not launch kernel 1")
@@ -1748,32 +1993,55 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     # 4. graph B: the kernel path (main path starts) --------------------
     t0 = time.perf_counter()
     compressed_chunked_spmv.launches = 0
+    compressed_stream_round.launches = 0
     plan_b = make_plan(gB, strategy="sparse_streamed")
     plan_cpu = make_plan(hB, strategy="sparse_streamed")
     srcs_b = sources(gB, 2 + 16, SEED + 1)
+
+    def entries(before):
+        return (compressed_chunked_spmv.launches - before[0],
+                compressed_stream_round.launches - before[1])
+
     for s in srcs_b[:2]:
-        before = compressed_chunked_spmv.launches
+        before = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
         parents, levels = bfs(gB, s, plan=plan_b)
-        bfs_launches = compressed_chunked_spmv.launches - before
+        bfs_launches = entries(before)
         cp, cl = bfs(hB, s, plan=plan_cpu)
-        check(bfs_launches > 0, "graph B BFS did not launch the kernel")
+        check(bfs_launches == (0, int(levels.max()) + 1),
+              f"graph B BFS: kernel 1 launches (decode, fused) {bfs_launches}, not one fused "
+              "launch a round")
         check(torch.equal(parents.cpu(), cp) and torch.equal(levels.cpu(), cl),
               f"graph B BFS from {s} differs from the CPU route")
-        before = compressed_chunked_spmv.launches
+        before = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
         dist = wbfs(gB, s, plan=plan_b)
-        wbfs_launches = compressed_chunked_spmv.launches - before
-        check(wbfs_launches > 0, "graph B wBFS did not launch the kernel")
+        wbfs_launches = entries(before)
+        check(wbfs_launches[0] == 0 and wbfs_launches[1] > 0,
+              f"graph B wBFS: kernel 1 launches (decode, fused) {wbfs_launches}")
         check(torch.equal(dist.cpu(), wbfs(hB, s, plan=plan_cpu)),
               f"graph B wBFS from {s} differs from the CPU route")
-        log(f"[4] graph B from {s}: BFS depth {int(levels.max())} ({bfs_launches} launches), "
-            f"wBFS max dist {int(dist[dist < 2**31 - 1].max())} ({wbfs_launches} launches), "
-            "both equal to the CPU route")
+        log(f"[4] graph B from {s}: BFS depth {int(levels.max())} (kernel 1 launches: decode "
+            f"{bfs_launches[0]}, fused {bfs_launches[1]}), wBFS max dist "
+            f"{int(dist[dist < 2**31 - 1].max())} (decode {wbfs_launches[0]}, fused "
+            f"{wbfs_launches[1]}), both equal to the CPU route")
     pr, iters = pagerank(gB, eps=0.0, max_iters=PR_ITERS, plan=plan_b)
     pr_cpu, iters_cpu = pagerank(hB, eps=0.0, max_iters=PR_ITERS, plan=plan_cpu)
     pr_err = float((pr.cpu() - pr_cpu).abs().max())
     check(iters == iters_cpu == PR_ITERS and pr_err <= PR_ATOL,
           f"graph B PageRank differs from the CPU route by {pr_err}")
     log(f"[4] graph B PageRank, {iters} iterations: max abs diff to the CPU route {pr_err:.3g}")
+    # a streamed round the fused kernel does not take (sums over int32):
+    # k-core's histogram edgeMaps run the chunk loop over kernel 1's decode
+    before = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
+    core = kcore(gE, plan=make_plan(gE, strategy="sparse_streamed"))
+    kcore_launches = entries(before)
+    check(torch.equal(core.cpu(), kcore(E_.host, plan=make_plan(E_.host,
+                                                                strategy="sparse_streamed"))),
+          "graph E k-core on a sparse_streamed plan differs from the CPU route")
+    check(kcore_launches[0] > 0 and kcore_launches[1] == 0,
+          f"graph E k-core (int32 sums): kernel 1 launches (decode, fused) {kcore_launches}")
+    log(f"[4] graph E k-core on a sparse_streamed plan (int32 sums: the chunk loop), max core "
+        f"{int(core.max())}: kernel 1 launches: decode {kcore_launches[0]}, fused "
+        f"{kcore_launches[1]}; equal to the CPU route")
     wall["graph B"] = time.perf_counter() - t0
 
     # 5. serving -------------------------------------------------------
@@ -1781,19 +2049,25 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     engine = QueryEngine(gB, plan=plan_b, max_batch=8)
     reqs = [("bfs", {"src": s}) for s in srcs_b[2:14]] + [("wbfs", {"src": s})
                                                         for s in srcs_b[14:18]]
-    serve_s, serve_launches = serve(engine, reqs, plan_b)
-    check(serve_launches > 0, "the engine did not launch the kernel")
+    serve_s, serve_launches, serve_rounds = serve(engine, reqs, plan_b)
+    check(0 < serve_launches["fused"] <= serve_rounds and serve_launches["decode"] == 0,
+          f"the engine's kernel 1 launches {serve_launches} in {serve_rounds} rounds: not at "
+          "most one fused launch a round")
     main_launches = compressed_chunked_spmv.launches
+    main_round_launches = compressed_stream_round.launches
     log(f"[5] engine: {len(reqs)} queries in {serve_s:.3f} s = {len(reqs) / serve_s:.2f} "
-        f"queries/s, occupancy {engine.occupancy:.3f}, stats {engine.stats}, "
-        f"kernel launches {serve_launches}; every result equals its single run")
-    check(main_launches > 0, "the main path did not launch kernel 1")
+        f"queries/s, occupancy {engine.occupancy:.3f}, stats {engine.stats}, kernel 1 "
+        f"launches: fused {serve_launches['fused']} in {serve_rounds} rounds of the drained "
+        f"batches, decode {serve_launches['decode']}; every result equals its single run")
+    check(main_launches > 0 and main_round_launches > 0,
+          "the main path did not launch both of kernel 1's entries")
+    log_profile("5 engine", profile_run(lambda: engine.serve(reqs)), serve_s * 1e3)
     wall["serving"] = time.perf_counter() - t0
 
     # 6. calibration on the card (kernel 2's path) ----------------------
     t0 = time.perf_counter()
     compressed_block_spmv.launches = 0
-    chunked_before = compressed_chunked_spmv.launches
+    chunked_before = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
     table = calibrate(n=graph_b[0], m=graph_b[1], block_size=BLOCK, seed=SEED, quick=False,
                       device=dev)
     calib_s = time.perf_counter() - t0
@@ -1805,7 +2079,8 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     check(again.to_dict() == json.loads(table.dumps()), "the table does not round-trip")
     log(f"[6] calibrate(n={graph_b[0]}, m={graph_b[1]}, full) on {table.host_key} "
         f"({table.hardware}) in {calib_s:.1f} s: kernel 2 launches {launches2}, kernel 1 "
-        f"launches {compressed_chunked_spmv.launches - chunked_before}; saved to "
+        f"launches: decode {compressed_chunked_spmv.launches - chunked_before[0]}, fused "
+        f"{compressed_stream_round.launches - chunked_before[1]}; saved to "
         f"{TABLE_PATH.relative_to(ROOT)} and reloaded equal")
     for backend in table.backends():
         d = table.decide(backend)
@@ -1836,12 +2111,13 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
               f"wBFS from {s}: measured plan differs from the constants plan")
     engine_m = QueryEngine(gB, plan=plan_m)
     check(engine_m.max_batch == table.max_batch("compressed"), "max_batch not from the table")
-    serve_m_s, serve_m_launches = serve(engine_m, reqs, plan_m)
+    serve_m_s, serve_m_launches, serve_m_rounds = serve(engine_m, reqs, plan_m)
     log(f"[7] measured plan {plan_m.tuning_key}: BFS and wBFS from {srcs_b[:2]} equal the "
         f"constants plan's; engine (max_batch {engine_m.max_batch} from the table) "
         f"{len(reqs)} queries in {serve_m_s:.3f} s = {len(reqs) / serve_m_s:.2f} queries/s "
         f"(phase 5, constants sparse_streamed plan: {len(reqs) / serve_s:.2f}), "
-        f"stats {engine_m.stats}, kernel 1 launches {serve_m_launches}; every result "
+        f"stats {engine_m.stats}, kernel 1 launches: fused {serve_m_launches['fused']} in "
+        f"{serve_m_rounds} rounds, decode {serve_m_launches['decode']}; every result "
         "equals its single run")
     # both flavors of batched auto's sparse branch, around the batch's density
     deg = gB.degrees.cpu().numpy()
@@ -1855,22 +2131,23 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
                for q in range(BATCH)]
     branch = {}
     for side, crossover in (("streamed", 2 * mean), ("per-lane", mean / 2)):
-        before = compressed_chunked_spmv.launches
+        before = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
         # dense_frac=1 keeps the round on the sparse branch whatever the
         # measured threshold, so the flavor switch is what runs
         out, touched = edgemap_reduce_batched(gB, fm, xb, monoid="min", plan=plan_m,
                                               dense_frac=1.0, auto_sparse="sparse_streamed",
                                               flavor_crossover=crossover)
-        branch[side] = compressed_chunked_spmv.launches - before
+        branch[side] = (compressed_chunked_spmv.launches - before[0],
+                        compressed_stream_round.launches - before[1])
         for q in range(BATCH):
             check(torch.equal(out[q], singles[q][0]) and torch.equal(touched[q],
                                                                      singles[q][1]),
                   f"batched auto ({side}) lane {q} differs from its single run")
-    check(branch["streamed"] > 0 and branch["per-lane"] == 0,
-          f"the flavor crossover did not pick both branches: {branch}")
+    check(branch["streamed"] == (0, 1) and branch["per-lane"] == (0, 0),
+          f"the flavor crossover did not pick both branches: (decode, fused) {branch}")
     log(f"[7] batched auto, B={BATCH}, mean lane density {mean!r}: crossover 2x the "
-        f"density streams ({branch['streamed']} kernel 1 launches), 0.5x runs the "
-        "per-lane loops (0 launches); every lane equals its single run")
+        f"density streams (one fused kernel 1 launch), 0.5x runs the per-lane loops (0 "
+        "launches); every lane equals its single run")
     wall["measured plan"] = time.perf_counter() - t0
 
     # 9. the graphFilter path (kernel 4) --------------------------------
@@ -1979,6 +2256,19 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
             "bound_ms": timing1["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,  # no one PyTorch call computes this decode
+        },
+        {
+            "name": "compressed_stream_round",
+            "route": "cuda",
+            "source": KERNEL_SOURCES["compressed"],
+            "replaces": "src/repro/kernels/compressed_spmv/compressed_spmv.py:290",
+            "launches": main_round_launches,
+            "max_abs_err": err1f,
+            "ms": round_full["ms"],
+            "plain_ms": round_full["plain_ms"],
+            "bound_ms": round_full["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no one PyTorch call runs an edgeMap round
         },
         {
             "name": "compressed_block_spmv",

@@ -50,6 +50,10 @@ def _relax(xs, w):
     return torch.where(xs >= INF_I32 - (1 << 24), INF_I32, xs + wi)
 
 
+# the fused round's name for this map (``core.edgemap.stream_round_route``)
+_relax.kernel_map = "sat_add_i32"
+
+
 def _bucket_of(dist, settled):
     """Per-vertex bucket id for the dense semi-eager wBFS bucketing."""
     return torch.where(

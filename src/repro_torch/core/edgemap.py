@@ -11,8 +11,11 @@ Four execution modes, mirroring the paper:
 * ``sparse_streamed`` — the same chunk loop, but on a ``CompressedCSR``
   backend each chunk's tile comes from the frontier-sparse kernel
   (``repro_torch.kernels.compressed_spmv``), which reads only the live
-  blocks' compressed bytes.  Raw ``CSRGraph`` backends and exception-dense
-  compressed graphs run plain ``sparse`` — identical results either way.
+  blocks' compressed bytes.  On the card a round of min over int32 with a
+  map the kernel knows (``kernel_map``: BFS's identity, wBFS's saturating
+  add) is one launch instead (``stream_round_route``), the chunk loop
+  fused into it.  Raw ``CSRGraph`` backends and exception-dense compressed
+  graphs run plain ``sparse`` — identical results either way.
 * ``auto``   — Beamer direction optimization: dense when the frontier's
   incident-edge count exceeds ``m / dense_frac``.
 
@@ -20,16 +23,18 @@ Semantics (Ligra): ``out[v] = monoid over {map_fn(x[u], w_uv) : u∈frontier,
 (u,v) active}``, plus a ``touched`` mask (v received ≥1 contribution).
 
 The loops are Python loops: the chunk count is read on the host once per
-call, and the Beamer choice is an ``if`` on a host-read predicate.
+call (not on the fused route), and the Beamer choice is an ``if`` on a
+host-read predicate.
 ``edgemap_reduce_batched`` runs B queries through one sweep: the edge
 stream is read once per round and fanned across the B state columns.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
+from ..device import kernel_route
 from ..obs import get_registry
 from ..tuning.defaults import (
     DEFAULT_CHUNK_BLOCKS,
@@ -47,6 +52,10 @@ def _identity_map(x_src, w):
     return x_src
 
 
+# the fused round's name for this map (``stream_round_route``)
+_identity_map.kernel_map = "identity"
+
+
 def _words(g: GraphLike, edge_active):
     """Any edge-activity form → packed int32 (NB, F_B/32) words, or None."""
     return None if edge_active is None else edge_active_words(edge_active, g.block_size)
@@ -57,13 +66,35 @@ def _take_cols(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     return take_fill(arr.T, idx, fill).T
 
 
-def _streaming_decoder(g: GraphLike, edge_active):
-    """The kernel-backed tile view for the ``sparse_streamed`` mode, or None.
+class _Stream(NamedTuple):
+    """A streaming backend's two routes through a ``sparse_streamed`` round."""
 
-    Returns ``tile(bids) -> (dst, w)`` reading ONLY the named blocks, with
-    the packed ``edge_active`` words folded into ``dst`` (masked slots come
-    back as the sentinel ``n``).  None when the backend has no streaming
-    decoder: a raw ``CSRGraph`` or an exception-dense ``CompressedCSR``."""
+    tile: Callable   # bids -> (dst, w): one chunk of the chunk loop
+    round: Callable  # (frontier, x, kernel_map, map_lanes=None) -> (out, touched)
+
+
+def stream_round_route(device, monoid: str, map_fn: Callable, dtype) -> str:
+    """The route of a ``sparse_streamed`` round on a streaming backend:
+    ``"fused"`` (one ``compressed_stream_round`` launch for the whole round)
+    or ``"chunks"`` (the chunk loop over ``compressed_chunked_spmv`` tiles,
+    the fused round's plain version).  A function of these four alone:
+    fused on the card, for ``min`` over int32 with a map whose
+    ``kernel_map`` tag the kernel knows."""
+    from ..kernels.compressed_spmv import ROUND_MAPS
+
+    fused = (kernel_route(device) == "cuda" and monoid == "min" and dtype == torch.int32
+             and getattr(map_fn, "kernel_map", None) in ROUND_MAPS)
+    return "fused" if fused else "chunks"
+
+
+def _streaming_decoder(g: GraphLike, edge_active) -> _Stream | None:
+    """The kernel-backed routes of the ``sparse_streamed`` mode, or None.
+
+    ``tile(bids) -> (dst, w)`` reads ONLY the named blocks, with the packed
+    ``edge_active`` words folded into ``dst`` (masked slots come back as the
+    sentinel ``n``); ``round`` runs the whole round in one launch.  None when
+    the backend has no streaming decoder: a raw ``CSRGraph`` or an
+    exception-dense ``CompressedCSR``."""
     from .compressed import CompressedCSR, exception_dense
 
     if not isinstance(g, CompressedCSR) or exception_dense(g):
@@ -72,6 +103,7 @@ def _streaming_decoder(g: GraphLike, edge_active):
     from ..kernels.compressed_spmv.ops import (
         _exception_row_targets,
         compressed_chunked_stream_tile,
+        compressed_stream_round_graph,
     )
 
     words = _words(g, edge_active)
@@ -81,7 +113,11 @@ def _streaming_decoder(g: GraphLike, edge_active):
     def tile(bids):
         return compressed_chunked_stream_tile(g, bids, words, exact_rows=exact)
 
-    return tile
+    def round_(frontier, x, kernel_map, map_lanes=None):
+        return compressed_stream_round_graph(g, frontier, x, words, map_kind=kernel_map,
+                                             exact_rows=exact, map_lanes=map_lanes)
+
+    return _Stream(tile, round_)
 
 
 def _combine(monoid, a, b):
@@ -155,14 +191,23 @@ def edgemap_chunked(
     With ``streamed=True`` (the ``sparse_streamed`` mode) a ``CompressedCSR``
     backend takes each chunk's tile from the frontier-sparse kernel, one
     launch per chunk of ``chunk_blocks`` live ids, so the bytes read track
-    the live count, not NB.  Results are bit-identical to the un-streamed
-    path; backends without a streaming decoder ignore the flag.
+    the live count, not NB; where ``stream_round_route`` says ``"fused"``
+    the whole round is one launch and ``chunk_blocks`` plays no part.
+    Results are bit-identical to the un-streamed path; backends without a
+    streaming decoder ignore the flag.
     """
     n, NB, FB = g.n, g.num_blocks, g.block_size
     C = min(chunk_blocks, NB)
     nchunks = -(-NB // C)
     ident = monoid_identity(monoid, x.dtype).item()
     feat = tuple(x.shape[1:])
+
+    stream = _streaming_decoder(g, edge_active) if streamed else None
+    if (stream is not None and not feat
+            and stream_round_route(x.device, monoid, map_fn, x.dtype) == "fused"):
+        # the whole round in one launch, no live count read on the host
+        return stream.round(frontier_mask, x, map_fn.kernel_map)
+    words = _words(g, edge_active) if stream is None else None
 
     blk_act = take_fill(frontier_mask, g.block_src, False)
     idx, k = compact_mask(blk_act, fill=NB)  # O(n) words: NB = O(n) by F_B=d_avg
@@ -171,15 +216,12 @@ def edgemap_chunked(
     out = _out0(monoid, (n + 1,) + feat, x.dtype, x.device)
     touched = torch.zeros(n + 1, dtype=torch.bool, device=x.device)
 
-    stream_tile = _streaming_decoder(g, edge_active) if streamed else None
-    words = _words(g, edge_active) if stream_tile is None else None
-
     for lo in range(0, k, C):
         bids = idx[lo : lo + C]
-        if stream_tile is not None:
+        if stream is not None:
             # frontier-sparse kernel: ONLY these C blocks are read; filter
             # bits already folded (masked slots → n)
-            dsts, ws = stream_tile(bids)
+            dsts, ws = stream.tile(bids)
             act = dsts < n
         else:
             # per-backend tile view; compressed backends decode here, inside
@@ -329,7 +371,8 @@ def edgemap_chunked_batched_streamed(
     once; each chunk is decoded by the kernel exactly once and fanned
     across the B lanes — lanes for which a block is dead contribute the
     monoid identity.  Per-lane results equal the single-query streamed runs
-    exactly for int/min/max/or state.
+    exactly for int/min/max/or state.  Where ``stream_round_route`` says
+    ``"fused"`` the whole round is one launch.
     """
     n, NB, FB = g.n, g.num_blocks, g.block_size
     B = xb.shape[0]
@@ -337,18 +380,20 @@ def edgemap_chunked_batched_streamed(
     nchunks = -(-NB // C)
     ident = monoid_identity(monoid, xb.dtype).item()
 
+    stream = _streaming_decoder(g, edge_active)
+    assert stream is not None, "caller guards on _streaming_decoder"
+    if stream_round_route(xb.device, monoid, map_fn, xb.dtype) == "fused":
+        return stream.round(frontier_masks, xb, map_fn.kernel_map, map_lanes)
+
     frontier_blk = _take_cols(frontier_masks, g.block_src, False)   # (B, NB)
     idx, k = compact_mask(frontier_blk.any(dim=0), fill=NB)         # union live set
     idx = torch.nn.functional.pad(idx, (0, nchunks * C - NB), value=NB)
-
-    stream_tile = _streaming_decoder(g, edge_active)
-    assert stream_tile is not None, "caller guards on _streaming_decoder"
 
     out = _out0(monoid, (n + 1, B), xb.dtype, xb.device)
     hits = torch.zeros((n + 1, B), dtype=torch.int32, device=xb.device)
     for lo in range(0, k, C):
         bids = idx[lo : lo + C]
-        dsts, ws = stream_tile(bids)                    # decoded ONCE for all B
+        dsts, ws = stream.tile(bids)                    # decoded ONCE for all B
         srcs = take_fill(g.block_src, bids, n)          # (C,)
         act_sh = dsts < n                               # shared: filter folded
         lane_blk = _take_cols(frontier_masks, srcs, False)              # (B, C)

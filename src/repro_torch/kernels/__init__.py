@@ -14,6 +14,9 @@ from .compressed_spmv import (
     compressed_spmv_vertex_batched,
     compressed_spmv_vertex_chunked,
     compressed_spmv_vertex_ref,
+    compressed_stream_round,
+    compressed_stream_round_graph,
+    compressed_stream_round_ref,
 )
 from .edge_block_spmv import (
     edge_block_spmv,

@@ -1,11 +1,16 @@
 // Decode of compressed graph blocks fused with the masked SpMV, for Hopper (sm_90a).
 //
-// Two kernels:
+// Three kernels:
 //
 // 1. chunked_kernel replaces the TPU kernel compressed_chunked_spmv_pallas
 //    (src/repro/kernels/compressed_spmv/compressed_spmv.py, body _chunked_kernel,
 //    tiled grid _chunked_tiled_call): it decodes only the blocks named by one
 //    chunk of the compacted live-block id list, a warp a block (decode_row).
+// 1b. stream_round_kernel does all of one sparse_streamed edgeMap round in one
+//    launch, where the TPU runs the chunk loop of _chunked_kernel launches
+//    inside a lax.while_loop: liveness of every block, the decode of the live
+//    ones, and the round's min over int32 with the identity map (BFS) or the
+//    saturating add (wBFS), applied with atomics.
 // 2. block_kernel replaces the TPU kernel compressed_block_spmv_pallas
 //    (same file, body _kernel): it sums every block of the graph, the pull
 //    SpMV behind compressed_spmv_vertex and calibration's tile sweep.
@@ -21,14 +26,18 @@
 // An id >= NB (or negative) is a pad row of the chunked kernel: it decodes to
 // all n and reads no graph array.  Blocks holding ESCAPE deltas decode wrong on
 // purpose; the Python wrappers patch them from the exception list, as on the TPU.
+// stream_round_kernel reads those blocks' exact rows instead (exc_row).
 //
-// Bound on the H100: both kernels are bandwidth-bound.  Per block they read
+// Bound on the H100: all three kernels are bandwidth-bound.  Per block they read
 // 4 + 2 bytes (first target, valid count), 2 bytes of deltas per valid slot,
 // 4*ceil(vc/32) per mask and 4 per valid slot if weighted; a lane reads no
 // delta or weight slot past valid_count (the scan gives those slots targets
 // no mask lets through).  decode writes 8*FB bytes per id.  Divide by
 // 3.35 TB/s.  sums also gathers x[dst] (256 KB to 4 MB here, resident in the
-// 50 MB L2) and writes 4*B bytes per block.
+// 50 MB L2) and writes 4*B bytes per block.  stream_round_kernel reads
+// 4 + B bytes a block (owner, its frontier bytes) to find the live ones and
+// the above of the live ones only (weights only for the saturating add); its
+// per-slot min goes to the (n, B) state in L2.
 //
 // chunked_kernel: one warp per block, 8 warps a CTA.  Each lane holds FB/32
 // consecutive slots, loaded as one vector when all of them are valid; the
@@ -57,9 +66,32 @@
 // the knob calibration sweeps), and no persistent loop: the card balances
 // the tiles.  No array is padded: lanes past NB load nothing and store
 // nothing.
+//
+// stream_round_kernel: the lane groups of block_kernel, a warp a tile of
+// kRoundTile = 8 blocks.  Lane k < 8 loads block k's owner and tests its
+// frontier bytes (the OR over the B queries); a __ballot_sync gives the
+// tile's live set, and a tile with none exits after 4 + B bytes a block.
+// Only live lanes load their header (and exc_row); the groups then take the
+// live blocks, lowest first, 32 / L at a time.  A block on the exception list
+// reads its exact, active-masked row of targets instead of its deltas.  For
+// every masked-in slot and every query b whose frontier holds the block's
+// owner, v = map(x[b, owner], w) is min-ed into out[dst, b] with atomicMin,
+// after a plain load shows that out does not already hold v or less: R-MAT's
+// hubs take many slots each.  The load may come from L1 and be stale, but
+// out only falls during the round, so a stale value costs at most an
+// atomic.  A block's targets are distinct, so all of its slots' loads are in
+// flight before the first atomic, and the atomics return nothing (RED).
+// touched[dst, b] is stored where the atomic ran or v is the identity: a
+// slot whose atomic is skipped meets a value that a slot with an atomic
+// wrote in this round, and that slot stored touched.  min over int32 is
+// order-free, so out and touched are exactly the chunk loop's.  Tiles of
+// 8, 4, 16 and 32 blocks, loads through L2 only (__ldcg) and launch bounds
+// of 3 or 4 CTAs an SM were timed on graph B: loads through L1 took a
+// full-frontier round from 0.27 to 0.09 ms; the rest moved it by 15 % or less,
+// in either direction, and 3 CTAs an SM slowed B = 8.
 // Left for later: chunked_kernel keeps a warp a block and one round trip
-// after another (its lever is fewer launches); x is gathered from L2, not
-// staged in shared memory.
+// after another (stream_round_kernel took its place on BFS and wBFS
+// rounds); x is gathered from L2, not staged in shared memory.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -458,6 +490,163 @@ block_kernel(const int32_t* __restrict__ block_first,
   }
 }
 
+// ---- stream_round_kernel: one sparse_streamed round in one launch --------
+
+constexpr int kRoundWarps = 8;
+constexpr int kRoundTile = 8;                        // blocks a warp takes
+constexpr int32_t kInfI32 = 0x7fffffff;              // min's identity over int32
+constexpr int32_t kSatI32 = kInfI32 - (1 << 24);     // wBFS: saturate from here
+enum RoundMap { kMapIdentity = 0, kMapSatAddI32 = 1 };
+
+// wBFS's relaxation: x >= INF - 2^24 stays INF, else x + trunc(w), wrapping
+// as int32 does.
+__device__ __forceinline__ int32_t sat_add_i32(int32_t x, float w) {
+  if (x >= kSatI32) return kInfI32;
+  return static_cast<int32_t>(static_cast<uint32_t>(x) +
+                              static_cast<uint32_t>(__float2int_rz(w)));
+}
+
+template <int S, int MAP>
+__global__ void __launch_bounds__(32 * kRoundWarps)
+stream_round_kernel(const int32_t* __restrict__ block_src,
+                    const int32_t* __restrict__ block_first,
+                    const uint16_t* __restrict__ deltas,
+                    const uint16_t* __restrict__ valid_count,
+                    const uint32_t* __restrict__ edge_active,
+                    const float* __restrict__ block_weights,
+                    const int32_t* __restrict__ exc_row,
+                    const int32_t* __restrict__ exact_rows,
+                    int NB, int n,
+                    const uint8_t* __restrict__ frontier, long long f_stride,
+                    const int32_t* __restrict__ x, long long x_stride,
+                    const uint8_t* __restrict__ map_lanes, int B,
+                    int32_t* __restrict__ out, uint8_t* __restrict__ touched) {
+  constexpr int FB = 32 * S;
+  constexpr int W = FB / 32;              // mask words a block
+  constexpr int L = FB == 128 ? 16 : 8;   // lanes a block
+  constexpr int G = 32 / L;               // blocks a warp decodes at once
+  constexpr int N = FB / L;               // consecutive slots a lane holds
+  const int lane = threadIdx.x & 31;
+  const int group = lane / L;
+  const int sub = lane % L;
+  constexpr int T = kRoundTile;
+  const int t = blockIdx.x * kRoundWarps + (threadIdx.x >> 5);
+  if (t >= (NB + T - 1) / T) return;  // uniform across the warp
+  const int base = t * T;
+  // lane k < T: is block base + k live, i.e. does a query's frontier hold its owner
+  const bool inb = lane < T && base + lane < NB;
+  const int src = inb ? __ldg(block_src + base + lane) : 0;
+  bool any = false;
+  for (int q = 0; inb && q < B && !any; ++q) any = frontier[q * f_stride + src] != 0;
+  uint32_t live = __ballot_sync(kFull, any);
+  if (live == 0) return;  // a dead tile reads no edge byte
+  int count = 0, first = 0, er = -1;
+  if (any) {
+    count = __ldcs(valid_count + base + lane);
+    first = __ldcs(block_first + base + lane);
+    if (exc_row != nullptr) er = __ldg(exc_row + base + lane);
+  }
+  const int j0 = sub * N;  // the lane's first slot
+#pragma unroll 1
+  while (live != 0) {
+    // the tile's G lowest live blocks, one to a group (k < 0: none left)
+    int k = -1;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int pos = live != 0 ? __ffs(live) - 1 : -1;
+      if (g == group) k = pos;
+      live &= live - 1;
+    }
+    const int kk = k < 0 ? 0 : k;
+    int cnt = __shfl_sync(kFull, count, kk);
+    const uint32_t start = static_cast<uint32_t>(__shfl_sync(kFull, first, kk));
+    int exc = __shfl_sync(kFull, er, kk);
+    const int owner = __shfl_sync(kFull, src, kk);
+    if (k < 0) { cnt = 0; exc = -1; }
+    const int32_t x0 = __ldg(x + owner);  // query 0's value, in flight with the deltas
+    const int i = base + kk;
+    const size_t row = static_cast<size_t>(i) * FB;
+    // every load of the round first, then their uses
+    uint32_t d[N];
+    float w[N];
+    int32_t ex[N];
+    const int dcnt = exc >= 0 ? 0 : cnt;  // an exception block reads no delta
+#pragma unroll
+    for (int q = 0; q < N / S; ++q) {
+      load_delta_chunk<S>(deltas + row, j0 + q * S, dcnt, d + q * S);
+      if (MAP == kMapSatAddI32 && block_weights != nullptr) {
+        load_weight_chunk<S>(block_weights + row, j0 + q * S, cnt, w + q * S);
+      } else {
+#pragma unroll
+        for (int e = 0; e < S; ++e) w[q * S + e] = 1.0f;
+      }
+    }
+    if (exc >= 0) {
+      const int4* er4 = reinterpret_cast<const int4*>(
+          exact_rows + static_cast<size_t>(exc) * FB + j0);
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const int4 v = __ldg(er4 + q);
+        ex[4 * q] = v.x; ex[4 * q + 1] = v.y; ex[4 * q + 2] = v.z; ex[4 * q + 3] = v.w;
+      }
+    }
+    uint32_t word = kFull;
+    if (edge_active != nullptr && j0 < dcnt) {
+      word = __ldcs(edge_active + static_cast<size_t>(i) * W + (j0 >> 5));
+    }
+    // dst = first + inclusive prefix of the deltas, slot 0 zeroed, in uint32
+    if (sub == 0) d[0] = 0;
+    uint32_t tot = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) { tot += d[j]; d[j] = tot; }
+    uint32_t incl = tot;
+#pragma unroll
+    for (int off = 1; off < L; off <<= 1) {
+      const uint32_t v = __shfl_up_sync(kFull, incl, off, L);
+      if (sub >= off) incl += v;
+    }
+    const uint32_t at = start + (incl - tot);
+    // -1: the slot is masked out (past the count, inactive, or no target)
+    int32_t dst[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (exc >= 0) {
+        dst[j] = static_cast<uint32_t>(ex[j]) < static_cast<uint32_t>(n) ? ex[j] : -1;
+      } else {
+        const uint32_t v = at + d[j];
+        const bool m = j0 + j < cnt && ((word >> ((j0 + j) & 31)) & 1u) &&
+                       v < static_cast<uint32_t>(n);
+        dst[j] = m ? static_cast<int32_t>(v) : -1;
+      }
+    }
+    if (k < 0) continue;  // no shuffle below: groups part here
+    for (int q = 0; q < B; ++q) {
+      if (frontier[q * f_stride + owner] == 0) continue;  // uniform in the group
+      const int32_t xv = q == 0 ? x0 : __ldg(x + q * x_stride + owner);
+      const bool mapped = MAP == kMapSatAddI32 && (map_lanes == nullptr || map_lanes[q] != 0);
+      // all of the slots' loads of out in flight before any atomic (a
+      // block's targets are distinct); the atomics return nothing (RED)
+      int32_t cur[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        cur[j] = dst[j] >= 0 ? out[static_cast<size_t>(dst[j]) * B + q] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if (dst[j] < 0) continue;
+        const int32_t v = mapped ? sat_add_i32(xv, w[j]) : xv;
+        const size_t o = static_cast<size_t>(dst[j]) * B + q;
+        if (cur[j] > v) {
+          atomicMin(out + o, v);
+          touched[o] = 1;
+        } else if (v == kInfI32) {
+          touched[o] = 1;
+        }
+      }
+    }
+  }
+}
+
 template <int S>
 cudaError_t launch_chunked(int mode, int C, cudaStream_t stream, const int32_t* ids,
                            const int32_t* first, const uint16_t* deltas, const uint16_t* vc,
@@ -515,6 +704,30 @@ cudaError_t launch_block(int mode, int warps, cudaStream_t stream, const int32_t
   return cudaGetLastError();
 }
 
+template <int S>
+cudaError_t launch_round(int map, cudaStream_t stream, const int32_t* src, const int32_t* first,
+                         const uint16_t* deltas, const uint16_t* vc, const uint32_t* active,
+                         const float* weights, const int32_t* exc_row, const int32_t* exact,
+                         int NB, int n, const uint8_t* frontier, long long f_stride,
+                         const int32_t* x, long long x_stride, const uint8_t* map_lanes, int B,
+                         int32_t* out, uint8_t* touched) {
+  const long long tiles = (NB + kRoundTile - 1) / kRoundTile;
+  const dim3 grid(static_cast<unsigned>((tiles + kRoundWarps - 1) / kRoundWarps));
+  const dim3 block(32 * kRoundWarps);
+#define SAGE_LAUNCH(M)                                                                   \
+  stream_round_kernel<S, M><<<grid, block, 0, stream>>>(src, first, deltas, vc, active,  \
+                                                        weights, exc_row, exact, NB, n,  \
+                                                        frontier, f_stride, x, x_stride, \
+                                                        map_lanes, B, out, touched)
+  switch (map) {
+    case kMapIdentity: SAGE_LAUNCH(kMapIdentity); break;
+    case kMapSatAddI32: SAGE_LAUNCH(kMapSatAddI32); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef SAGE_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // mode: 0 decode, 1 sums over float32 x, 2 sums over int32 x (unweighted),
@@ -565,6 +778,42 @@ extern "C" int compressed_block_spmv_launch(
     case 128:
       return launch_block<4>(mode, warps, s, block_first, deltas, valid_count, bits,
                              edge_active, block_weights, NB, n, x, B, x_stride, sums_out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// One sparse_streamed round of min over int32: for every block whose owner a
+// query's frontier holds (frontier: B rows of f_stride bytes), every
+// masked-in slot's v = map(x[b, owner], w) is min-ed into out[dst * B + b]
+// and touched[dst * B + b] set.  map: 0 identity, 1 saturating add of the
+// truncated weight.  out (n, B) must hold INT32_MAX and touched (n, B) zeros
+// on entry.  exc_row (NB,) names the row of exact_rows (int32, FB a row,
+// 16-byte aligned) that replaces a block's decode, -1 for none; null when the
+// graph has no exceptions.  map_lanes (B bytes) picks the queries the map
+// applies to (null: all).  Null pointers mark absent operands.  Returns the
+// cudaError_t of the launch.
+extern "C" int compressed_stream_round_launch(
+    const int32_t* block_src, const int32_t* block_first, const uint16_t* deltas,
+    const uint16_t* valid_count, const uint32_t* edge_active, const float* block_weights,
+    const int32_t* exc_row, const int32_t* exact_rows, int NB, int FB, int n, int map,
+    const uint8_t* frontier, long long f_stride, const int32_t* x, long long x_stride,
+    const uint8_t* map_lanes, int B, int32_t* out, uint8_t* touched, void* stream) {
+  if (NB <= 0 || B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (FB) {
+    case 32:
+      return launch_round<1>(map, s, block_src, block_first, deltas, valid_count,
+                             edge_active, block_weights, exc_row, exact_rows, NB, n,
+                             frontier, f_stride, x, x_stride, map_lanes, B, out, touched);
+    case 64:
+      return launch_round<2>(map, s, block_src, block_first, deltas, valid_count,
+                             edge_active, block_weights, exc_row, exact_rows, NB, n,
+                             frontier, f_stride, x, x_stride, map_lanes, B, out, touched);
+    case 128:
+      return launch_round<4>(map, s, block_src, block_first, deltas, valid_count,
+                             edge_active, block_weights, exc_row, exact_rows, NB, n,
+                             frontier, f_stride, x, x_stride, map_lanes, B, out, touched);
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,6 +6,9 @@
 * ``compressed_chunked_stream_tile`` — the chunk-pool decoder behind the
   core ``edgemap_chunked`` streamed path: one chunk of live ids in, exact
   masked targets + aligned weights out, exceptions patched by gathered id.
+* ``compressed_stream_round_graph`` — a whole ``sparse_streamed`` round of
+  min over int32 (BFS, wBFS) in one launch, exception blocks read from
+  their exact rows.
 * ``compressed_spmv_vertex_chunked`` — the frontier-sparse SpMV: sums over
   only the blocks owned by ``frontier`` vertices, single or (B, n)-batched.
 
@@ -32,7 +35,11 @@ from ...core.graph_filter import (
 )
 from ...core.primitives import compact_mask, segment_reduce, take_fill
 from ...tuning.defaults import DEFAULT_TILE_BLOCKS
-from .compressed_spmv import compressed_block_spmv, compressed_chunked_spmv
+from .compressed_spmv import (
+    compressed_block_spmv,
+    compressed_chunked_spmv,
+    compressed_stream_round,
+)
 from .ref import compressed_block_sums_exact, exact_block_sums
 
 def _active_words(c: CompressedCSR, edge_active):
@@ -154,6 +161,41 @@ def compressed_chunked_stream_tile(
         exact = _exception_row_targets(c, active) if exact_rows is None else exact_rows
         dst = _patch_rows(dst, rows_for_ids(ids, c.exc_block, c.num_blocks), exact)
     return dst, ws
+
+
+def compressed_stream_round_graph(
+    c: CompressedCSR,
+    frontier: torch.Tensor,
+    x: torch.Tensor,
+    words: torch.Tensor | None,
+    *,
+    map_kind: str,
+    exact_rows: torch.Tensor | None = None,
+    map_lanes: torch.Tensor | None = None,
+):
+    """One ``sparse_streamed`` round of min over int32 on ``c``: ``(out,
+    touched)``, (n,) or (B, n) as ``x`` is.
+
+    ``words`` are the packed ``edge_active`` words (or None) and
+    ``exact_rows`` their ``_exception_row_targets(c, words)``, which a
+    caller that has them passes.  Each exception block gets the index of its
+    exact row (``exc_row``), so the kernel reads that row instead of its
+    decode, as ``compressed_chunked_stream_tile`` patches it."""
+    exc_row = None
+    if c.n_exceptions:
+        if exact_rows is None:
+            exact_rows = _exception_row_targets(c, words)
+        # all exact rows of one block are the same: any of them will do
+        exc_row = torch.full((c.num_blocks,), -1, dtype=torch.int32, device=c.device)
+        exc_row[c.exc_block.long()] = torch.arange(c.n_exceptions, dtype=torch.int32,
+                                                   device=c.device)
+    w = c.block_weights if c.weighted else None
+    x = x if x.stride(-1) == 1 else x.contiguous()
+    frontier = frontier if frontier.stride(-1) == 1 else frontier.contiguous()
+    return compressed_stream_round(
+        x, frontier, c.block_src, c.block_first, c.deltas, c.valid_count, words, w,
+        exc_row, exact_rows, n=c.n, map_kind=map_kind, map_lanes=map_lanes,
+    )
 
 
 def compressed_spmv_vertex_chunked(

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the compressed-block kernels, and the exact oracle.
 
-``compressed_chunked_spmv_ref`` and ``compressed_block_spmv_ref`` have the
-signatures of the kernel wrappers in ``compressed_spmv.py`` and compute the
-same functions with ordinary tensor ops: the CPU route runs them, and
-``chip_smoke.py`` holds the CUDA kernels against them on the card.  Like the
+``compressed_chunked_spmv_ref``, ``compressed_block_spmv_ref`` and
+``compressed_stream_round_ref`` have the signatures of the kernel wrappers in
+``compressed_spmv.py`` and compute the same functions with ordinary tensor
+ops: the CPU route runs them, and the card's tests hold the CUDA kernels
+against them.  Like the
 kernels, they decode blocks holding ESCAPE deltas wrong on purpose (the
 callers in ``ops.py`` patch them), and they widen one chunk or range of
 deltas at a time, never the graph.
@@ -20,7 +21,7 @@ import torch
 
 from ...core.compressed import CompressedCSR, decode_block_range
 from ...core.graph_filter import unpack_word_bits
-from ...core.primitives import segment_reduce, take_fill
+from ...core.primitives import INF_I32, segment_reduce, take_fill
 from ...tuning.defaults import DEFAULT_DENSE_RANGE_BLOCKS
 
 
@@ -102,6 +103,68 @@ def compressed_block_spmv_ref(
             n=n, emit="sums",
         ))
     return torch.cat(parts)
+
+
+def round_map(map_kind: str, xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The maps a fused round knows: ``"identity"`` (BFS) and
+    ``"sat_add_i32"`` (wBFS: ``xs + trunc(w)``, saturating at
+    ``INF_I32 - 2**24``)."""
+    if map_kind == "identity":
+        return xs
+    if map_kind == "sat_add_i32":
+        return torch.where(xs >= INF_I32 - (1 << 24), INF_I32, xs + w.to(torch.int32))
+    raise ValueError(f"no fused round for map {map_kind!r}")
+
+
+def compressed_stream_round_ref(
+    x: torch.Tensor,               # (n,) / (B, n) int32 vertex state
+    frontier: torch.Tensor,        # (n,) / (B, n) bool
+    block_src: torch.Tensor,       # (NB,) int32
+    block_first: torch.Tensor,     # (NB,) int32
+    deltas: torch.Tensor,          # (NB, FB) int16 bit-view of the uint16 codes
+    valid_count: torch.Tensor,     # (NB,) int16 bit-view
+    edge_active: torch.Tensor | None = None,    # (NB, FB//32) int32 traversal mask
+    block_weights: torch.Tensor | None = None,  # (NB, FB) float32
+    exc_row: torch.Tensor | None = None,        # (NB,) int32: row of exact_rows, or -1
+    exact_rows: torch.Tensor | None = None,     # (rows, FB) int32, masked, sentinel n
+    *,
+    n: int,
+    map_kind: str,
+    map_lanes: torch.Tensor | None = None,      # (B,) bool: queries the map applies to
+):
+    """One ``sparse_streamed`` round of min over int32 → ``(out, touched)``,
+    (n,) each, or (B, n) for a batch: for every block whose owner a query's
+    frontier holds, every masked-in slot contributes ``map(x[owner], w)`` to
+    ``out[dst]`` (min, identity ``INF_I32``) and sets ``touched[dst]``.  A
+    block with ``exc_row >= 0`` takes its targets from that exact row.
+    Walks every block, one range at a time, and masks the dead ones."""
+    batched = x.dim() == 2
+    xb, fb = (x, frontier) if batched else (x[None], frontier[None])
+    B, NB = xb.shape[0], deltas.shape[0]
+    out = torch.full((n + 1, B), INF_I32, dtype=torch.int32, device=x.device)
+    touched = torch.zeros((n + 1, B), dtype=torch.bool, device=x.device)
+    R = max(1, DEFAULT_DENSE_RANGE_BLOCKS // B)
+    for lo in range(0, NB, R):
+        ids = torch.arange(lo, min(NB, lo + R), device=deltas.device)
+        dst, w = compressed_chunked_spmv_ref(None, ids, block_first, deltas, valid_count,
+                                             None, edge_active, block_weights, n=n,
+                                             emit="decode")
+        if exc_row is not None:
+            r = exc_row[ids].long()
+            dst = torch.where((r >= 0)[:, None], exact_rows[r.clamp(min=0)], dst)
+        src = block_src[ids].long()
+        valid = (dst >= 0) & (dst < n)
+        act = fb[:, src][:, :, None] & valid[None]                     # (B, R, FB)
+        xs = xb[:, src][:, :, None].expand(act.shape)
+        vals = round_map(map_kind, xs, w[None])
+        if map_lanes is not None:
+            vals = torch.where(map_lanes[:, None, None], vals, xs)
+        vals = torch.where(act, vals, INF_I32).reshape(B, -1)
+        route = torch.where(valid, dst, n).reshape(-1)
+        out = torch.minimum(out, segment_reduce(vals.T, route, n + 1, "min"))
+        touched |= segment_reduce(act.reshape(B, -1).T, route, n + 1, "or")
+    out, touched = out[:n], touched[:n]
+    return (out.T, touched.T) if batched else (out[:, 0], touched[:, 0])
 
 
 def exact_block_sums(c: CompressedCSR, dst, bids, x, bits, weights=None, active=None):

@@ -8,8 +8,9 @@ Dispatch follows the device of the tensors and nothing else: CUDA tensors
 launch the hand-written kernel in ``csrc/filter_pack.cu`` (built for
 ``sm_90a`` on first use), CPU tensors run the plain PyTorch version
 ``ref.filter_pack_ref``.  A CUDA call that the kernel cannot take raises;
-nothing falls back.  Nothing is padded: the kernel's last CTA
-bounds-checks its warps.
+nothing falls back.  Nothing is padded: the kernel bounds-checks its
+rows.  The kernel loads ``keep`` 16 bytes at a time, so it must be
+16-byte aligned (a fresh tensor is).
 
 ``filter_pack_words.launches`` counts the kernel launches (a plain
 integer, bumped once per launch and nowhere else).
@@ -52,8 +53,9 @@ def filter_pack_words(
     """``bits`` int32 (NB, W) filter words, ``keep`` bool (NB, 32·W) slot
     predicate, ``subset`` bool (NB,) → ``(new_bits int32 (NB, W), count
     int32 (NB,))``: ``new_bits = subset ? bits & pack(keep) : bits`` and
-    ``count`` its popcount per row.  On the card each row is one warp, and
-    a CTA holds ``DEFAULT_TILE_BLOCKS`` rows.  Exactly ``filter_pack_ref``'s
+    ``count`` its popcount per row.  On the card a lane packs 16 keep
+    bytes, a warp takes 4 groups of 512 / F_B rows, and a CTA holds
+    ``DEFAULT_TILE_BLOCKS`` warps.  Exactly ``filter_pack_ref``'s
     results."""
     if kernel_route(bits.device) == "torch":
         return filter_pack_ref(bits, keep, subset)
@@ -65,7 +67,7 @@ def filter_pack_words(
     if FB not in BLOCK_SIZES:
         raise ValueError(f"block size {FB} not supported by the kernel ({BLOCK_SIZES})")
     check_operand("bits", bits, (torch.int32,), (NB, W), dev)
-    check_operand("keep", keep, (torch.bool,), (NB, FB), dev, align=1)
+    check_operand("keep", keep, (torch.bool,), (NB, FB), dev, align=16)
     check_operand("subset", subset, (torch.bool,), (NB,), dev, align=1)
     new_bits = torch.empty_like(bits)
     count = torch.empty(NB, dtype=torch.int32, device=dev)

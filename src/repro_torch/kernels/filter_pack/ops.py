@@ -16,6 +16,8 @@ def filter_pack(g, f: GraphFilter, subset_mask: torch.Tensor,
     ``keep_pred`` is bool[NB*F_B] or bool[NB, F_B]; the per-block counts of
     the kernel are segment-summed by block owner into ``active_deg``."""
     keep = keep_pred.reshape(g.num_blocks, g.block_size).contiguous()
+    if keep.data_ptr() % 16:  # a view into a larger tensor: the kernel loads 16 B
+        keep = keep.clone()
     subset_blk = take_fill(subset_mask, g.block_src, False)
     bits, count = filter_pack_words(f.bits, keep, subset_blk)
     return GraphFilter(

@@ -4,6 +4,11 @@
   (dense when the frontier's incident edges exceed ``m / dense_frac``).
 * ``DEFAULT_CHUNK_BLOCKS`` — EDGEMAPCHUNKED chunk size: blocks per
   chunk-loop iteration, and ids per launch of the frontier-sparse kernel.
+  It governs only the routes that run the chunk loop: ``sparse``, and
+  ``sparse_streamed`` on the CPU or for a monoid, map or dtype the fused
+  round does not take.  A ``sparse_streamed`` round of min over int32 with
+  BFS's or wBFS's map on the card is one launch whatever its live count
+  (``core.edgemap.stream_round_route``).
 * ``DEFAULT_TILE_BLOCKS``  — blocks per chunk of the frontier-sparse SpMV
   (``compressed_spmv_vertex_chunked``).
 * ``DEFAULT_DENSE_RANGE_BLOCKS`` — blocks per range of the dense pass,

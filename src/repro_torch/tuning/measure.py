@@ -21,6 +21,10 @@ symmetrised, unweighted), both backends:
   ``compressed_spmv_vertex``, the whole-graph kernel, across tile sizes
   (warps per CTA on the card, each a tile of 32 blocks).
 
+The edgeMap sweeps carry int32 vertex ids under ``min``, the state BFS and
+wBFS serve, so on the card their ``sparse_streamed`` rounds are the fused
+one-launch round (``core.edgemap.stream_round_route``), not the chunk loop.
+
 Timing: one warm-up call, then the **minimum** of ``reps`` host wall times,
 each ending in ``torch.cuda.synchronize()`` on the card.  A plan is chosen
 on what a round really costs, Python dispatch and launches included,
@@ -143,7 +147,7 @@ def _has_streaming(g) -> bool:
 
 def _batch_inputs(g, frac, seed, b):
     masks = np.stack([_frontier_for_fraction(g, frac, seed + i) for i in range(b)])
-    xb = torch.arange(g.n, dtype=torch.float32, device=g.device)[None, :].expand(b, g.n)
+    xb = torch.arange(g.n, dtype=torch.int32, device=g.device)[None, :].expand(b, g.n)
     return masks, torch.from_numpy(masks).to(g.device), xb.contiguous()
 
 
@@ -151,7 +155,7 @@ def _density_sweep(g, grid, *, seed: int, reps: int, chunk_blocks: int) -> list[
     from ..core import edgemap_reduce, edgemap_round_read_words
 
     deg, src = g.degrees.cpu().numpy(), g.block_src.cpu().numpy()
-    x0 = torch.arange(g.n, dtype=torch.float32, device=g.device)
+    x0 = torch.arange(g.n, dtype=torch.int32, device=g.device)
     dense_words = float(edgemap_round_read_words(g))
     modes = ["dense", "sparse"] + (["sparse_streamed"] if _has_streaming(g) else [])
     rows = []
@@ -177,7 +181,7 @@ def _density_sweep(g, grid, *, seed: int, reps: int, chunk_blocks: int) -> list[
 def _chunk_sweep(g, grid, *, frac: float, seed: int, reps: int) -> list[dict]:
     from ..core import edgemap_reduce
 
-    x0 = torch.arange(g.n, dtype=torch.float32, device=g.device)
+    x0 = torch.arange(g.n, dtype=torch.int32, device=g.device)
     mask = torch.from_numpy(_frontier_for_fraction(g, frac, seed)).to(g.device)
     return [
         {"chunk_blocks": int(cb),

@@ -6,7 +6,8 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
-decode, filter words and int32 sums must match exactly; float sums within rtol 1e-5,
+decode, filter words, int32 sums and the fused round's min and touched
+masks must match exactly; float sums within rtol 1e-5,
 because the kernels add the slots of a block in a warp-tree order.  Decode
 attention within ``ATTN_REL_TOL``, the relative L2 difference of each
 (sequence, head) row: 1e-5 in float32 (the kernel sums the rows in split
@@ -23,8 +24,21 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
-from repro_torch.algorithms import bfs, maximal_matching, wbfs
-from repro_torch.core import build_csr, compress, make_filter, make_plan, pack_vertices
+from repro_torch.algorithms import bfs, bfs_batched, maximal_matching, wbfs, wbfs_batched
+from repro_torch.algorithms.traversal import _relax
+from repro_torch.core import (
+    build_csr,
+    compress,
+    edgemap_chunked,
+    edgemap_chunked_batched_streamed,
+    exception_dense,
+    make_filter,
+    make_plan,
+    pack_vertices,
+)
+from repro_torch.core.edgemap import _identity_map
+from repro_torch.core.graph_filter import edge_active_words
+from repro_torch.core.primitives import INF_I32
 from repro_torch.configs import qwen2_1_5b
 from repro_torch.configs import sasrec as sasrec_config
 from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
@@ -36,6 +50,8 @@ from repro_torch.kernels import (
     compressed_chunked_spmv_ref,
     compressed_spmv_vertex,
     compressed_spmv_vertex_batched,
+    compressed_stream_round,
+    compressed_stream_round_graph,
     ATTN_REL_TOL,
     decode_attention,
     decode_attention_ref,
@@ -141,16 +157,143 @@ def test_kernel_counts_launches_and_rejects_bad_input(cuda):
 
 
 def test_streamed_traversals_match_cpu_route(cuda):
+    """BFS and wBFS on a sparse_streamed plan: one fused round a launch on
+    the card, equal to the CPU route's chunk loop."""
     c = _graph(64, True, n=1024, m=8192, seed=5)
     gc = _to(c, cuda)
-    before = compressed_chunked_spmv.launches
+    before = compressed_stream_round.launches
     pc, lc = bfs(c, 3, plan=make_plan(c, strategy="sparse_streamed"))
     pg, lg = bfs(gc, 3, plan=make_plan(gc, strategy="sparse_streamed"))
-    assert compressed_chunked_spmv.launches > before
+    rounds = int(lc.max()) + 1
+    assert compressed_stream_round.launches == before + rounds
     assert torch.equal(pg.cpu(), pc) and torch.equal(lg.cpu(), lc)
     dc = wbfs(c, 3, plan=make_plan(c, strategy="sparse_streamed"))
     dg = wbfs(gc, 3, plan=make_plan(gc, strategy="sparse_streamed"))
     assert torch.equal(dg.cpu(), dc)
+    srcs = [3, 5, 9, 11]
+    pc, lc = bfs_batched(c, srcs, plan=make_plan(c, strategy="sparse_streamed"))
+    pg, lg = bfs_batched(gc, srcs, plan=make_plan(gc, strategy="sparse_streamed"))
+    assert torch.equal(pg.cpu(), pc) and torch.equal(lg.cpu(), lc)
+    dc = wbfs_batched(c, srcs, plan=make_plan(c, strategy="sparse_streamed"))
+    dg = wbfs_batched(gc, srcs, plan=make_plan(gc, strategy="sparse_streamed"))
+    assert torch.equal(dg.cpu(), dc)
+
+
+def _exception_graph(fb, weighted):
+    """n > 2^16 and few edges: a few blocks hold ESCAPE deltas, under the
+    exception limit; weights are not whole."""
+    rng = np.random.default_rng(fb + weighted)
+    n = (1 << 17) + 3
+    src = np.concatenate([np.repeat(rng.choice(n, 12, replace=False), 6),
+                          rng.integers(0, n, 600)])
+    dst = rng.integers(0, n, src.shape[0])
+    w = rng.uniform(0.5, 9.5, src.shape[0]).astype(np.float32) if weighted else None
+    c = compress(build_csr(n, torch.from_numpy(src), torch.from_numpy(dst),
+                           None if w is None else torch.from_numpy(w), block_size=fb,
+                           symmetrize=True, device="cpu"))
+    assert c.n_exceptions > 0 and not exception_dense(c)
+    return c
+
+
+def _round_inputs(c, tiles, B, rng):
+    """Frontier and int32 state of one round: every tile's blocks dead, all
+    live, or one live block a tile (and its owner's other blocks)."""
+    n, NB = c.n, c.num_blocks
+    src = c.block_src.numpy()
+    live = np.zeros(n, bool)
+    if tiles == "all live":
+        live[:] = True
+    elif tiles == "one live":
+        t = np.arange(0, NB, 32)
+        live[src[np.minimum(t + (t // 32 * 7) % 32, NB - 1)]] = True
+    rows = 1 if B is None else B
+    frontier = live[None] & ((rng.random((rows, n)) < 0.7) | (tiles == "all live"))
+    frontier[0] = live
+    x = rng.integers(0, 5000, (rows, n)).astype(np.int32)
+    x[rng.random((rows, n)) < 0.05] = INF_I32
+    x[rng.random((rows, n)) < 0.05] = INF_I32 - (1 << 24) - rng.integers(-3, 4)
+    lanes = rng.random(rows) < 0.5
+    if B is None:
+        return torch.from_numpy(frontier[0]), torch.from_numpy(x[0]), None
+    return torch.from_numpy(frontier), torch.from_numpy(x), torch.from_numpy(lanes)
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tiles", ["all dead", "all live", "one live"])
+def test_stream_round_tiles_match_plain(cuda, fb, weighted, tiles):
+    """The fused round against its plain version, bit for bit: tiles all
+    dead, all live and one live, one query and batches of 1, 8 and 33,
+    both maps, with and without edge_active, on an R-MAT graph and on one
+    whose exception blocks take their exact rows."""
+    rng = np.random.default_rng(fb + weighted)
+    for c in (_graph(fb, weighted, n=700, m=5000, seed=fb), _exception_graph(fb, weighted)):
+        gc = _to(c, cuda)
+        active = torch.from_numpy(rng.random(c.num_blocks * fb) < 0.7)
+        for B in (None, 1, 8, 33):
+            frontier, x, lanes = _round_inputs(c, tiles, B, rng)
+            for words in (None, edge_active_words(active, fb)):
+                for map_kind in ("identity", "sat_add_i32"):
+                    want = compressed_stream_round_graph(c, frontier, x, words,
+                                                         map_kind=map_kind, map_lanes=lanes)
+                    before = compressed_stream_round.launches
+                    got = compressed_stream_round_graph(
+                        gc, frontier.to(cuda), x.to(cuda),
+                        None if words is None else words.to(cuda), map_kind=map_kind,
+                        map_lanes=None if lanes is None else lanes.to(cuda))
+                    torch.cuda.synchronize()
+                    assert compressed_stream_round.launches == before + 1
+                    assert torch.equal(got[0].cpu(), want[0])
+                    assert torch.equal(got[1].cpu(), want[1])
+                    assert bool(want[1].any()) == (tiles != "all dead")
+
+
+def test_fused_round_equals_the_chunk_loop_on_the_card(cuda):
+    """edgemap_chunked and its batched form on the card: a tagged map makes
+    one fused launch, the same map untagged runs the chunk loop through
+    kernel 1's decode, and the two agree exactly."""
+    c = _exception_graph(64, True)
+    gc = _to(c, cuda)
+    rng = np.random.default_rng(0)
+    frontier, x, lanes = (t.to(cuda) for t in _round_inputs(c, "one live", 8, rng))
+    for tagged in (_identity_map, _relax):
+        def untagged(xs, w, fn=tagged):
+            return fn(xs, w)
+
+        for batched in (False, True):
+            f, xx = (frontier, x) if batched else (frontier[0], x[0])
+            run = (lambda fn: edgemap_chunked_batched_streamed(
+                gc, f, xx, monoid="min", map_fn=fn, map_lanes=lanes)) if batched else (
+                lambda fn: edgemap_chunked(gc, f, xx, monoid="min", map_fn=fn, streamed=True))
+            before = (compressed_stream_round.launches, compressed_chunked_spmv.launches)
+            fused = run(tagged)
+            assert (compressed_stream_round.launches, compressed_chunked_spmv.launches) == (
+                before[0] + 1, before[1])
+            chunks = run(untagged)
+            assert compressed_chunked_spmv.launches > before[1]
+            assert compressed_stream_round.launches == before[0] + 1
+            torch.cuda.synchronize()
+            assert torch.equal(fused[0], chunks[0]) and torch.equal(fused[1], chunks[1])
+
+
+def test_stream_round_rejects_bad_operands(cuda):
+    gc = _to(_graph(32, False), cuda)
+    f = torch.zeros(gc.n, dtype=torch.bool, device=cuda)
+    x = torch.zeros(gc.n, dtype=torch.int32, device=cuda)
+    args = (gc.block_src, gc.block_first, gc.deltas, gc.valid_count)
+    before = compressed_stream_round.launches
+    with pytest.raises(ValueError, match="no fused round"):
+        compressed_stream_round(x, f, *args, n=gc.n, map_kind="sum")
+    with pytest.raises(TypeError):
+        compressed_stream_round(x.long(), f, *args, n=gc.n, map_kind="identity")
+    with pytest.raises(TypeError):
+        compressed_stream_round(x, f.to(torch.uint8), *args, n=gc.n, map_kind="identity")
+    with pytest.raises(ValueError):
+        compressed_stream_round(x[:-1], f, *args, n=gc.n, map_kind="identity")
+    with pytest.raises(ValueError, match="together"):
+        compressed_stream_round(x, f, *args, exc_row=torch.full_like(gc.block_src, -1),
+                                n=gc.n, map_kind="identity")
+    assert compressed_stream_round.launches == before
 
 
 def _assert_sums(got, want, exact):
@@ -340,6 +483,42 @@ def test_filter_pack_matches_plain(cuda, fb, nb):
             got = filter_pack_words(bits.to(cuda), k.to(cuda), s.to(cuda))
             torch.cuda.synchronize()
             assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+def test_filter_pack_row_groups_match_plain(cuda, fb):
+    """Kernel 4 at NB around the rows a warp takes (4 groups of 512 / F_B)
+    and a CTA's (DEFAULT_TILE_BLOCKS warps), every subset case."""
+    rows = 4 * 512 // fb
+    cta = rows * DEFAULT_TILE_BLOCKS
+    for nb in (rows - 1, rows + 1, cta - 1, cta + 3, 3 * cta - 5):
+        bits, keep, sub = _pack_case(nb, fb, fb * nb)
+        for s in (sub, torch.zeros_like(sub), torch.ones_like(sub)):
+            for k in (keep, torch.ones_like(keep)):
+                want = filter_pack_ref(bits, k, s)
+                got = filter_pack_words(bits.to(cuda), k.to(cuda), s.to(cuda))
+                torch.cuda.synchronize()
+                assert torch.equal(got[0].cpu(), want[0])
+                assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_filter_pack_takes_a_keep_view_off_16_bytes(cuda):
+    """The kernel loads keep 16 bytes at a time: the raw wrapper refuses a
+    view that does not start on 16 bytes, and the op copies one."""
+    c = _graph(64, False, n=1024, m=8192, seed=6)
+    gc = _to(c, cuda)
+    rng = np.random.default_rng(1)
+    NB, FB = c.num_blocks, c.block_size
+    keep = torch.from_numpy(rng.random(NB * FB + 1) < 0.7)
+    subset = torch.from_numpy(rng.random(c.n) < 0.5)
+    view = keep.to(cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        filter_pack_words(make_filter(gc).bits, view.reshape(NB, FB),
+                          torch.ones(NB, dtype=torch.bool, device=cuda))
+    want = pack_vertices(c, make_filter(c), subset, keep[1:])
+    got = pack_vertices(gc, make_filter(gc), subset.to(cuda), view)
+    for name in ("bits", "active_deg", "dirty"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
 
 
 def test_pack_vertices_launches_filter_pack_once(cuda):

@@ -18,7 +18,13 @@ from repro.core import edgemap_reduce as jreduce
 from repro.core import edgemap_reduce_batched as jreduce_batched
 from repro.core import make_plan as jmake_plan
 from repro.data import rmat_graph as jrmat_graph
-from repro_torch.core import edge_map, edgemap_reduce, edgemap_reduce_batched, make_plan
+from repro_torch.core import (
+    edge_map,
+    edgemap_reduce,
+    edgemap_reduce_batched,
+    exception_dense,
+    make_plan,
+)
 from repro_torch.core.vertex_subset import from_indices
 from torch_parity import port_graph, to_np
 
@@ -30,8 +36,9 @@ def _wide_graph():
     """Compressed with a few ≥2¹⁶ exceptions, under the exception limit."""
     rng = np.random.default_rng(1)
     src = np.concatenate([np.zeros(30, np.int64), rng.integers(1, 48, 200)])
-    dst = np.concatenate([np.sort(rng.choice(70000, 30, replace=False)),
-                          rng.integers(0, 48, 200)])
+    # vertex 0's targets end with a gap of more than 2^16 (1, ..., 69999)
+    far = np.concatenate([[1, 69999], rng.choice(np.arange(2, 4000), 28, replace=False)])
+    dst = np.concatenate([np.sort(far), rng.integers(0, 48, 200)])
     w = rng.integers(1, 7, src.shape[0]).astype(np.float32)
     return jbuild_csr(70000, src, dst, w, block_size=32, symmetrize=True)
 
@@ -57,6 +64,11 @@ def _inputs(jg, seed, density):
     xf = rng.random(n).astype(np.float32)
     mask = rng.random(jg.num_blocks * jg.block_size) < 0.7
     return frontier, ids, xf, mask
+
+
+def test_wide_graph_holds_exceptions():
+    g = port_graph(GRAPHS["wide"]())
+    assert g.n_exceptions > 0 and not exception_dense(g)
 
 
 @pytest.mark.parametrize("graph", sorted(GRAPHS))
