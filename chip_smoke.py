@@ -14,7 +14,8 @@ packing under maximal matching and set cover at full width, and the
 filter algorithms of Table 1 against the CPU route; qwen2-1.5B's serving
 path (prefill, then decode through the single-token attention kernel);
 SASRec's serving path (full-catalog top-100 and candidate retrieval, every
-item lookup through the EmbeddingBag kernel).
+item lookup through the EmbeddingBag kernel); connectivity, personalized
+PageRank and the ServingService tier.
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -131,13 +132,33 @@ item lookup through the EmbeddingBag kernel).
    (kernel 5 twice each), held to the CPU route and to (c)'s full-catalog
    scores at the same items; one call of (c) and of (d) under
    ``torch.profiler``; (e) the item table unchanged (SHA-256).
+12. Connectivity, PPR and the serving tier: (a) on graph B under a
+   ``sparse_streamed`` plan, ``ldd`` (beta 0.2, the shift drawn on the card
+   from a seeded generator) equal to the CPU route on the same shift bit for
+   bit, one fused kernel 1 launch a round; ``connectivity`` equal to the CPU
+   route and to scipy's weak components (min vertex id a component); (b)
+   ``connectivity`` on graph A (exception-dense: no kernel launch) equal to
+   scipy, and one dense label-propagation round under ``torch.profiler``;
+   (c) 8 PPR queries (eps 1e-6, max_rounds 50) through a ``QueryEngine`` on
+   graph B: their float sums take kernel 1's decode (the chunk loop); each
+   result held to the CPU route and each lane to its single run: equal rounds
+   and p, r within atol 1e-6, or both converged within the ACL bound of a
+   scipy power iteration; (d) a ``ServingService`` on graph B: a virtual-time
+   stream of 48 BFS, wBFS and PPR requests from two tenants, one under a
+   budget (admission "defer"), and 16 more on a "reject" service, firing the
+   deadline, depth and forced flushes, a defer, a reject, repacks and mixed
+   cohorts; every ticket (status, finish time, rounds, words), ``stats``,
+   ledgers and ``trace_counts`` equal to the CPU route's, every traversal
+   result equal to its single run, the tickets' words summing to the read
+   delta, at most one fused launch a cohort round, ``map_lanes`` bool (B,)
+   on the card after every repack; then one flush under ``torch.profiler``.
 8. Last, the graph tensors of A, B and E, compressed and CSR, are unchanged
    (SHA-256 before and after every phase).
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
-phases 4-5 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3, phase 6
+phases 4-5 and 12 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3, phase 6
 for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6,
 phase 11(c) and (d) for kernel 5.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
@@ -175,6 +196,14 @@ BOUND_SLACK = 0.05  # no timed call may read under its bound by more than this s
 PR_SUM_TOL = 1e-4  # PageRank mass, float32 over 2^20 scores
 PR_ATOL = 1e-6     # PageRank on B against the CPU route: scores ~1.5e-5, other sum order
 PR_ITERS = 10
+LDD_BETA = 0.2     # phase 12: connectivity's ldd
+PPR_SOURCES = 8    # phase 12(c): PPR queries batched through the engine
+PPR_EPS = 1e-6
+PPR_ROUNDS = 50
+# phase 12(d): the service's PPR lanes stop at their cap, 3 rounds short of
+# converging at this eps, so no float-order flip changes the words they cost
+SERVICE_PPR = {"eps": 1e-7, "max_rounds": 3}
+SERVICE_REQUESTS = 48
 TABLE_PATH = ROOT / "build" / "chip_smoke_table.json"
 KERNEL_SOURCES = {
     "compressed": "src/repro_torch/kernels/compressed_spmv/csrc/compressed_spmv.cu",
@@ -1779,6 +1808,370 @@ def drive_recsys(dev, stats):
     }
 
 
+# ----------------------------------------------------------------------
+# phase 12: connectivity, personalized PageRank and the serving tier
+# ----------------------------------------------------------------------
+def components_scipy(csr):
+    """Weak components of a host CSR by scipy, each labelled by its min vertex id."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    n = csr.n
+    src, dst = csr.edge_src.numpy(), csr.edge_dst.numpy()
+    ok = dst < n
+    a = sp.csr_matrix((np.ones(int(ok.sum()), np.int8), (src[ok], dst[ok])), shape=(n, n))
+    _, lab = connected_components(a, directed=True, connection="weak")
+    rep = np.full(int(lab.max()) + 1, n, np.int64)
+    np.minimum.at(rep, lab, np.arange(n))
+    return rep[lab]
+
+
+def ppr_power_iteration(csr, srcs, alpha=0.15, tol=1e-12, iters=2000):
+    """``ppr_matrix_oracle``'s equation π = α·e_s + (1−α)·Wᵀ(π/deg), solved by
+    scipy power iteration in float64 for every source at once: (n, len(srcs))."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = csr.n
+    src, dst = csr.edge_src.numpy(), csr.edge_dst.numpy()
+    ok = dst < n
+    at = sp.csr_matrix((np.ones(int(ok.sum())), (dst[ok], src[ok])), shape=(n, n))
+    deg = np.maximum(np.bincount(src[ok], minlength=n), 1).astype(np.float64)
+    e = np.zeros((n, len(srcs)))
+    e[srcs, np.arange(len(srcs))] = 1.0
+    pi = e.copy()
+    for _ in range(iters):
+        new = alpha * e + (1 - alpha) * (at @ (pi / deg[:, None]))
+        if np.abs(new - pi).sum(axis=0).max() < tol:
+            return new
+        pi = new
+    return pi
+
+
+def same_ppr(a, b, deg, oracle, eps, max_rounds, what):
+    """Phase 12(c)'s rule for two PPR results (p, r, rounds) of one source:
+    equal rounds, then p and r within ``PR_ATOL``; else both converged and
+    both within the ACL bound |p − π| ≤ eps·deg of π = ``oracle()`` (only
+    then computed).  Returns the max abs difference of p."""
+    import numpy as np
+
+    (pa, ra, na), (pb, rb, nb) = [(t[0].cpu(), t[1].cpu(), int(t[2])) for t in (a, b)]
+    err = float((pa - pb).abs().max())
+    if na == nb:
+        check(err <= PR_ATOL and float((ra - rb).abs().max()) <= PR_ATOL,
+              f"{what}: p differs by {err} in {na} rounds")
+        return err
+    bound = eps * deg.numpy() + 1e-7   # float32 p against a float64 oracle
+    pi = oracle()
+    log(f"{what}: {na} against {nb} rounds; both runs are held to the ACL bound")
+    for p, r, k in ((pa, ra, na), (pb, rb, nb)):
+        check(k < max_rounds and not bool((r >= eps * deg).any()),
+              f"{what}: {na} against {nb} rounds, and a run did not converge")
+        check(bool((np.abs(p.double().numpy() - pi) <= bound).all()),
+              f"{what}: {na} against {nb} rounds, and a run misses the ACL bound")
+    return err
+
+
+def service_stream(svc, srcs, *, ppr=SERVICE_PPR):
+    """Phase 12(d)'s virtual-time stream over ``svc``, ``len(srcs)`` >= 16
+    requests: a burst of 8 at time 0 with a tick after each (the depth
+    trigger), a trickle 0.01 apart with a tick after each arrival (deadline
+    flushes), the last 8 at once and a drain (a forced flush), then drains
+    far later, whose refills readmit what the capped tenant had deferred.
+    Ops cycle BFS, wBFS, BFS, PPR; every third BFS comes from the capped
+    tenant.  Returns the tickets."""
+    ops = ("bfs", "wbfs", "bfs", "ppr")
+    tickets, k = [], len(srcs)
+    for i, s in enumerate(srcs):
+        op = ops[i % 4]
+        tenant = "capped" if op == "bfs" and i % 3 == 0 else "open"
+        now = 0.0 if i < 8 else 0.01 * (min(i, k - 8) - 7)
+        params = dict(ppr) if op == "ppr" else {}
+        tickets.append(svc.submit(op, src=s, tenant=tenant, now=now, **params))
+        if i < k - 8:
+            svc.tick(now)
+    svc.drain(0.01 * (k - 15))
+    for now in (100.0, 200.0, 300.0):
+        svc.drain(now)
+    return tickets
+
+
+def same_tickets(card, cpu, deg, pi_of, what):
+    """Card tickets against the CPU route's: status, times, rounds, words and
+    estimates equal; BFS and wBFS results bit for bit; PPR by (c)'s rule."""
+    import torch
+
+    check(len(card) == len(cpu), f"{what}: ticket counts differ")
+    for t, c in zip(card, cpu):
+        for f in ("id", "op", "tenant", "status", "arrival", "deadline", "finished_at", "rounds",
+                  "words", "est_words"):
+            check(getattr(t, f) == getattr(c, f),
+                  f"{what}: ticket {t.id} {f} {getattr(t, f)!r} != {getattr(c, f)!r}")
+        if t.result is None or c.result is None:
+            check(t.result is None and c.result is None and t.status == "rejected",
+                  f"{what}: ticket {t.id} has no result")
+        elif t.op == "bfs":
+            check(torch.equal(t.result[0].cpu(), c.result[0])
+                  and torch.equal(t.result[1].cpu(), c.result[1]),
+                  f"{what}: BFS ticket {t.id} differs from the CPU route")
+        elif t.op == "wbfs":
+            check(torch.equal(t.result.cpu(), c.result),
+                  f"{what}: wBFS ticket {t.id} differs from the CPU route")
+        else:
+            same_ppr(t.result, c.result, deg, lambda: pi_of(t.params["src"]), t.params["eps"],
+                     t.params["max_rounds"], f"{what}: PPR ticket {t.id}")
+
+
+def same_service(svc, cpu, what):
+    """``stats``, ledgers, cache miss counts and the PSAM account equal."""
+    check(svc.stats == cpu.stats, f"{what}: stats {svc.stats} != {cpu.stats}")
+    check(svc.engine.stats == cpu.engine.stats, f"{what}: engine stats differ")
+    led = {k: vars(v) for k, v in svc.ledgers.items()}
+    check(led == {k: vars(v) for k, v in cpu.ledgers.items()}, f"{what}: ledgers differ")
+    check(svc.trace_counts == cpu.trace_counts, f"{what}: trace_counts differ")
+    check((svc.cost.large_reads, svc.cost.small_ops) == (cpu.cost.large_reads,
+                                                         cpu.cost.small_ops),
+          f"{what}: PSAM accounts differ")
+
+
+def drive_serving_tier(dev, A_, B_):
+    """Phase 12: connectivity on graphs B and A, PPR through the engine and
+    the ServingService on graph B, each held to the CPU route (and scipy).
+    Returns kernel 1's launches on these paths, (decode, fused)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.compressed_spmv.ops as ops
+    from repro_torch.algorithms import (
+        bfs,
+        connectivity,
+        ldd,
+        personalized_pagerank,
+        wbfs,
+    )
+    from repro_torch.algorithms.decomposition import ldd_shift
+    from repro_torch.core import edgemap_reduce, make_plan
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
+    from repro_torch.obs import noop_registry
+    from repro_torch.serving import QueryEngine, ServiceConfig, ServingService
+
+    gB, hB, gA = B_.dev, B_.host, A_.dev
+    plan_b = make_plan(gB, strategy="sparse_streamed")
+    plan_cpu = make_plan(hB, strategy="sparse_streamed")
+    on_card = dev.type == "cuda"
+    total = [0, 0]
+
+    def reset():
+        compressed_chunked_spmv.launches = 0
+        compressed_stream_round.launches = 0
+
+    def read():
+        got = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
+        total[0] += got[0]
+        total[1] += got[1]
+        return got
+
+    # (a) connectivity on graph B under a sparse_streamed plan
+    shift = ldd_shift(gB.n, LDD_BETA, torch.Generator(device=dev).manual_seed(SEED))
+    r0 = rounds_of("ldd")
+    reset()
+    ts = time.perf_counter()
+    clusters = ldd(gB, LDD_BETA, shift=shift, plan=plan_b)
+    torch.cuda.synchronize()
+    ldd_s = time.perf_counter() - ts
+    ldd_launches = read()
+    ldd_rounds = rounds_of("ldd") - r0
+    check(torch.equal(clusters.cpu(), ldd(hB, LDD_BETA, shift=shift.cpu(), plan=plan_cpu)),
+          "graph B ldd: the card's clusters differ from the CPU route's on the same shift")
+    if on_card:
+        check(ldd_launches == (0, ldd_rounds),
+              f"graph B ldd: kernel 1 launches (decode, fused) {ldd_launches} in {ldd_rounds} "
+              "rounds, not one fused launch a round")
+    want_b = components_scipy(B_.host_csr)
+    r0, p0 = rounds_of("ldd"), rounds_of("min_label_prop")
+    reset()
+    ts = time.perf_counter()
+    labels = connectivity(gB, torch.Generator(device=dev).manual_seed(SEED + 1), plan=plan_b)
+    torch.cuda.synchronize()
+    conn_s = time.perf_counter() - ts
+    conn_launches = read()
+    conn_ldd, conn_prop = rounds_of("ldd") - r0, rounds_of("min_label_prop") - p0
+    labels_cpu = connectivity(hB, torch.Generator().manual_seed(SEED + 2), plan=plan_cpu)
+    check(torch.equal(labels.cpu(), labels_cpu), "graph B connectivity differs from the CPU route")
+    check(np.array_equal(labels_cpu.numpy(), want_b), "graph B connectivity differs from scipy")
+    if on_card:
+        check(conn_launches == (0, conn_ldd),
+              f"graph B connectivity: kernel 1 launches {conn_launches}, ldd rounds {conn_ldd}")
+    log(f"[12] graph B ldd (beta {LDD_BETA}, shift drawn on the card): {ldd_rounds} rounds, "
+        f"{int(torch.unique(clusters).numel())} clusters, kernel 1 launches: decode "
+        f"{ldd_launches[0]}, fused {ldd_launches[1]}; wall {ldd_s:.3f} s; equal to the CPU "
+        "route on the same shift, bit for bit")
+    log(f"[12] graph B connectivity: {len(np.unique(want_b))} components, ldd {conn_ldd} rounds "
+        f"+ {conn_prop} label-propagation rounds (dense), kernel 1 launches: decode "
+        f"{conn_launches[0]}, fused {conn_launches[1]}; wall {conn_s:.3f} s; equal to the CPU "
+        "route and to scipy")
+
+    # (b) connectivity on graph A, the full configuration (exception-dense)
+    plan_a = make_plan(gA, strategy="auto")
+    r0, p0 = rounds_of("ldd"), rounds_of("min_label_prop")
+    reset()
+    ts = time.perf_counter()
+    labels_a = connectivity(gA, torch.Generator(device=dev).manual_seed(SEED), plan=plan_a)
+    torch.cuda.synchronize()
+    conn_a_s = time.perf_counter() - ts
+    a_launches = read()
+    a_ldd, a_prop = rounds_of("ldd") - r0, rounds_of("min_label_prop") - p0
+    want_a = components_scipy(A_.host_csr)
+    check(np.array_equal(labels_a.cpu().numpy(), want_a), "graph A connectivity differs from scipy")
+    check(a_launches == (0, 0), f"graph A is exception-dense: kernel 1 launches {a_launches}")
+    log(f"[12] graph A connectivity: {len(np.unique(want_a))} components, ldd {a_ldd} rounds + "
+        f"{a_prop} label-propagation rounds (dense), kernel 1 launches 0 (exception-dense); "
+        f"wall {conn_a_s:.3f} s; equal to scipy")
+    full = torch.ones(gA.n, dtype=torch.bool, device=dev)
+
+    def prop_round():
+        nbr, _ = edgemap_reduce(gA, full, labels_a, monoid="min", mode="dense", plan=plan_a)
+        new = torch.minimum(labels_a, nbr)
+        new = new[new.long()]
+        return new[new.long()]
+
+    prop_round()   # an untimed warm call
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    prop_round()
+    torch.cuda.synchronize()
+    log_profile("12 graph A label-propagation round", profile_run(prop_round),
+                (time.perf_counter() - ts) * 1e3)
+
+    # (c) PPR through the QueryEngine on graph B
+    srcs = sources(gB, PPR_SOURCES, SEED + 3)
+    reqs = [("ppr", {"src": s, "max_rounds": PPR_ROUNDS, "eps": PPR_EPS}) for s in srcs]
+    engine = QueryEngine(gB, plan=plan_b, max_batch=PPR_SOURCES)
+    reset()
+    ts = time.perf_counter()
+    got = engine.serve(reqs)
+    torch.cuda.synchronize()
+    ppr_s = time.perf_counter() - ts
+    ppr_launches = read()
+    cpu = QueryEngine(hB, plan=plan_cpu, max_batch=PPR_SOURCES).serve(reqs)
+    deg = hB.degrees.clamp(min=1).to(torch.float32)
+    pis_d = {}
+
+    def pi_of(s):
+        if s not in pis_d:
+            pis_d[s] = ppr_power_iteration(B_.host_csr, [s])[:, 0]
+        return pis_d[s]
+
+    err_cpu = err_single = 0.0
+    for i, s in enumerate(srcs):
+        err_cpu = max(err_cpu, same_ppr(got[i], cpu[i], deg, lambda: pi_of(s), PPR_EPS,
+                                        PPR_ROUNDS, f"graph B PPR from {s} against the CPU "
+                                        "route"))
+        single = personalized_pagerank(gB, s, eps=PPR_EPS, max_rounds=PPR_ROUNDS, plan=plan_b)
+        err_single = max(err_single, same_ppr(got[i], single, deg, lambda: pi_of(s), PPR_EPS,
+                                              PPR_ROUNDS, f"graph B PPR lane {s}"))
+    rounds = [int(r[2]) for r in got]
+    if on_card:
+        check(ppr_launches[0] > 0 and ppr_launches[1] == 0,
+              f"graph B PPR (float sums): kernel 1 launches (decode, fused) {ppr_launches}")
+    log(f"[12] graph B PPR, {PPR_SOURCES} sources batched through the engine (eps {PPR_EPS}, "
+        f"max_rounds {PPR_ROUNDS}): rounds {rounds} (CPU route {[int(r[2]) for r in cpu]}), "
+        f"{len(reqs) / ppr_s:.2f} queries/s ({ppr_s:.3f} s), kernel 1 launches: decode "
+        f"{ppr_launches[0]}, fused {ppr_launches[1]}; max abs diff of p to the CPU route "
+        f"{err_cpu!r}, to the single runs {err_single!r} (atol {PR_ATOL} at equal rounds, else "
+        "both converged within the ACL bound)")
+
+    # (d) the ServingService on graph B
+    round_words = plan_b.edge_read_words_per_round(gB)
+    budgets = {"capped": (1.5 * round_words, 1.5 * round_words)}  # words, words a time unit
+    stream_srcs = sources(gB, SERVICE_REQUESTS, SEED + 4)
+    seen = []
+    plain_round = ops.compressed_stream_round
+
+    def watched(*args, **kwargs):
+        ml = kwargs.get("map_lanes")
+        if ml is not None:
+            seen.append((ml.dtype == torch.bool and ml.device == dev and ml.is_contiguous()
+                         and tuple(ml.shape) == (args[0].shape[0],)))
+        return plain_round(*args, **kwargs)
+
+    served = {}
+    for admission, k in (("defer", SERVICE_REQUESTS), ("reject", 16)):
+        cfg = ServiceConfig(slo=0.05, max_batch=8, depth_trigger=6, round_quantum=2,
+                            admission=admission, budgets=budgets)
+        svc = ServingService(gB, plan=plan_b, config=cfg, registry=noop_registry())
+        reads0 = svc.cost.large_reads
+        ops.compressed_stream_round = watched
+        reset()
+        try:
+            ts = time.perf_counter()
+            tickets = service_stream(svc, stream_srcs[:k])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - ts
+        finally:
+            ops.compressed_stream_round = plain_round
+        launches = read()
+        svc_cpu = ServingService(hB, plan=plan_cpu, config=cfg, registry=noop_registry())
+        tickets_cpu = service_stream(svc_cpu, stream_srcs[:k])
+        what = f"graph B service ({admission})"
+        same_tickets(tickets, tickets_cpu, deg, pi_of, what)
+        same_service(svc, svc_cpu, what)
+        for t in tickets:
+            if t.result is None:
+                continue
+            if t.op == "bfs":
+                want = bfs(gB, t.params["src"], plan=plan_b)
+                check(torch.equal(t.result[0], want[0]) and torch.equal(t.result[1], want[1]),
+                      f"{what}: BFS ticket {t.id} differs from its single run")
+            elif t.op == "wbfs":
+                check(torch.equal(t.result, wbfs(gB, t.params["src"], plan=plan_b)),
+                      f"{what}: wBFS ticket {t.id} differs from its single run")
+        words = sum(t.words for t in tickets)
+        delta = svc.cost.large_reads - reads0
+        check(abs(words - delta) <= 1e-9 * delta,
+              f"{what}: tickets' words {words} != the cost's read delta {delta}")
+        st = svc.stats
+        if on_card:
+            check(0 < launches[1] <= st["cohort_rounds"] and launches[0] > 0,
+                  f"{what}: kernel 1 launches (decode, fused) {launches} in "
+                  f"{st['cohort_rounds']} cohort rounds")
+        served[admission] = (svc, tickets, secs, launches)
+        log(f"[12] {what}: {k} requests in {secs:.3f} s = {st['served'] / secs:.2f} served/s "
+            f"of the drain loop; stats {st}; occupancy {svc.occupancy:.3f}; kernel 1 launches: "
+            f"fused {launches[1]} in {st['cohort_rounds']} cohort rounds, decode {launches[0]} "
+            f"(PPR); every ticket equals the CPU route's, every traversal result its single "
+            f"run; ticket words sum to the read delta ({delta} words)")
+    st_d, st_r = served["defer"][0].stats, served["reject"][0].stats
+    layouts = {key[3] for key in served["defer"][0].trace_counts}
+    check(st_d["deadline_flushes"] and st_d["depth_flushes"] and st_d["forced_flushes"]
+          and st_d["deferred"] and st_r["rejected"] and st_d["repacks"],
+          f"the service stream did not fire every trigger: {st_d}, {st_r}")
+    check(any(any(w) and not all(w) for w in layouts), "no mixed cohort ran")
+    if on_card:
+        check(seen and all(seen), f"map_lanes reached the fused round as {seen[:4]}...")
+    log(f"[12] service: mixed cohorts {sum(1 for w in layouts if any(w) and not all(w))} lane "
+        f"layouts, {len(seen)} fused launches with map_lanes (bool (B,) on the card, "
+        f"contiguous, after every repack)")
+    # one more flush, profiled: 8 mixed lanes
+    svc = served["defer"][0]
+    extra = sources(gB, 16, SEED + 5)
+    for j, s in enumerate(extra[:8]):
+        svc.submit(("bfs", "wbfs")[j % 2], src=s, now=1000.0)
+    ts = time.perf_counter()
+    svc.drain(1000.0)
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - ts) * 1e3
+
+    def flush():
+        for j, s in enumerate(extra[8:]):
+            svc.submit(("bfs", "wbfs")[j % 2], src=s, now=2000.0)
+        svc.drain(2000.0)
+
+    log_profile("12 service flush", profile_run(flush), flush_ms)
+    return tuple(total)
+
+
 def log_profile(tag, prof, ms):
     """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
     wall, busy_ms, n_kernels, top = prof
@@ -1851,7 +2244,7 @@ def main(argv=None) -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 11 on ``dev`` (8, the SHA-256 check, last); returns the
+    """Phases 2 to 12 on ``dev`` (8, the SHA-256 check, last); returns the
     kernels' records."""
     import numpy as np
     import torch
@@ -2236,6 +2629,13 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     t0 = time.perf_counter()
     record5 = drive_recsys(dev, stats)
     wall["SASRec serving"] = time.perf_counter() - t0
+
+    # 12. connectivity, PPR and the serving tier ------------------------
+    t0 = time.perf_counter()
+    decode12, fused12 = drive_serving_tier(dev, A_, B_)
+    main_launches += decode12
+    main_round_launches += fused12
+    wall["serving tier"] = time.perf_counter() - t0
 
     # 8. large memory is never written (after every phase) ---------------
     check(graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr) == digests, "a graph tensor changed")

@@ -11,6 +11,10 @@ queries advance in lockstep through ONE batched edgeMap per round, so the
 edge sweep is shared by the whole batch.  Finished queries' state is inert
 in later rounds, which makes every query's result bit-identical to its own
 single-query run.
+
+``traversal_cohort_*`` fuse BFS and wBFS lanes into one cohort for the
+serving tier: one batched sweep a round, ``map_lanes`` picking each lane's
+map, so on the card a mixed ``sparse_streamed`` round is one fused launch.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from ..core.backend import GraphLike
 from ..core.bucketing import NULL_BUCKET, make_buckets
+from ..core.edgemap import edgemap_reduce_batched
 from ..core.plan import round_loop
 from ..core.primitives import INF_I32
 
@@ -197,3 +202,134 @@ def wbfs_batched(g: GraphLike, sources, *, mode: str = "auto", plan=None):
         monoid="min", plan=plan, map_fn=_relax, mode=mode, batched=True,
     )
     return dist
+
+
+def traversal_cohort_init(g: GraphLike, ops, sources):
+    """Build the fused BFS+wBFS cohort state for one serving drain.
+
+    ``ops`` is a sequence of ``"bfs"`` / ``"wbfs"`` lane kinds and
+    ``sources`` the matching int vertex ids; a source of ``-1`` makes an
+    inert padding lane (empty root set: never in a frontier, never active,
+    never charged).  Returns ``(state, weighted)``: ``state`` is the dict
+    :func:`traversal_cohort_rounds` advances (``parents`` / ``levels``
+    int32[B, n] for BFS lanes, ``dist`` int32[B, n] / ``settled`` bool[B, n]
+    for wBFS lanes, ``frontier`` bool[B, n], the round counter ``rnd``) and
+    ``weighted`` the tuple of per-lane bools that picks each lane's map
+    (the ``map_lanes`` of the shared sweep).
+
+    The serving scheduler repacks this state between quanta by indexing the
+    leading B axis, which is legal because every batched edgeMap is per-lane
+    independent."""
+    n, dev = g.n, g.device
+    ops = tuple(ops)
+    for op in ops:
+        if op not in ("bfs", "wbfs"):
+            raise ValueError(f"cohort lanes must be 'bfs' or 'wbfs', got {op!r}")
+    srcs = torch.as_tensor(sources, dtype=torch.int64, device=dev)
+    B = len(ops)
+    if tuple(srcs.shape) != (B,):
+        raise ValueError(f"sources must be int[{B}], got shape {tuple(srcs.shape)}")
+    weighted = tuple(op == "wbfs" for op in ops)
+    wvec = torch.tensor(weighted, dtype=torch.bool, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    roots = ids.to(torch.int64)[None, :] == srcs[:, None]
+    broots = roots & ~wvec[:, None]
+    wroots = roots & wvec[:, None]
+    idsb = ids.expand(B, n)
+    state = {
+        "parents": torch.where(broots, idsb, UNVISITED),
+        "levels": torch.where(broots, 0, UNVISITED).to(torch.int32),
+        "dist": torch.where(wroots, 0, INF_I32).to(torch.int32),
+        "settled": torch.zeros((B, n), dtype=torch.bool, device=dev),
+        "frontier": broots,
+        "rnd": 0,
+    }
+    return state, weighted
+
+
+def traversal_cohort_active(state, weighted, n: int) -> torch.Tensor:
+    """bool[B]: which cohort lanes still have work left.
+
+    A BFS lane is active while its frontier is nonempty and ``rnd < n``; a
+    wBFS lane while any vertex sits in a non-NULL bucket.  Activity is
+    prefix-monotone (a drained lane never reactivates), which lets the
+    scheduler rebuild round r's active set from per-lane round totals."""
+    b_active = state["frontier"].any(dim=1) & (state["rnd"] < n)
+    if not any(weighted):
+        return b_active
+    wvec = torch.tensor(weighted, dtype=torch.bool, device=b_active.device)
+    bo = _bucket_of(state["dist"], state["settled"])
+    w_active = wvec & (bo.min(dim=1).values < NULL_BUCKET)
+    if all(weighted):
+        return w_active
+    return w_active | (~wvec & b_active)
+
+
+def traversal_cohort_rounds(
+    g: GraphLike,
+    state,
+    weighted,
+    *,
+    quantum: int = 4,
+    mode: str = "auto",
+    plan=None,
+):
+    """Advance a fused BFS+wBFS cohort by up to ``quantum`` shared rounds.
+
+    Each round is ONE batched edge sweep shared by every lane: wBFS lanes
+    relax distances (``map_lanes`` selects ``_relax``), BFS lanes carry
+    candidate parent ids through the identity map; both are min over int32,
+    so on the card a ``sparse_streamed`` round is one fused launch.  Stops
+    early when every lane drains.  Returns ``(state, lane_rounds, active)``:
+    ``lane_rounds`` int32[B] counts the rounds each lane was active in this
+    call, ``active`` bool[B] flags lanes with work left.  Each lane's rows
+    equal its single-query ``bfs`` / ``wbfs`` run."""
+    n, dev = g.n, g.device
+    if plan is not None:
+        g = plan.prepare(g)
+    weighted = tuple(bool(w) for w in weighted)
+    B = len(weighted)
+    any_w, all_w = any(weighted), all(weighted)
+    wvec = torch.tensor(weighted, dtype=torch.bool, device=dev)
+    idsb = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
+    sweep_kw = {}
+    if any_w:
+        sweep_kw["map_fn"] = _relax
+        if not all_w:
+            sweep_kw["map_lanes"] = wvec
+    st = dict(state)
+    lane_rounds = torch.zeros(B, dtype=torch.int32, device=dev)
+    for _ in range(quantum):
+        active = traversal_cohort_active(st, weighted, n)
+        if not bool(active.any()):
+            break
+        parents, levels = st["parents"], st["levels"]
+        dist, settled = st["dist"], st["settled"]
+        rnd = st["rnd"]
+        bfr = st["frontier"] if rnd < n else torch.zeros_like(st["frontier"])
+        if any_w:
+            bo = _bucket_of(dist, settled)
+            bid = bo.min(dim=1).values
+            run = wvec & (bid < NULL_BUCKET)
+            members = (bo == bid[:, None]) & ~settled & run[:, None]
+            d = torch.where(members, dist, INF_I32).min(dim=1).values
+            wfr = members & (dist == d[:, None])
+            settled = settled | wfr
+            fr = torch.where(wvec[:, None], wfr, bfr)
+            xs = torch.where(wvec[:, None], dist, idsb)
+        else:
+            fr, xs = bfr, idsb
+        cand, touched = edgemap_reduce_batched(
+            g, fr, xs, monoid="min", mode=mode, plan=plan, **sweep_kw
+        )
+        newly = touched & (parents == UNVISITED) & ~wvec[:, None]
+        st["parents"] = torch.where(newly, cand, parents)
+        st["levels"] = torch.where(newly, rnd + 1, levels)
+        if any_w:
+            improve = touched & ~settled & (cand < dist) & wvec[:, None]
+            st["dist"] = torch.where(improve, cand, dist)
+        st["settled"] = settled
+        st["frontier"] = newly
+        st["rnd"] = rnd + 1
+        lane_rounds += active.to(torch.int32)
+    return st, lane_rounds, traversal_cohort_active(st, weighted, n)

@@ -43,5 +43,5 @@ from .graph_filter import (
 )
 from .plan import ExecutionPlan, make_plan, round_loop
 from .primitives import compact_mask, monoid_identity, popcount32, segment_reduce
-from .psam import PSAMCost, edgemap_round_read_words
+from .psam import PSAMCost, TenantLedger, TenantLedgers, edgemap_round_read_words
 from .vertex_subset import VertexSubset

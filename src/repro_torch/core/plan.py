@@ -94,6 +94,32 @@ class ExecutionPlan:
             return mode
         return self.strategy
 
+    def edge_read_words_per_round(self, g) -> int:
+        """Large-memory words one dense edgeMap round reads under this plan:
+        the read quantum the serving scheduler prices admission and per-lane
+        drain accounting in."""
+        from .psam import edgemap_round_read_words
+
+        return edgemap_round_read_words(g, num_shards=self.num_shards)
+
+    def prepare(self, g, edge_active=None, *, compact_live: bool = False):
+        """Place a graph for this plan: the identity on one device.
+
+        Returns ``g``, or ``(g, edge_active)`` when a filter is given.
+        ``compact_live=True`` (dropping filter-dead blocks) and sharded
+        plans are not ported yet."""
+        if compact_live:
+            raise NotImplementedError("compact_live is not ported yet")
+        if self.is_sharded:
+            raise NotImplementedError("sharded plans are not ported yet")
+        return g if edge_active is None else (g, edge_active)
+
+    def describe(self) -> str:
+        return (
+            f"plan[single-device backend={self.backend} strategy={self.strategy} "
+            f"route={self.route} shards={self.num_shards}]"
+        )
+
 
 def _resolve_decision(backend: str, strategy: str, tuning):
     """The TuningDecision behind a plan's knobs.

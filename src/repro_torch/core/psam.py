@@ -5,6 +5,8 @@ for large-memory writes.  Sage algorithms perform **zero** large-memory
 writes.  These counters model the cost of the algorithm as specified (the
 paper's Table 1), not a measurement.  Every charge is mirrored into the
 metrics registry as ``sage_psam_*_words_total{charge=...}`` counters.
+``TenantLedger(s)`` are the serving tier's per-tenant token buckets, priced
+in the same edge-read words.
 """
 from __future__ import annotations
 
@@ -42,6 +44,92 @@ def edgemap_round_read_words(g, num_shards: int = 1) -> int:
     non-dividing count)."""
     _, padded_total = sharded_block_counts(g.num_blocks, num_shards)
     return _block_read_words(g, padded_total)
+
+
+@dataclasses.dataclass
+class TenantLedger:
+    """One tenant's PSAM edge-read account: a token bucket priced in
+    large-memory words.
+
+    ``capacity`` is the allowance in words (None = unlimited);
+    ``refill_rate`` replenishes ``available`` at that many words per unit of
+    service time, capped at ``capacity``.  ``charged`` is the lifetime
+    attribution; ``available`` may go negative when a drain's actual cost
+    exceeds its admission estimate, and the overdraft is repaid out of later
+    refills before new work admits.
+    """
+
+    capacity: float | None = None
+    refill_rate: float = 0.0
+    available: float = 0.0
+    charged: float = 0.0
+    last_refill: float = 0.0
+
+    def refill(self, now: float) -> None:
+        """Advance the token bucket to ``now`` (monotone; no-op backwards)."""
+        if now > self.last_refill:
+            if self.capacity is not None and self.refill_rate > 0:
+                self.available = min(
+                    self.capacity,
+                    self.available + (now - self.last_refill) * self.refill_rate,
+                )
+            self.last_refill = now
+
+    def can_admit(self, est_words: float) -> bool:
+        """True when ``est_words`` of estimated edge reads fit the allowance."""
+        return self.capacity is None or self.available >= est_words
+
+    def reserve(self, est_words: float) -> None:
+        """Deduct an admission estimate; settled against actuals at drain."""
+        if self.capacity is not None:
+            self.available -= est_words
+
+    def settle(self, est_words: float, actual_words: float) -> None:
+        """Replace the reserved estimate with the drain's actual attribution:
+        refund ``est - actual`` (or charge the shortfall); ``charged``
+        accrues the actual."""
+        if self.capacity is not None:
+            self.available += est_words - actual_words
+        self.charged += actual_words
+
+
+class TenantLedgers:
+    """Per-tenant PSAM edge-read ledgers, keyed by tenant name.
+
+    ``budgets`` maps tenant → ``(capacity_words, refill_rate)`` (or a bare
+    capacity); tenants not named run unlimited (accounting only)."""
+
+    def __init__(self, budgets: dict | None = None):
+        self._ledgers: dict[str, TenantLedger] = {}
+        for tenant, spec in (budgets or {}).items():
+            cap, rate = spec if isinstance(spec, tuple) else (spec, 0.0)
+            self._ledgers[tenant] = TenantLedger(
+                capacity=float(cap), refill_rate=float(rate), available=float(cap)
+            )
+
+    def ledger(self, tenant: str) -> TenantLedger:
+        """This tenant's ledger (created unlimited on first touch)."""
+        led = self._ledgers.get(tenant)
+        if led is None:
+            led = self._ledgers[tenant] = TenantLedger()
+        return led
+
+    def refill(self, now: float) -> None:
+        """Advance every tenant's token bucket to ``now``."""
+        for led in self._ledgers.values():
+            led.refill(now)
+
+    def charge(self, tenant: str, words: float) -> None:
+        """Attribute ``words`` of edge reads to ``tenant`` (no reservation)."""
+        self.ledger(tenant).charged += words
+
+    def items(self):
+        """(tenant, ledger) pairs, for reporting."""
+        return self._ledgers.items()
+
+    def total_charged(self) -> float:
+        """Sum of every tenant's lifetime attribution (conservation checks)."""
+        return sum(led.charged for led in self._ledgers.values())
 
 
 @dataclasses.dataclass
@@ -130,3 +218,8 @@ class PSAMCost:
     def work(self) -> float:
         """PSAM work: reads unit cost, large writes cost ω."""
         return self.large_reads + self.small_ops + self.omega * self.large_writes
+
+    def gbbs_equivalent_work(self, mutated_words: int) -> float:
+        """What the same algorithm would cost if, like GBBS, it wrote
+        ``mutated_words`` words to large memory (e.g. in-place edge packing)."""
+        return self.large_reads + self.small_ops + self.omega * mutated_words

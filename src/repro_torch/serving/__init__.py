@@ -1,1 +1,2 @@
 from .engine import QueryEngine, QueryHandle
+from .service import ServiceConfig, ServingService, ServingTicket

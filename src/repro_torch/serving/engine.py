@@ -13,7 +13,8 @@ read-only large memory, every query's mutable state is O(n) words.  The
                                                      │
                  per-handle results (padding dropped) ◄┘
 
-* **Coalescing** — requests bucket by ``(op, scalar params)``; each bucket
+* **Coalescing** — requests (``bfs``, ``wbfs``, ``ppr``,
+  ``pagerank_iteration``) bucket by ``(op, scalar params)``; each bucket
   drains as one batched call.
 * **Padding** — buckets pad to the next power of two (capped at
   ``max_batch``; larger buckets split) by repeating the last request.
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ..algorithms.eigen import pagerank_iteration_batched
+from ..algorithms.local import personalized_pagerank_batched
 from ..algorithms.traversal import bfs_batched, wbfs_batched
 from ..core.compressed import CompressedCSR, exception_dense
 from ..core.primitives import INF_I32
@@ -96,6 +98,15 @@ _OPS: dict[str, _OpSpec] = {
         sweeps=_wbfs_sweeps,
         scalar_keys=("mode",),
     ),
+    "ppr": _OpSpec(
+        stack=_src_stack,
+        run=lambda g, plan, args, sc: personalized_pagerank_batched(
+            g, *args, plan=plan, **sc
+        ),
+        unbatch=lambda res, i: (res[0][i], res[1][i], res[2][i]),
+        sweeps=lambda res: max(int(res[2].max()), 1),
+        scalar_keys=("alpha", "eps", "max_rounds", "mode"),
+    ),
     "pagerank_iteration": _OpSpec(
         stack=_pr_stack,
         run=lambda g, plan, args, sc: pagerank_iteration_batched(
@@ -145,6 +156,7 @@ class QueryEngine:
         self.graph = g
         self.plan = plan
         self.registry = registry if registry is not None else get_registry()
+        self.prepared = g if plan is None else plan.prepare(g)
         if max_batch is None:
             decisions = getattr(plan, "decisions", None)
             max_batch = decisions.max_batch if decisions is not None else DEFAULT_MAX_BATCH
@@ -266,7 +278,7 @@ class QueryEngine:
         B = _pow2_batch(k, self.max_batch)
         reqs = [r for _, r in chunk] + [chunk[-1][1]] * (B - k)
         args = spec.stack(reqs, self.graph.device)
-        res = self._compiled_fn(op, scalars, B, spec)(self.graph, *args)
+        res = self._compiled_fn(op, scalars, B, spec)(self.prepared, *args)
         self.stats["batches"] += 1
         self.stats["served"] += k
         self.stats["lanes"] += B

@@ -91,7 +91,7 @@ def test_engine_matches_jax_engine(compressed, strategy):
 
 
 def test_engine_pads_to_powers_of_two_and_rejects_unported_ops():
-    _, eng, n = _engines(True, "sparse_streamed")
+    jeng, eng, n = _engines(True, "sparse_streamed")
     handles = [eng.submit("bfs", src=s) for s in range(5)]
     res = eng.flush()
     assert set(res) == set(handles)
@@ -100,5 +100,8 @@ def test_engine_pads_to_powers_of_two_and_rejects_unported_ops():
     eng.serve([("bfs", {"src": s}) for s in range(3)])
     assert eng.stats["lanes"] == 4 and eng.stats["padded"] == 1
     assert eng.occupancy == 0.75
-    with pytest.raises(ValueError, match="unknown op"):
-        eng.submit("ppr", src=0)
+    # an op neither package serves (both serve bfs, wbfs, ppr and
+    # pagerank_iteration)
+    for engine in (eng, jeng):
+        with pytest.raises(ValueError, match="unknown op"):
+            engine.submit("bellman_ford", src=0)
