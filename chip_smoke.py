@@ -15,7 +15,9 @@ filter algorithms of Table 1 against the CPU route; qwen2-1.5B's serving
 path (prefill, then decode through the single-token attention kernel);
 SASRec's serving path (full-catalog top-100 and candidate retrieval, every
 item lookup through the EmbeddingBag kernel); connectivity, personalized
-PageRank and the ServingService tier.
+PageRank and the ServingService tier; the rest of Table 1 (Bellman-Ford,
+widest path, betweenness, spanning forest, spanner, biconnectivity) and
+the unweighted compressed sum over kernel 2.
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -152,14 +154,36 @@ PageRank and the ServingService tier.
    result equal to its single run, the tickets' words summing to the read
    delta, at most one fused launch a cohort round, ``map_lanes`` bool (B,)
    on the card after every repack; then one flush under ``torch.profiler``.
+13. The rest of Table 1 and of the core: (a) on graph B under the
+   constants' ``sparse_streamed`` plan, Bellman-Ford, widest path and
+   betweenness from 4 sources each: their float maps and sums run the chunk
+   loop over kernel 1's decode (launches > 0) and never the fused round
+   (0); the first two equal the CPU route bit for bit, betweenness within
+   1e-4 of the largest score; Bellman-Ford equals wBFS (integer weights, no
+   negative cycle); (b) graph A (exception-dense, no kernel launch) from
+   one source: Bellman-Ford equals wBFS, widest path passes a certificate
+   checked on the card (every width the best bottleneck over the in-edges,
+   -inf exactly where no path runs), betweenness within 1e-4 of the CPU
+   route; (c) on graph B the spanning forest, biconnectivity and the
+   spanner (k=4, its shift drawn on the card) equal the CPU route bit for
+   bit, and ``multi_source_bfs`` from the forest's roots on the streamed
+   plan launches one fused round a level; on graph A the forest's labels
+   equal scipy's components and every parent is a neighbour, and
+   biconnectivity labels exactly the real slots; (d)
+   ``edgemap_sum_compressed`` (unweighted, on weighted graphs) on graph B
+   with and without a GraphFilter and on graph E (exception rows patched),
+   one kernel 2 launch a call, equal to its plain version (int32 exactly,
+   float32 within rtol 1e-5); kernel 2 without weights timed beside its
+   plain version, cuSPARSE with unit values and its bytes bound; (e)
+   ``examples/graph_analytics_torch.py`` on the card.
 8. Last, the graph tensors of A, B and E, compressed and CSR, are unchanged
    (SHA-256 before and after every phase).
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
-phases 4-5 and 12 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3, phase 6
-for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6,
+phases 4-5, 12 and 13 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
+phases 6 and 13(d) for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6,
 phase 11(c) and (d) for kernel 5.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
 or outside a checkout of the repository, the script exits with code 2 and
@@ -204,6 +228,9 @@ PPR_ROUNDS = 50
 # converging at this eps, so no float-order flip changes the words they cost
 SERVICE_PPR = {"eps": 1e-7, "max_rounds": 3}
 SERVICE_REQUESTS = 48
+T1_SOURCES = 4     # phase 13(a): sources of each float-monoid traversal on graph B
+BC_REL_TOL = 1e-4  # betweenness: max|Δ| / max|ref|, float sums in another order
+SPANNER_K = 4
 TABLE_PATH = ROOT / "build" / "chip_smoke_table.json"
 KERNEL_SOURCES = {
     "compressed": "src/repro_torch/kernels/compressed_spmv/csrc/compressed_spmv.cu",
@@ -751,9 +778,10 @@ def cusparse_matrix(csr):
                                    csr.edge_w[valid], size=(csr.n, csr.n))
 
 
-def spmv_bytes(g, B, kind):
+def spmv_bytes(g, B, kind, weighted=None):
     """Bytes the whole-graph kernel must move on graph ``g`` for a (B, n)
-    float32 x: each input read once, each output written once.
+    float32 x: each input read once, each output written once; ``weighted``
+    (default ``g.weighted``) says whether kernel 2 reads the weights.
 
     kernel 2 reads, per block, its first target and valid count, the deltas
     and weights of its valid slots (a lane loads no slot past the valid
@@ -770,7 +798,7 @@ def spmv_bytes(g, B, kind):
         vc = g.valid_count.to(torch.int64) & 0xFFFF
         slots = int(vc.sum())
         words = int(((vc + 31) // 32).sum())
-        w = 4 * slots if g.weighted else 0
+        w = 4 * slots if (g.weighted if weighted is None else weighted) else 0
         return NB * (4 + 2) + 2 * slots + w + 4 * words + vec
     cnt = real_slot_counts(g.block_src, g.block_offsets, g.degrees, n=g.n,
                            block_size=FB).to(torch.int64)
@@ -2172,6 +2200,309 @@ def drive_serving_tier(dev, A_, B_):
     return tuple(total)
 
 
+# ----------------------------------------------------------------------
+# phase 13: the rest of Table 1 and the rest of the core
+# ----------------------------------------------------------------------
+def as_distances(d):
+    """wBFS's int32 distances as Bellman-Ford's float32 (INF_I32 -> +inf)."""
+    import torch
+
+    return torch.where(d == 2**31 - 1, float("inf"), d.to(torch.float32))
+
+
+def rel_err(got, want):
+    """max|got − want| / max|want| (0 when both are 0)."""
+    scale = float(want.abs().max())
+    err = float((got.double() - want.double()).abs().max())
+    return err / scale if scale else err
+
+
+def widest_certificate(csr, src, width, dist):
+    """Phase 13(b)'s check of a widest-path result, on the card: the source
+    is +inf, every other vertex holds the best bottleneck over its in-edges,
+    max over (u, v) of min(width[u], w), which is -inf exactly where
+    Bellman-Ford found no path (``dist`` is +inf)."""
+    import torch
+
+    from repro_torch.core.primitives import segment_reduce, take_fill
+
+    n = csr.n
+    valid = csr.edge_dst < n
+    cand = torch.minimum(take_fill(width, csr.edge_src, float("-inf")), csr.edge_w)
+    cand = torch.where(valid, cand, float("-inf"))
+    best = segment_reduce(cand, torch.where(valid, csr.edge_dst, n), n + 1, "max")[:n]
+    best[src] = float("inf")
+    check(torch.equal(best, width), "graph A widest path: a width is not the best bottleneck "
+          "over its in-edges")
+    check(torch.equal(width > float("-inf"), dist < float("inf")),
+          "graph A widest path: the reached set differs from Bellman-Ford's")
+
+
+def parents_are_neighbours(csr, parents):
+    """Every non-root's parent edge (v, parents[v]) is an edge of ``csr``."""
+    import torch
+
+    from repro_torch.core.primitives import take_fill
+
+    n = csr.n
+    valid = csr.edge_dst < n
+    hit = valid & (take_fill(parents, csr.edge_src, -1) == csr.edge_dst)
+    has = torch.zeros(n + 1, dtype=torch.bool, device=csr.device)
+    has[torch.where(hit, csr.edge_src, n).long()] = True
+    ids = torch.arange(n, dtype=torch.int32, device=csr.device)
+    return bool((has[:n] | (parents == ids)).all())
+
+
+def run_example(name, argv):
+    """``examples/<name>.py``'s ``main(argv)``; returns its printed lines."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mod.main(argv)
+    return out.getvalue().splitlines()
+
+
+def drive_table1(dev, A_, B_, E_, kernel2_weighted_ms):
+    """Phase 13: Bellman-Ford, widest path and betweenness on graphs B (kernel
+    1's decode) and A (no kernel), the decomposition algorithms on graphs B
+    and A, ``edgemap_sum_compressed`` on graphs B and E (kernel 2), and the
+    graph-analytics example, each held to the CPU route, to wBFS, to scipy or
+    to a certificate.  Returns kernel launches on these paths: (kernel 1's
+    decode, its fused round, kernel 2)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import (
+        bellman_ford,
+        betweenness,
+        biconnectivity,
+        multi_source_bfs,
+        spanner,
+        spanning_forest,
+        wbfs,
+        widest_path,
+    )
+    from repro_torch.algorithms.decomposition import ldd_shift
+    from repro_torch.core import edgemap_sum_compressed, filter_edges, make_filter, make_plan
+    from repro_torch.kernels import (
+        compressed_block_spmv,
+        compressed_block_spmv_ref,
+        compressed_chunked_spmv,
+        compressed_stream_round,
+    )
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    gB, hB, gA = B_.dev, B_.host, A_.dev
+    plan_b = make_plan(gB, strategy="sparse_streamed")
+    plan_cpu = make_plan(hB, strategy="sparse_streamed")
+    on_card = dev.type == "cuda"
+    counters = (compressed_chunked_spmv, compressed_stream_round, compressed_block_spmv)
+    total = [0, 0, 0]
+    torch.cuda.reset_peak_memory_stats()
+
+    def reset():
+        for k in counters:
+            k.launches = 0
+
+    def read():
+        got = tuple(k.launches for k in counters)
+        for i, v in enumerate(got):
+            total[i] += v
+        return got
+
+    def timed(fn):
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - ts
+
+    # (a) graph B under the constants' sparse_streamed plan: kernel 1's decode
+    srcs = sources(gB, T1_SOURCES, SEED + 6)
+    bf_b = None
+    for name, fn in (("bellman_ford", bellman_ford), ("widest_path", widest_path),
+                     ("betweenness", betweenness)):
+        r0 = rounds_of(name)
+        reset()
+        got, secs = timed(lambda: [fn(gB, s, plan=plan_b) for s in srcs])
+        launches = read()
+        rounds = rounds_of(name) - r0
+        want, cpu_s = timed(lambda: [fn(hB, s, plan=plan_cpu) for s in srcs])
+        if on_card:
+            check(launches[0] > 0 and launches[1] == 0,
+                  f"graph B {name}: kernel 1 launches (decode, fused) {launches[:2]}")
+        err = 0.0
+        for s, a, b in zip(srcs, got, want):
+            if name == "bellman_ford":
+                check(a[1] is b[1] is False, f"graph B Bellman-Ford from {s}: a negative cycle")
+                a, b = a[0], b[0]
+            if name == "betweenness":
+                err = max(err, rel_err(a.cpu(), b))
+                check(err <= BC_REL_TOL, f"graph B betweenness from {s}: relative error {err}")
+            else:
+                check(torch.equal(a.cpu(), b), f"graph B {name} from {s} differs from the CPU "
+                      "route")
+        if name == "bellman_ford":
+            bf_b = got
+        log(f"[13] graph B {name} from {len(srcs)} sources (sparse_streamed): {rounds} rounds, "
+            f"wall {secs:.3f} s ({len(srcs) / secs:.2f} queries/s); kernel 1 launches: decode "
+            f"{launches[0]}, fused {launches[1]}; "
+            + ("max relative error to the CPU route " + repr(err) + f" (limit {BC_REL_TOL})"
+               if name == "betweenness" else "equal to the CPU route bit for bit")
+            + f"; CPU route {cpu_s:.1f} s")
+    for s, (dist, _) in zip(srcs, bf_b):
+        check(torch.equal(dist, as_distances(wbfs(gB, s, plan=plan_b))),
+              f"graph B Bellman-Ford from {s} differs from wBFS")
+    log(f"[13] graph B Bellman-Ford's distances equal wBFS's on the card from all "
+        f"{len(srcs)} sources (integer weights), no negative cycle")
+
+    # (b) graph A, the full configuration: exception-dense, no kernel
+    plan_a = make_plan(gA, strategy="auto")
+    s = sources(gA, 1, SEED + 7)[0]
+    res = {}
+    for name, fn in (("bellman_ford", bellman_ford), ("widest_path", widest_path),
+                     ("betweenness", betweenness)):
+        r0 = rounds_of(name)
+        reset()
+        res[name], secs = timed(lambda: fn(gA, s, plan=plan_a))
+        launches = read()
+        check(launches == (0, 0, 0), f"graph A {name}: kernel launches {launches}")
+        log(f"[13] graph A {name} from {s} (auto plan): {rounds_of(name) - r0} rounds, wall "
+            f"{secs:.3f} s, no kernel launch (exception-dense)")
+    dist, neg = res["bellman_ford"]
+    check(not neg and torch.equal(dist, as_distances(wbfs(gA, s, plan=plan_a))),
+          "graph A Bellman-Ford differs from wBFS")
+    widest_certificate(A_.csr, s, res["widest_path"], dist)
+    want, cpu_s = timed(lambda: betweenness(A_.host, s, plan=make_plan(A_.host,
+                                                                        strategy="auto")))
+    err_a = rel_err(res["betweenness"].cpu(), want)
+    check(err_a <= BC_REL_TOL, f"graph A betweenness: relative error {err_a}")
+    log(f"[13] graph A from {s}: Bellman-Ford equals wBFS ({int((dist < float('inf')).sum())} "
+        f"reached, no negative cycle); widest path passes its certificate on the card; "
+        f"betweenness within {err_a!r} of the CPU route relatively (limit {BC_REL_TOL}; CPU "
+        f"route {cpu_s:.1f} s)")
+
+    # (c) the decomposition algorithms
+    ids_b = torch.arange(gB.n, dtype=torch.int32, device=dev)
+    (parents, labels), secs = timed(lambda: spanning_forest(gB))
+    want = spanning_forest(hB)
+    check(torch.equal(parents.cpu(), want[0]) and torch.equal(labels.cpu(), want[1]),
+          "graph B spanning forest differs from the CPU route")
+    reset()
+    (mp, ml), ms_secs = timed(lambda: multi_source_bfs(gB, labels == ids_b, plan=plan_b))
+    ms_launches = read()
+    check(torch.equal(mp, parents), "graph B multi_source_bfs (plan) differs from the forest")
+    wp, wl = multi_source_bfs(hB, (labels == ids_b).cpu(), plan=plan_cpu)
+    check(torch.equal(mp.cpu(), wp) and torch.equal(ml.cpu(), wl),
+          "graph B multi_source_bfs differs from the CPU route")
+    if on_card:
+        check(ms_launches[1] == int(ml.max()) + 1 and ms_launches[0] == 0,
+              f"graph B multi_source_bfs: kernel 1 launches (decode, fused) {ms_launches[:2]}, "
+              f"depth {int(ml.max())}")
+    log(f"[13] graph B spanning forest: {int((parents == ids_b).sum())} trees, wall {secs:.3f} s; "
+        f"multi_source_bfs from the roots (sparse_streamed): depth {int(ml.max())}, kernel 1 "
+        f"launches: fused {ms_launches[1]}, decode {ms_launches[0]}, wall {ms_secs:.3f} s; both "
+        "equal to the CPU route")
+    p0 = rounds_of("min_label_prop")
+    bic, secs = timed(lambda: biconnectivity(gB))
+    prop = rounds_of("min_label_prop") - p0
+    check(torch.equal(bic.cpu(), biconnectivity(hB)), "graph B biconnectivity differs from the "
+          "CPU route")
+    log(f"[13] graph B biconnectivity: {int(torch.unique(bic[bic >= 0]).numel())} labels, "
+        f"{prop} label-propagation rounds (connectivity and the auxiliary graph), wall "
+        f"{secs:.3f} s; equal to the CPU route bit for bit")
+    beta = float(torch.tensor(float(gB.n + 1), dtype=torch.float32).log()) / (2.0 * SPANNER_K)
+    shift = ldd_shift(gB.n, beta, torch.Generator(device=dev).manual_seed(SEED))
+    (mask, ok), secs = timed(lambda: spanner(gB, SPANNER_K, shift=shift))
+    want = spanner(hB, SPANNER_K, shift=shift.cpu())
+    check(torch.equal(mask.cpu(), want[0]) and ok == want[1],
+          "graph B spanner differs from the CPU route on the same shift")
+    log(f"[13] graph B spanner (k={SPANNER_K}, shift drawn on the card): ok {ok}, "
+        f"{int(mask.sum()) // 2} of {gB.m // 2} edges kept, wall {secs:.3f} s; equal to the CPU "
+        "route on the same shift")
+    want_a = components_scipy(A_.host_csr)
+    (parents, labels), secs = timed(lambda: spanning_forest(gA))
+    ids_a = torch.arange(gA.n, dtype=torch.int32, device=dev)
+    check(np.array_equal(labels.cpu().numpy(), want_a), "graph A spanning forest: labels differ "
+          "from scipy's components")
+    check(int((parents == ids_a).sum()) == len(np.unique(want_a))
+          and parents_are_neighbours(A_.csr, parents),
+          "graph A spanning forest: a root count or a parent edge is wrong")
+    log(f"[13] graph A spanning forest: {len(np.unique(want_a))} trees, labels equal scipy's, "
+        f"every parent a neighbour; wall {secs:.3f} s")
+    p0 = rounds_of("min_label_prop")
+    reset()
+    bic, secs = timed(lambda: biconnectivity(gA))
+    launches = read()
+    prop = rounds_of("min_label_prop") - p0
+    valid = gA.edge_valid
+    check(torch.equal(bic >= 0, valid) and bool((bic < gA.n).all()) and launches == (0, 0, 0),
+          "graph A biconnectivity: labels off the valid slots, or a kernel launch")
+    log(f"[13] graph A biconnectivity: {int(torch.unique(bic[valid]).numel())} labels, {prop} "
+        f"label-propagation rounds, wall {secs:.3f} s, no kernel launch")
+    del bic, valid, mask, shift
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # (d) edgemap_sum_compressed: kernel 2 without weights
+    keep = gB.edge_valid & (gB.edge_dst % 3 != 0)
+    f_b, _ = filter_edges(gB, make_filter(gB), keep)
+    f_cpu, _ = filter_edges(hB, make_filter(hB), keep.cpu())
+    gen = torch.Generator().manual_seed(SEED + 8)
+    err_sum, calls = 0.0, 0
+    for G, tag in ((B_, "B"), (E_, "E")):
+        for x in (torch.rand(G.dev.n, generator=gen),
+                  torch.randint(-9, 10, (G.dev.n,), dtype=torch.int32, generator=gen)):
+            for ea, ea_cpu in ((None, None), (f_b, f_cpu)) if tag == "B" else ((None, None),):
+                reset()
+                got = edgemap_sum_compressed(G.dev, x.to(dev), edge_active=ea)
+                launches = read()
+                if on_card:
+                    check(launches == (0, 0, 1), f"graph {tag} edgemap_sum_compressed: "
+                          f"kernel launches {launches}, not one kernel 2 launch")
+                want = edgemap_sum_compressed(G.host, x, edge_active=ea_cpu)
+                err_sum = max(err_sum, sums_err(got.cpu(), want, x.dtype == torch.int32,
+                                                f"graph {tag} edgemap_sum_compressed"))
+                calls += 1
+    x = torch.rand(gB.n, generator=gen).to(dev)
+    bits = make_filter(gB).bits
+    a2 = (gB.block_first, gB.deltas, gB.valid_count, bits, None, None)
+    A = cusparse_matrix(B_.csr)
+    ones = torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(),
+                                   torch.ones_like(A.values()), size=A.shape)
+    xt = x[:, None]
+    t2 = check_bound("kernel 2 unweighted", dict(
+        ms=device_ms(lambda: compressed_block_spmv(x, *a2, n=gB.n, tile_blocks=TILE)),
+        plain_ms=device_ms(lambda: compressed_block_spmv_ref(x, *a2, n=gB.n), runs=5,
+                           per_run=3),
+        library_ms=device_ms(lambda: ones @ xt),
+        bound_ms=spmv_bytes(gB, 1, "compressed", weighted=False) / HBM_BYTES_PER_S * 1e3,
+    ))
+    call_ms = device_ms(lambda: edgemap_sum_compressed(gB, x))
+    log(f"[13] edgemap_sum_compressed == its plain version in {calls} cases (graph B with and "
+        f"without a GraphFilter, graph E's exception rows; float32 rtol {SUM_RTOL}, int32 "
+        f"exact), one kernel 2 launch a call; max abs err {err_sum!r}")
+    log(f"[13] kernel 2 unweighted on graph B (B=1, TB={TILE}): kernel {t2['ms']!r} ms, plain "
+        f"{t2['plain_ms']!r} ms, cuSPARSE (unit values) {t2['library_ms']!r} ms, bound "
+        f"{t2['bound_ms']!r} ms; weighted (phase 2) {kernel2_weighted_ms!r} ms; the whole "
+        f"edgemap_sum_compressed call {call_ms!r} ms of device time")
+
+    # (e) the graph-analytics example on the card
+    argv = [] if on_card else ["--device", "cpu"]
+    lines, secs = timed(lambda: run_example("graph_analytics_torch", argv))
+    check(len(lines) == 7 and ("route=cuda" in lines[0]) == on_card,
+          f"the example printed {lines}")
+    for line in lines:
+        log(f"[13] example: {line}")
+    log(f"[13] examples/graph_analytics_torch.py on the card: wall {secs:.1f} s; peak device "
+        f"memory of the phase {peak:.2f} GiB")
+    return tuple(total)
+
+
 def log_profile(tag, prof, ms):
     """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
     wall, busy_ms, n_kernels, top = prof
@@ -2244,7 +2575,7 @@ def main(argv=None) -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 12 on ``dev`` (8, the SHA-256 check, last); returns the
+    """Phases 2 to 13 on ``dev`` (8, the SHA-256 check, last); returns the
     kernels' records."""
     import numpy as np
     import torch
@@ -2636,6 +2967,15 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     main_launches += decode12
     main_round_launches += fused12
     wall["serving tier"] = time.perf_counter() - t0
+
+    # 13. the rest of Table 1 and the rest of the core ------------------
+    t0 = time.perf_counter()
+    decode13, fused13, block13 = drive_table1(dev, A_, B_, E_,
+                                              times_b[("compressed", 1)]["ms"])
+    main_launches += decode13
+    main_round_launches += fused13
+    launches2 += block13
+    wall["Table 1"] = time.perf_counter() - t0
 
     # 8. large memory is never written (after every phase) ---------------
     check(graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr) == digests, "a graph tensor changed")

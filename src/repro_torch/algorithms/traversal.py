@@ -1,7 +1,9 @@
-"""Shortest-path problems (§4.3.1) — BFS and wBFS (integral Dijkstra).
+"""Shortest-path problems (§4.3.1) — BFS, wBFS (integral Dijkstra),
+Bellman-Ford, widest path and single-source betweenness.
 
-Both are frontier loops over EDGEMAPCHUNKED (direction-optimized), run by
-``round_loop``.  Mutable state is strictly O(n) words.  CAS-based
+Each is a frontier loop over EDGEMAPCHUNKED (direction-optimized), run by
+``round_loop`` or a Python loop on a host-read predicate.  Mutable state is
+strictly O(n) words.  CAS-based
 ``updateAtomic`` from the paper's BFS (Fig. 4) becomes an idempotent
 min-reduction over candidate parents — any in-frontier parent is a valid
 BFS-tree parent, so priority-min is a legal determinization.
@@ -11,6 +13,14 @@ queries advance in lockstep through ONE batched edgeMap per round, so the
 edge sweep is shared by the whole batch.  Finished queries' state is inert
 in later rounds, which makes every query's result bit-identical to its own
 single-query run.
+
+Bellman-Ford (min over float32 ``x + w``, weights of either sign), widest
+path (max of ``min(x, w)``) and betweenness (float sums) pass untagged maps
+or float state, so on the card their ``sparse_streamed`` rounds run the
+chunk loop over kernel 1's decode, never the fused round, which knows only
+min over int32.  They count their rounds in
+``sage_algorithm_rounds_total{algorithm=...}`` (Bellman-Ford's -inf
+propagation and betweenness's backward pass included).
 
 ``traversal_cohort_*`` fuse BFS and wBFS lanes into one cohort for the
 serving tier: one batched sweep a round, ``map_lanes`` picking each lane's
@@ -22,9 +32,10 @@ import torch
 
 from ..core.backend import GraphLike
 from ..core.bucketing import NULL_BUCKET, make_buckets
-from ..core.edgemap import edgemap_reduce_batched
+from ..core.edgemap import edgemap_reduce, edgemap_reduce_batched
 from ..core.plan import round_loop
 from ..core.primitives import INF_I32
+from .covering import count_round
 
 UNVISITED = -1
 
@@ -202,6 +213,129 @@ def wbfs_batched(g: GraphLike, sources, *, mode: str = "auto", plan=None):
         monoid="min", plan=plan, map_fn=_relax, mode=mode, batched=True,
     )
     return dist
+
+
+def _add(xs, w):
+    """Bellman-Ford's relaxation over float32 (untagged: no fused round)."""
+    return xs + w
+
+
+def _bottleneck(xs, w):
+    """Widest path's map: the bottleneck of the path so far and the edge."""
+    return torch.minimum(xs, w)
+
+
+def _relaxation_rounds(g: GraphLike, x0, src: int, *, monoid: str, map_fn, algorithm: str,
+                       mode: str, plan):
+    """Bellman-Ford-style rounds from ``src``: the vertices whose value
+    improved (under ``monoid``) relax their edges next, for at most n + 1
+    rounds.  Returns (x, the still-improving frontier)."""
+    n = g.n
+    frontier0 = torch.zeros(n, dtype=torch.bool, device=g.device)
+    frontier0[src] = True
+    better = torch.lt if monoid == "min" else torch.gt
+
+    def epilogue(state, cand, touched):
+        rnd, x, _ = state
+        improve = touched & better(cand, x)
+        count_round(algorithm)
+        return rnd + 1, torch.where(improve, cand, x), improve
+
+    _, x, frontier = round_loop(
+        g, (0, x0, frontier0),
+        sweep_inputs=lambda state: (state, state[2], state[1]), epilogue=epilogue,
+        cond_fn=lambda state: state[0] <= n and bool(state[2].any()),
+        monoid=monoid, plan=plan, map_fn=map_fn, mode=mode,
+    )
+    return x, frontier
+
+
+def bellman_ford(g: GraphLike, src: int, *, mode: str = "auto", plan=None):
+    """General-weight SSSP.  Returns (dist float32[n], has_neg_cycle bool).
+
+    Vertices reachable from a negative cycle get -inf (App. C.1): after at
+    most n relaxation rounds the still-improving set seeds a bounded BFS
+    that marks everything it reaches."""
+    n = g.n
+    if plan is not None:
+        g = plan.prepare(g)
+    src = int(src)
+    dist0 = torch.full((n,), float("inf"), dtype=torch.float32, device=g.device)
+    dist0[src] = 0.0
+    dist, frontier = _relaxation_rounds(g, dist0, src, monoid="min", map_fn=_add,
+                                        algorithm="bellman_ford", mode=mode, plan=plan)
+    has_neg_cycle = bool(frontier.any())
+
+    # propagate -inf from the still-improving set (bounded BFS)
+    dist = torch.where(frontier, float("-inf"), dist)
+    fr, i = frontier, 0
+    while i < n and bool(fr.any()):
+        _, touched = edgemap_reduce(g, fr, dist, monoid="min", mode=mode, plan=plan)
+        newly = touched & (dist > float("-inf"))
+        dist = torch.where(fr | newly, float("-inf"), dist)
+        fr, i = newly, i + 1
+        count_round("bellman_ford")
+    return dist, has_neg_cycle
+
+
+def widest_path(g: GraphLike, src: int, *, mode: str = "auto", plan=None):
+    """Single-source widest path (the max-min path semiring), Bellman-Ford
+    style.  Returns width float32[n]: -inf where unreachable, +inf at the
+    source."""
+    if plan is not None:
+        g = plan.prepare(g)
+    src = int(src)
+    width0 = torch.full((g.n,), float("-inf"), dtype=torch.float32, device=g.device)
+    width0[src] = float("inf")
+    width, _ = _relaxation_rounds(g, width0, src, monoid="max", map_fn=_bottleneck,
+                                  algorithm="widest_path", mode=mode, plan=plan)
+    return width
+
+
+def _betweenness_levels(g: GraphLike, src: int, *, mode: str = "auto", plan=None):
+    """Brandes' forward pass: ``(level int32[n], sigma float32[n], max_lvl)``,
+    the BFS levels from ``src`` (-1 unreached), the shortest-path counts
+    (sum monoid), and the number of rounds run."""
+    n, dev = g.n, g.device
+    src = int(src)
+    level = torch.full((n,), UNVISITED, dtype=torch.int32, device=dev)
+    level[src] = 0
+    sigma = torch.zeros(n, dtype=torch.float32, device=dev)
+    sigma[src] = 1.0
+    frontier = torch.zeros(n, dtype=torch.bool, device=dev)
+    frontier[src] = True
+    lvl = 0
+    while lvl < n and bool(frontier.any()):
+        cand, touched = edgemap_reduce(g, frontier, sigma, monoid="sum", mode=mode,
+                                       plan=plan)
+        newly = touched & (level == UNVISITED)
+        sigma = torch.where(newly, cand, sigma)
+        level = torch.where(newly, lvl + 1, level)
+        frontier, lvl = newly, lvl + 1
+        count_round("betweenness")
+    return level, sigma, lvl
+
+
+def betweenness(g: GraphLike, src: int, *, mode: str = "auto", plan=None):
+    """Single-source betweenness centrality (Brandes forward/backward).
+
+    Returns delta float32[n], the dependency scores from ``src``.  Forward:
+    level-synchronous sigma accumulation (sum monoid).  Backward: the levels
+    replayed in reverse, ``max_lvl`` rounds with no predicate read.  O(n)
+    words of state: levels, sigma, delta."""
+    if plan is not None:
+        g = plan.prepare(g)
+    level, sigma, max_lvl = _betweenness_levels(g, src, mode=mode, plan=plan)
+    delta = torch.zeros(g.n, dtype=torch.float32, device=g.device)
+    for lvl in range(max_lvl, 0, -1):
+        upper = level == lvl  # vertices one level deeper
+        y = torch.where(sigma > 0, (1.0 + delta) / sigma.clamp(min=1e-30), 0.0)
+        y = torch.where(upper, y, 0.0)
+        s, _ = edgemap_reduce(g, upper, y, monoid="sum", mode=mode, plan=plan)
+        delta = torch.where(level == lvl - 1, sigma * s, delta)
+        count_round("betweenness")
+    delta[int(src)] = 0.0
+    return delta
 
 
 def traversal_cohort_init(g: GraphLike, ops, sources):

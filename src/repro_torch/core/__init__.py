@@ -9,6 +9,7 @@ from .compressed import (
     decode_block,
     decode_block_tile,
     decode_blocks,
+    edgemap_sum_compressed,
     exception_dense,
 )
 from .convert import (
@@ -17,7 +18,7 @@ from .convert import (
     from_reference_arrays,
     to_reference_arrays,
 )
-from .csr import DEFAULT_BLOCK_SIZE, CSRGraph, build_csr, sharded_block_counts
+from .csr import DEFAULT_BLOCK_SIZE, CSRGraph, build_csr, graph_spec, sharded_block_counts
 from .edgemap import (
     edge_map,
     edge_map_batched,
@@ -42,6 +43,15 @@ from .graph_filter import (
     unpack_word_bits,
 )
 from .plan import ExecutionPlan, make_plan, round_loop
-from .primitives import compact_mask, monoid_identity, popcount32, segment_reduce
+from .primitives import (
+    compact_mask,
+    exclusive_scan,
+    histogram,
+    lowest_set_bit,
+    mex_from_forbidden,
+    monoid_identity,
+    popcount32,
+    segment_reduce,
+)
 from .psam import PSAMCost, TenantLedger, TenantLedgers, edgemap_round_read_words
 from .vertex_subset import VertexSubset

@@ -233,3 +233,18 @@ def exception_dense(c: CompressedCSR) -> bool:
     if c.exception_dense_hint is not None:
         return c.exception_dense_hint
     return c.n_exceptions > max(16, min(c.num_blocks // 4, 4096))
+
+
+def edgemap_sum_compressed(c: CompressedCSR, x: torch.Tensor, *, edge_active=None):
+    """``out[v] = Σ x[u]`` over the decoded active edges (v, u): a
+    PageRank-style aggregation straight off the compressed representation,
+    with optional graphFilter bits (``edge_active``: a ``GraphFilter``,
+    packed int32 words or a bool slot mask).  Unweighted, even on a weighted
+    graph.  On the card it is one launch of the block SpMV kernel
+    (``compressed_block_spmv``), the exception blocks patched exactly; the
+    CPU runs its plain version.  The sums keep ``x``'s dtype: int32 sums are
+    exact (the JAX package sums in float32)."""
+    # lazy import: kernels depend on core, never the other way around
+    from ..kernels.compressed_spmv.ops import compressed_spmv_vertex
+
+    return compressed_spmv_vertex(c, x, edge_active=edge_active, weighted=False)

@@ -180,3 +180,29 @@ def build_csr(
     return CSRGraph(
         **{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}, **meta
     )
+
+
+def graph_spec(n: int, num_blocks: int, block_size: int, weighted: bool = False) -> CSRGraph:
+    """A stand-in ``CSRGraph`` for shape and dtype planning: every tensor lives
+    on the ``meta`` device, with the shapes and dtypes of a real graph of
+    this size, and no memory is allocated."""
+    meta = torch.device("meta")
+    slots = num_blocks * block_size
+
+    def spec(size, dtype):
+        return torch.empty(size, dtype=dtype, device=meta)
+
+    return CSRGraph(
+        offsets=spec((n + 1,), torch.int32),
+        block_offsets=spec((n + 1,), torch.int32),
+        block_src=spec((num_blocks,), torch.int32),
+        edge_src=spec((slots,), torch.int32),
+        edge_dst=spec((slots,), torch.int32),
+        edge_w=spec((slots,), torch.float32),
+        degrees=spec((n,), torch.int32),
+        n=n,
+        m=slots,
+        num_blocks=num_blocks,
+        block_size=block_size,
+        weighted=weighted,
+    )

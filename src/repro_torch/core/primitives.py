@@ -1,6 +1,8 @@
-"""Parallel primitives (§2 of the paper): compact, reduce-by-key, identities.
+"""Parallel primitives (§2 of the paper): scan, compact, reduce-by-key,
+histogram, identities, and the bit tricks over packed words.
 
 These operate on the PSAM *small memory*: every output here is O(n) words.
+Packed words are int32 bit-views of the JAX package's uint32 words.
 """
 from __future__ import annotations
 
@@ -16,6 +18,13 @@ _NP_DTYPES = {
     torch.int64: np.int64,
     torch.bool: np.bool_,
 }
+
+
+def exclusive_scan(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefix sum in ``x``'s dtype: returns (exclusive prefix sums, total)."""
+    inc = torch.cumsum(x, dim=0, dtype=x.dtype)
+    total = inc[-1] if x.shape[0] else torch.zeros((), dtype=x.dtype, device=x.device)
+    return inc - x, total
 
 
 def compact_mask(mask: torch.Tensor, *, fill: int | None = None):
@@ -84,6 +93,39 @@ def segment_reduce(vals: torch.Tensor, ids: torch.Tensor, num_segments: int, mon
             include_self=True,
         )
     raise ValueError(f"unknown monoid {monoid}")
+
+
+def histogram(ids: torch.Tensor, num_bins: int, weights=None) -> torch.Tensor:
+    """Dense histogram (the paper's §4.3.4 dense-histogram routine): the sum
+    of ``weights`` (int32 ones by default) per bin; ids outside
+    [0, num_bins) are dropped, as JAX's ``segment_sum`` drops them."""
+    if weights is None:
+        weights = torch.ones(ids.shape, dtype=torch.int32, device=ids.device)
+    ids = ids.long()
+    ids = torch.where((ids >= 0) & (ids < num_bins), ids, num_bins)
+    return segment_reduce(weights, ids, num_bins + 1, "sum")[:num_bins]
+
+
+def lowest_set_bit(x: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit of each 32-bit word (0 where x == 0), int32."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    iso = x & ((~x + 1) & 0xFFFFFFFF)    # isolate the lowest bit
+    # log2 of a power of two via popcount(iso - 1)
+    return popcount32(iso - (iso != 0).to(torch.int64))
+
+
+def mex_from_forbidden(words: torch.Tensor) -> torch.Tensor:
+    """Minimum excludant: the smallest bit index not set, over 32-bit words
+    ``(..., W)`` (little-endian bit blocks); 32·W when every bit is set.
+    Returns int32[...]."""
+    W = words.shape[-1]
+    free = ~words.to(torch.int64) & 0xFFFFFFFF   # a set bit is an available color
+    has_free = free != 0
+    low = lowest_set_bit(free)
+    first_word = torch.argmax(has_free.to(torch.int32), dim=-1)
+    picked = torch.gather(low, -1, first_word[..., None])[..., 0]
+    mex = first_word.to(torch.int32) * 32 + picked
+    return torch.where(has_free.any(dim=-1), mex, 32 * W).to(torch.int32)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

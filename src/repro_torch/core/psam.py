@@ -168,15 +168,65 @@ class PSAMCost:
                 labels=("charge",),
             ).inc(writes, charge=label)
 
-    def charge_edgemap_batched(self, g, batch: int, num_shards: int = 1):
-        """One BATCHED dense edgeMap round serving ``batch`` queries: the
-        edge blocks are read once for the whole batch; the mutable state
-        costs O(batch·n) small-memory words."""
+    def charge_edgemap_dense(self, g):
+        """One single-device dense edgeMap round: every block read."""
         self._charge(
-            "edgemap_batched",
-            reads=edgemap_round_read_words(g, num_shards),
-            small=batch * (3 * g.n + (num_shards - 1) * g.n),
+            "edgemap_dense", reads=_block_read_words(g, g.num_blocks), small=3 * g.n
         )
+
+    def charge_edgemap_chunked(self, g, active_blocks: int):
+        """One EDGEMAPCHUNKED round over ``active_blocks`` frontier blocks."""
+        self._charge(
+            "edgemap_chunked", reads=_block_read_words(g, active_blocks), small=3 * g.n
+        )
+
+    def charge_edgemap_planned(
+        self, g, num_shards: int = 1, active_blocks=None, filter_live_blocks=None
+    ):
+        """One planner-dispatched edgeMap round over ``num_shards`` shards.
+
+        Reads are charged per shard, counting the empty blocks that pad a
+        non-dividing block count; the cross-shard combine moves the O(n)
+        output once per shard boundary (small memory).  ``active_blocks`` is
+        the sparse strategy's total active blocks (None: the dense pass).
+        ``filter_live_blocks`` — the live-block count, or the
+        ``GraphFilter`` whose ``block_live`` popcount it is — charges only
+        the live blocks, rounded up to whole shards, plus the packed filter
+        words (one per 32 slots) read once a round."""
+        self._charge_batched(g, 1, num_shards=num_shards, active_blocks=active_blocks,
+                             filter_live_blocks=filter_live_blocks,
+                             label="edgemap_planned")
+
+    def charge_edgemap_batched(self, g, batch: int, num_shards: int = 1,
+                               active_blocks=None, filter_live_blocks=None):
+        """One BATCHED edgeMap round serving ``batch`` queries: the edge
+        blocks are read once for the whole batch (the same reads as
+        ``charge_edgemap_planned``); the mutable state costs O(batch·n)
+        small-memory words."""
+        self._charge_batched(g, batch, num_shards=num_shards, active_blocks=active_blocks,
+                             filter_live_blocks=filter_live_blocks,
+                             label="edgemap_batched")
+
+    def _charge_batched(self, g, batch: int, *, num_shards: int, active_blocks,
+                        filter_live_blocks, label: str):
+        """The arithmetic behind the planned and batched charges; ``label``
+        names their counter series."""
+        _, padded_total = sharded_block_counts(g.num_blocks, num_shards)
+        blocks = padded_total if active_blocks is None else active_blocks
+        reads = 0
+        if filter_live_blocks is not None:
+            live = filter_live_blocks
+            if hasattr(live, "block_live"):  # a GraphFilter
+                live = int(live.block_live.sum())
+            else:
+                live = int(live)
+            per = -(-live // max(num_shards, 1))  # live blocks, whole shards
+            blocks = min(blocks, per * num_shards)
+            # the filter words stream alongside the blocks they mask
+            reads += padded_total * (g.block_size // 32)
+        reads += _block_read_words(g, blocks)
+        self._charge(label, reads=reads,
+                     small=batch * (3 * g.n + (num_shards - 1) * g.n))
 
     def charge_edgemap_sparse(
         self,
@@ -213,6 +263,15 @@ class PSAMCost:
             reads=reads,
             small=touched_blocks * (g.block_size // 32) + g.n,
         )
+
+    def charge_large_write(self, words: int, label: str = "large_write"):
+        """Charge ``words`` of large-memory writes at the ω premium.  No query
+        path calls this: Table 1's claim is ``large_writes == 0``."""
+        self._charge(label, writes=int(words))
+
+    def charge_small(self, words: int):
+        """Charge ``words`` of small-memory operations."""
+        self._charge("small", small=words)
 
     @property
     def work(self) -> float:

@@ -66,13 +66,14 @@ def _exception_block_sums(c: CompressedCSR, x, bits, weights=None, active=None):
     return exact_block_sums(c, dst, c.exc_block, x, bits, weights, active)
 
 
-def _per_block_sums(c: CompressedCSR, x, f, edge_active, tile_blocks):
+def _per_block_sums(c: CompressedCSR, x, f, edge_active, tile_blocks, weighted=None):
     """Exact per-block sums of every block, (NB,) or (NB, B): the kernel with
     the exception blocks patched, or the exact decode on an exception-dense
-    graph."""
+    graph.  ``weighted`` (default ``c.weighted``) says whether the sums take
+    the block weights."""
     bits = f.bits if f is not None else make_filter(c).bits
     active = _active_words(c, edge_active)
-    w = c.block_weights if c.weighted else None
+    w = c.block_weights if (c.weighted if weighted is None else weighted) else None
     if exception_dense(c):
         return compressed_block_sums_exact(c, x, bits, w, active)
     per_block = compressed_block_spmv(
@@ -92,9 +93,11 @@ def compressed_spmv_vertex(
     *,
     edge_active=None,
     tile_blocks: int = DEFAULT_TILE_BLOCKS,
+    weighted: bool | None = None,
 ) -> torch.Tensor:
     """``out[v] = Σ_{(v,u) active} w_vu · x[u]`` straight off the compressed
-    stream, (n,).
+    stream, (n,); with ``weighted=False`` the unweighted ``Σ x[u]`` even on a
+    weighted graph (default: ``c.weighted``).
 
     One launch of the fused decode + masked SpMV over every block
     (``tile_blocks`` blocks per CTA on the card), the ESCAPE blocks
@@ -102,7 +105,7 @@ def compressed_spmv_vertex(
     ``edge_active`` is the per-call traversal mask (a GraphFilter, packed
     int32 words, or a bool slot mask), ANDed with the filter bits in the
     kernel and in the exception fixup alike."""
-    per_block = _per_block_sums(c, x, f, edge_active, tile_blocks)
+    per_block = _per_block_sums(c, x, f, edge_active, tile_blocks, weighted)
     return segment_reduce(per_block, c.block_src, c.n + 1, "sum")[: c.n]
 
 

@@ -24,13 +24,23 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
-from repro_torch.algorithms import bfs, bfs_batched, maximal_matching, wbfs, wbfs_batched
+from repro_torch.algorithms import (
+    bellman_ford,
+    betweenness,
+    bfs,
+    bfs_batched,
+    maximal_matching,
+    wbfs,
+    wbfs_batched,
+    widest_path,
+)
 from repro_torch.algorithms.traversal import _relax
 from repro_torch.core import (
     build_csr,
     compress,
     edgemap_chunked,
     edgemap_chunked_batched_streamed,
+    edgemap_sum_compressed,
     exception_dense,
     make_filter,
     make_plan,
@@ -460,6 +470,68 @@ def test_whole_graph_ops_and_launch_counts(cuda):
         edge_block_spmv(x.to(cuda), gcsr.block_dst, gcsr.block_w, None, n=c.n,
                         owners=(gcsr.block_src.long(), gcsr.block_offsets, gcsr.degrees))
     assert (compressed_block_spmv.launches, edge_block_spmv.launches) == before
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+def test_unweighted_sums_on_a_weighted_graph(cuda, fb):
+    """Kernel 2 without weights on a weighted graph (``edgemap_sum_compressed``'s
+    call), with and without ``edge_active`` words: equal to its plain version
+    without weights; the op, exception rows patched, equal to its CPU route
+    in one kernel 2 launch."""
+    c = _exception_graph(fb, True)
+    gc = _to(c, cuda)
+    rng = np.random.default_rng(fb)
+    active = torch.from_numpy(rng.integers(-2**31, 2**31, (c.num_blocks, fb // 32))
+                              .astype(np.int32))
+    bits = make_filter(c).bits
+    for x in (torch.rand(c.n), torch.randint(-9, 9, (c.n,), dtype=torch.int32)):
+        exact = x.dtype == torch.int32
+        for act in (None, active):
+            dact = None if act is None else act.to(cuda)
+            want = compressed_block_spmv_ref(x, c.block_first, c.deltas, c.valid_count, bits,
+                                             act, None, n=c.n)
+            got = compressed_block_spmv(x.to(cuda), gc.block_first, gc.deltas,
+                                        gc.valid_count, bits.to(cuda), dact, None, n=c.n)
+            _assert_sums(got, want, exact)
+            before = compressed_block_spmv.launches
+            got = edgemap_sum_compressed(gc, x.to(cuda), edge_active=dact)
+            assert compressed_block_spmv.launches == before + 1
+            _assert_sums(got, edgemap_sum_compressed(c, x, edge_active=act), exact)
+
+
+@pytest.mark.parametrize("graph", ["rmat", "exceptions"])
+def test_float_monoid_traversals_match_cpu_route(cuda, graph):
+    """Bellman-Ford (min over float32 x + w), widest path (max) and
+    betweenness (sums) on a sparse_streamed plan run the chunk loop over
+    kernel 1's decode, never the fused round: the first two equal the CPU
+    route bit for bit, betweenness within 1e-4 of its largest score;
+    Bellman-Ford equals wBFS on integer weights."""
+    if graph == "rmat":
+        c = _graph(64, True, n=1024, m=8192, seed=5)
+    else:
+        c = _exception_graph(64, True)
+    gc = _to(c, cuda)
+    plan_c, plan_g = (make_plan(g, strategy="sparse_streamed") for g in (c, gc))
+    src = int(torch.argmax(c.degrees))
+    for fn in (bellman_ford, widest_path, betweenness):
+        before = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
+        got = fn(gc, src, plan=plan_g)
+        torch.cuda.synchronize()
+        assert compressed_chunked_spmv.launches > before[0]
+        assert compressed_stream_round.launches == before[1]
+        want = fn(c, src, plan=plan_c)
+        if fn is bellman_ford:
+            assert got[1] is want[1] is False
+            got, want = got[0], want[0]
+        if fn is betweenness:
+            err = float((got.cpu() - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max())
+        else:
+            assert torch.equal(got.cpu(), want)
+    if graph == "rmat":  # integer weights: Bellman-Ford's distances are wBFS's
+        d = wbfs(gc, src, plan=plan_g)
+        want = torch.where(d == INF_I32, float("inf"), d.float())
+        assert torch.equal(bellman_ford(gc, src, plan=plan_g)[0], want)
 
 
 def _pack_case(nb, fb, seed):
