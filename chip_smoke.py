@@ -17,7 +17,8 @@ SASRec's serving path (full-catalog top-100 and candidate retrieval, every
 item lookup through the EmbeddingBag kernel); connectivity, personalized
 PageRank and the ServingService tier; the rest of Table 1 (Bellman-Ford,
 widest path, betweenness, spanning forest, spanner, biconnectivity) and
-the unweighted compressed sum over kernel 2.
+the unweighted compressed sum over kernel 2; sharded execution (the shard
+split, the sharded executor, the round loop) on meshes of the one card.
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -176,15 +177,36 @@ the unweighted compressed sum over kernel 2.
    float32 within rtol 1e-5); kernel 2 without weights timed beside its
    plain version, cuSPARSE with unit values and its bytes bound; (e)
    ``examples/graph_analytics_torch.py`` on the card.
-8. Last, the graph tensors of A, B and E, compressed and CSR, are unchanged
-   (SHA-256 before and after every phase).
+14. Sharded execution on one card, every mesh ``cuda:0`` repeated: (a)
+   ``CompressedCSR``, ``CSRGraph`` and ``GraphFilter`` ``.shard(k)`` of
+   graphs B and E, k = 2, 3 (which does not divide NB) and 4, on the card
+   equal the CPU route's bit for bit; graph E's k=4 shards carry padded
+   exception lists; (b) on graphs B and E, meshes (2,) and (4,), a
+   ``sparse_streamed`` BFS and wBFS equal the single-device card run bit
+   for bit with k fused launches a round and no decode launch, and graph
+   E's k-core (the chunk loop over kernel 1's decode on the padded shard
+   exception lists) equals its single-device run; (c) graph A at full
+   width on (4,): BFS bit for bit, PageRank (10 iterations, ``eps=0``)
+   flat, hierarchical on (2, 2) and combined in bfloat16, each within its
+   stated limit of the single-device card run, and one
+   ``distributed_pagerank_step``; (d) a ``QueryEngine`` on a (4,) plan over
+   graph B answers phase 5's requests, each equal to its single-device run,
+   with exactly 4 fused launches a round and no decode launch; (e)
+   ``set_cover`` on graph E under a (2,) plan equals one device, kernel 4
+   launched once a round and once up front; (f) a ``pipeline_rounds=True``
+   plan (the JAX package's skewed schedule, which the eager loop runs
+   sequentially) gives BFS and wBFS on graph B (4,) bit for bit, 4 fused
+   launches a round; graph A's shards join the SHA-256 check; the phase's
+   peak device memory.
+8. Last, the graph tensors of A, B and E, compressed and CSR, and graph A's
+   shards are unchanged (SHA-256 before and after every phase).
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
-phases 4-5, 12 and 13 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
-phases 6 and 13(d) for kernel 2, phase 9(c) for kernel 4, phase 10(c) and (d) for kernel 6,
-phase 11(c) and (d) for kernel 5.
+phases 4-5, 12, 13 and 14 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
+phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phase 10(c) and (d) for
+kernel 6, phase 11(c) and (d) for kernel 5.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
 or outside a checkout of the repository, the script exits with code 2 and
 prints no result.
@@ -195,6 +217,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -2503,6 +2526,246 @@ def drive_table1(dev, A_, B_, E_, kernel2_weighted_ms):
     return tuple(total)
 
 
+# ----------------------------------------------------------------------
+# phase 14: sharded execution on one card
+# ----------------------------------------------------------------------
+PR_SHARD_REL_TOL = 1e-5   # float32 PageRank, shard sums combined in another order
+PR_BF16_REL_TOL = 2**-5   # PageRank combined in bfloat16: 8-bit shard sums, 10 iterations
+
+
+def same_tensors(a, b, what):
+    """Every tensor field of two graphs or filters equal, bit for bit."""
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), f"{what}: {f.name}")
+        else:
+            check(x == y, f"{what}: {f.name} {x!r} != {y!r}")
+
+
+def rel_max(got, want):
+    """max |got - want| / max |want|."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def drive_sharding(dev, A_, B_, E_, srcs, reqs, phase5_qps):
+    """Phase 14: sharded execution, every mesh on ``dev`` repeated.  Returns
+    (kernel 1 decode launches, fused launches, kernel 4 launches) of its
+    paths, each read around the path that makes it."""
+    import torch
+
+    from repro_torch.algorithms import bfs, kcore, pagerank, set_cover, wbfs
+    from repro_torch.core import edgemap_reduce, make_filter, make_mesh, make_plan
+    from repro_torch.distributed import distributed_pagerank_step
+    from repro_torch.kernels import (
+        compressed_chunked_spmv,
+        compressed_stream_round,
+        filter_pack_words,
+    )
+    from repro_torch.serving import QueryEngine
+
+    def mesh(*shape):
+        return make_mesh(shape, ("pod", "data")[-len(shape):], devices=[dev] * math.prod(shape))
+
+    def k1():
+        return compressed_chunked_spmv.launches, compressed_stream_round.launches
+
+    def since(before):
+        now = k1()
+        return now[0] - before[0], now[1] - before[1]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - ts
+
+    on_card = dev.type == "cuda"   # the CPU route (a rehearsal) launches nothing
+    torch.cuda.reset_peak_memory_stats()
+    decode = fused = packs = 0
+    # (a) the shard split on the card equals the CPU route's, bit for bit
+    cases = 0
+    for G, tag in ((B_, "B"), (E_, "E")):
+        fd, fh = make_filter(G.dev), make_filter(G.host)
+        for k in (2, 3, 4):
+            for a, b in ((G.dev, G.host), (G.csr, G.host_csr), (fd, fh)):
+                for i, (x, y) in enumerate(zip(a.shard(k), b.shard(k))):
+                    same_tensors(x, y, f"graph {tag} {type(a).__name__}.shard({k})[{i}]")
+                    cases += 1
+        per = -(-G.dev.num_blocks // 4)
+        padded = [int((s.exc_block == per).sum()) for s in G.dev.shard(4)]
+        log(f"[14] graph {tag}: NB={G.dev.num_blocks} (mod 3 = {G.dev.num_blocks % 3}); "
+            f"k=4 shards hold {[s.n_exceptions for s in G.dev.shard(4)]} exception rows each, "
+            f"of which {padded} are padding")
+        if tag == "E":
+            check(any(padded), "graph E's k=4 shards carry no padded exception row")
+    log(f"[14] CompressedCSR, CSRGraph and GraphFilter .shard(k), k = 2, 3, 4, on the card "
+        f"equal the CPU route's in {cases} shards, bit for bit")
+
+    # (b) kernel 1 on shards: BFS and wBFS (fused), k-core (decode)
+    for G, tag in ((B_, "B"), (E_, "E")):
+        g = G.dev
+        single = make_plan(g, strategy="sparse_streamed")
+        s = srcs[0] if tag == "B" else sources(g, 1, SEED + 5)[0]
+        b0 = k1()
+        (p1, l1), t_bfs = timed(lambda: bfs(g, s, plan=single))
+        n_bfs = since(b0)
+        b0 = k1()
+        d1, t_wbfs = timed(lambda: wbfs(g, s, plan=single))
+        n_wbfs = since(b0)
+        rounds = int(l1.max()) + 1
+        check(n_bfs == (0, rounds) or not on_card, f"graph {tag} single BFS launches {n_bfs}")
+        for k in (2, 4):
+            plan = make_plan(g, mesh=mesh(k), strategy="sparse_streamed")
+            gs, t_prep = timed(lambda: plan.prepare(g))
+            b0 = k1()
+            (p, lv), t_sb = timed(lambda: bfs(gs, s, plan=plan))
+            sb = since(b0)
+            b0 = k1()
+            d, t_sw = timed(lambda: wbfs(gs, s, plan=plan))
+            sw = since(b0)
+            decode += sb[0] + sw[0]
+            fused += sb[1] + sw[1]
+            check(torch.equal(p, p1) and torch.equal(lv, l1) and torch.equal(d, d1),
+                  f"graph {tag} BFS/wBFS on a ({k},) mesh differ from one device")
+            check(not on_card or (sb == (0, k * rounds) and sw == (0, k * n_wbfs[1])),
+                  f"graph {tag} ({k},): kernel 1 launches (decode, fused) BFS {sb}, wBFS {sw}")
+            log(f"[14] graph {tag} from {s}, mesh ({k},) sparse_streamed (prepare "
+                f"{t_prep:.3f} s): BFS {rounds} rounds, {sb[1]} fused launches ({k} a round), "
+                f"wall {t_sb:.3f} s (one device {t_bfs:.3f} s, {n_bfs[1]} launches); wBFS "
+                f"{sw[1]} fused launches, wall {t_sw:.3f} s (one device {t_wbfs:.3f} s, "
+                f"{n_wbfs[1]}); no decode launch; equal to one device bit for bit")
+    gE = E_.dev
+    single = make_plan(gE, strategy="sparse_streamed")
+    b0 = k1()
+    core1, t_core1 = timed(lambda: kcore(gE, plan=single))
+    n_core1 = since(b0)
+    for k in (2, 4):
+        plan = make_plan(gE, mesh=mesh(k), strategy="sparse_streamed")
+        b0 = k1()
+        core, t_core = timed(lambda: kcore(gE, plan=plan))
+        n_core = since(b0)
+        decode += n_core[0]
+        check(torch.equal(core, core1) and (not on_card or (n_core[0] > 0 and n_core[1] == 0)),
+              f"graph E k-core on a ({k},) mesh: launches {n_core}, or differs")
+        log(f"[14] graph E k-core, mesh ({k},) sparse_streamed (int32 sums: the chunk loop "
+            f"over padded shard exception lists): {n_core[0]} decode launches, wall "
+            f"{t_core:.3f} s (one device {n_core1[0]}, {t_core1:.3f} s); equal to one device")
+
+    # (c) graph A at full width, 4 shards
+    gA = A_.dev
+    plan1 = make_plan(gA, strategy="auto")
+    plan4 = make_plan(gA, mesh=mesh(4), strategy="auto")
+    gsA, t_prep = timed(lambda: plan4.prepare(gA))
+    digests = graph_digest(*gsA.shards)
+    sA = sources(gA, 1, SEED)[0]
+    (p1, l1), t1 = timed(lambda: bfs(gA, sA, plan=plan1))
+    b0 = k1()
+    (p4, l4), t4 = timed(lambda: bfs(gsA, sA, plan=plan4))
+    check(since(b0) == (0, 0), "graph A (exception-dense) sharded BFS launched kernel 1")
+    check(torch.equal(p4, p1) and torch.equal(l4, l1), "graph A BFS on (4,) differs")
+    log(f"[14] graph A, mesh (4,): prepare {t_prep:.3f} s; BFS from {sA} ({int(l1.max())} "
+        f"levels) equal to one device, wall {t4:.3f} s (one device {t1:.3f} s)")
+    pr1, t_pr1 = timed(lambda: pagerank(gA, eps=0.0, max_iters=PR_ITERS, plan=plan1)[0])
+    errs = {}
+    for name, plan in (
+        ("flat (4,)", plan4),
+        ("hierarchical (2, 2)", make_plan(gA, mesh=mesh(2, 2), reduce_mode="hierarchical")),
+        ("bfloat16 combine (4,)", make_plan(gA, mesh=mesh(4), state_dtype=torch.bfloat16)),
+    ):
+        g_in = gsA if plan.mesh.shape == (4,) else gA
+        pr, t_pr = timed(lambda: pagerank(g_in, eps=0.0, max_iters=PR_ITERS, plan=plan)[0])
+        err = rel_max(pr, pr1)
+        tol = PR_BF16_REL_TOL if "bfloat16" in name else PR_SHARD_REL_TOL
+        check(bool(torch.isfinite(pr).all()) and err <= tol,
+              f"graph A PageRank {name}: max rel diff {err} over {tol}")
+        errs[name] = err
+        log(f"[14] graph A PageRank {PR_ITERS} iterations, {name}: max|diff| / max|pr| "
+            f"{err!r} (limit {tol!r}), wall {t_pr:.3f} s (one device {t_pr1:.3f} s)")
+    inv = 1.0 / gA.degrees.clamp(min=1).to(torch.float32)
+    step = distributed_pagerank_step(plan4.mesh, n=gA.n)
+    got, t_step = timed(lambda: step(gsA, pr1, inv))
+    s1, _ = edgemap_reduce(gA, torch.ones(gA.n, dtype=torch.bool, device=dev), pr1 * inv,
+                           monoid="sum", map_fn=lambda xs, w: xs * w, mode="dense")
+    want = (1.0 - 0.85) / gA.n + 0.85 * s1
+    err = rel_max(got, want)
+    check(err <= PR_SHARD_REL_TOL, f"distributed_pagerank_step: max rel diff {err}")
+    log(f"[14] graph A distributed_pagerank_step on (4,): max|diff| / max to one device's "
+        f"weighted step {err!r}, wall {t_step:.3f} s")
+
+    # (d) QueryEngine on a (4,) plan over graph B
+    gB = B_.dev
+    plan_b = make_plan(gB, strategy="sparse_streamed")
+    plan_b4 = make_plan(gB, mesh=mesh(4), strategy="sparse_streamed")
+    # in turns (one device, 4 shards, 4 shards, one device), each engine warm
+    engines = {"one device": QueryEngine(gB, plan=plan_b, max_batch=8),
+               "(4,)": QueryEngine(gB, plan=plan_b4, max_batch=8)}
+    for e in engines.values():
+        e.serve(reqs)
+    qps = {name: [] for name in engines}
+    for name in ("one device", "(4,)", "(4,)", "one device"):
+        serve_s, launches, rounds = serve(engines[name], reqs, plan_b)
+        qps[name].append(len(reqs) / serve_s)
+        if name == "(4,)":
+            sharded = launches
+            fused += launches["fused"]
+            # every round of every drained batch: one fused launch a shard
+            check(not on_card or (launches["decode"] == 0
+                                  and launches["fused"] == 4 * rounds),
+                  f"engine on (4,): kernel 1 launches {launches} in {rounds} rounds")
+    log(f"[14] engine on a (4,) plan, {len(reqs)} queries, warm, in turns: "
+        f"{', '.join(f'{q:.2f}' for q in qps['(4,)'])} queries/s against one device's "
+        f"{', '.join(f'{q:.2f}' for q in qps['one device'])} (phase 5, cold: {phase5_qps:.2f}); "
+        f"fused launches {sharded['fused']} in {rounds} rounds a drain (4 a round), decode "
+        f"{sharded['decode']}; "
+        "every result equals its single-device run")
+
+    # (e) set cover on graph E under a (2,) plan (kernel 4 on the global words)
+    pri = torch.randperm(gE.n, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    sets = torch.arange(gE.n, device=dev) < gE.n // 3
+    r0 = rounds_of("set_cover")
+    want, t_sc1 = timed(lambda: set_cover(gE, sets, priorities=pri))
+    rounds = rounds_of("set_cover") - r0
+    b4 = filter_pack_words.launches
+    got, t_sc = timed(lambda: set_cover(gE, sets, priorities=pri,
+                                        plan=make_plan(gE, mesh=mesh(2))))
+    n4 = filter_pack_words.launches - b4
+    packs += n4
+    check(torch.equal(got, want) and (not on_card or n4 == 1 + rounds),
+          f"graph E set_cover on (2,): {n4} kernel 4 launches in {rounds} rounds, or differs")
+    log(f"[14] graph E set_cover on a (2,) plan: equal to one device, {rounds} rounds, kernel 4 "
+        f"launches {n4} (1 + rounds), wall {t_sc:.3f} s (one device {t_sc1:.3f} s)")
+
+    # (f) a pipeline_rounds plan runs the sequential loop: same results, k launches a round
+    seq = make_plan(gB, mesh=mesh(4), strategy="sparse_streamed")
+    pipe = make_plan(gB, mesh=mesh(4), strategy="sparse_streamed", pipeline_rounds=True)
+    gsB = seq.prepare(gB)
+    (want_p, want_l), want_d = bfs(gsB, srcs[1], plan=seq), wbfs(gsB, srcs[1], plan=seq)
+    b0 = k1()
+    (p, lv), t_pb = timed(lambda: bfs(gsB, srcs[1], plan=pipe))
+    n_pb = since(b0)
+    b0 = k1()
+    d, t_pw = timed(lambda: wbfs(gsB, srcs[1], plan=pipe))
+    n_pw = since(b0)
+    fused += n_pb[1] + n_pw[1]
+    rounds = int(want_l.max()) + 1
+    check(torch.equal(p, want_p) and torch.equal(lv, want_l) and torch.equal(d, want_d),
+          "graph B: a pipeline_rounds plan differs from the sequential one")
+    check(not on_card or (n_pb == (0, 4 * rounds) and n_pw[0] == 0 and n_pw[1] % 4 == 0),
+          f"graph B pipeline_rounds plan: kernel 1 launches BFS {n_pb}, wBFS {n_pw}")
+    log(f"[14] graph B on (4,), pipeline_rounds=True (runs the sequential loop): BFS and wBFS "
+        f"equal bit for bit, fused launches {n_pb[1]} in {rounds} BFS rounds and {n_pw[1]} "
+        f"for wBFS, wall {t_pb:.4f} s and {t_pw:.4f} s")
+    check(graph_digest(*gsA.shards) == digests, "a graph A shard tensor changed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[14] graph A's shards unchanged (SHA-256); peak device memory of the phase "
+        f"{peak:.2f} GiB")
+    return decode, fused, packs, gsA
+
+
 def log_profile(tag, prof, ms):
     """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
     wall, busy_ms, n_kernels, top = prof
@@ -2575,7 +2838,7 @@ def main(argv=None) -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 13 on ``dev`` (8, the SHA-256 check, last); returns the
+    """Phases 2 to 14 on ``dev`` (8, the SHA-256 check, last); returns the
     kernels' records."""
     import numpy as np
     import torch
@@ -2977,9 +3240,22 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     launches2 += block13
     wall["Table 1"] = time.perf_counter() - t0
 
+    # 14. sharded execution on one card --------------------------------
+    t0 = time.perf_counter()
+    decode14, fused14, packs14, gsA = drive_sharding(dev, A_, B_, E_, srcs_b, reqs,
+                                                     len(reqs) / serve_s)
+    main_launches += decode14
+    main_round_launches += fused14
+    launches4 += packs14
+    digests.update({("A shards", k): v for k, v in graph_digest(*gsA.shards).items()})
+    wall["sharding"] = time.perf_counter() - t0
+
     # 8. large memory is never written (after every phase) ---------------
-    check(graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr) == digests, "a graph tensor changed")
-    log("[8] graph A, B and E tensors, compressed and CSR, unchanged (SHA-256)")
+    now = graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr)
+    now.update({("A shards", k): v for k, v in graph_digest(*gsA.shards).items()})
+    check(now == digests, "a graph tensor changed")
+    log("[8] graph A, B and E tensors, compressed and CSR, and graph A's shards, unchanged "
+        "(SHA-256)")
     log("wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
     tb_a, tb_b = times_a[("edge", 1)], times_b[("compressed", 1)]

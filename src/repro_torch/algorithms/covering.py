@@ -197,6 +197,9 @@ def set_cover(
     bip = take_fill(sets_mask, src, False) ^ take_fill(sets_mask, dst, True)
     f = pack_vertices(g, make_filter(g), all_v, bip & g.edge_valid)
     pri = _priorities(n, dev, priorities, generator)
+    # the edgeMaps run on the plan's placement (sharded on a mesh); the
+    # filter packs and the win counts stay global passes over ``g``
+    gs = g if plan is None else plan.prepare(g)
     log1e = torch.log(torch.tensor(1.0 + eps, dtype=torch.float32)).to(dev)
 
     def bucket_of(d):
@@ -218,7 +221,7 @@ def set_cover(
         # elements award themselves to their min-priority candidate
         # neighbor; a dst with no live candidate edge keeps the min
         # identity (INF), which never wins below
-        win_pri, _ = edgemap_reduce(g, cand, pri, monoid="min", edge_active=f.bits,
+        win_pri, _ = edgemap_reduce(gs, cand, pri, monoid="min", edge_active=f.bits,
                                     mode="dense", plan=plan)
         active = unpack_word_bits(f.bits).reshape(-1)
         award_e = (active & take_fill(cand, src, False)
@@ -235,7 +238,7 @@ def set_cover(
         in_cover = in_cover | chosen
         # chosen sets cover all their currently-active elements: the
         # edgeMap's touched mask *is* "received ≥1 live contribution"
-        _, cov_hit = edgemap_reduce(g, chosen, ones, monoid="max", edge_active=f.bits,
+        _, cov_hit = edgemap_reduce(gs, chosen, ones, monoid="max", edge_active=f.bits,
                                     mode="dense", plan=plan)
         covered = covered | (elems & cov_hit)
         keep = ~take_fill(covered, src, False) & ~take_fill(covered, dst, False)

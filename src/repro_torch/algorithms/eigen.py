@@ -22,6 +22,8 @@ def pagerank(
 ):
     """Returns (pr float32[n], iters int)."""
     n, dev = g.n, g.device
+    if plan is not None:
+        g = plan.prepare(g)
     deg = g.degrees.clamp(min=1).to(torch.float32)
     dangling = g.degrees == 0
     full_mask = torch.ones(n, dtype=torch.bool, device=dev)
@@ -52,6 +54,8 @@ def pagerank(
 def pagerank_iteration(g: GraphLike, pr: torch.Tensor, *, damping: float = 0.85, plan=None):
     """A single PageRank iteration (Table 1 'PageRank Iteration' row)."""
     n = g.n
+    if plan is not None:
+        g = plan.prepare(g)
     deg = g.degrees.clamp(min=1).to(torch.float32)
     dangling = g.degrees == 0
     contrib = torch.where(dangling, 0.0, pr / deg)
@@ -71,6 +75,8 @@ def pagerank_iteration_batched(
     ``prs`` is float32[B, n]; returns float32[B, n], each row equal to
     ``pagerank_iteration`` on that row alone up to summation order."""
     n = g.n
+    if plan is not None:
+        g = plan.prepare(g)
     B = prs.shape[0]
     deg = g.degrees.clamp(min=1).to(torch.float32)
     dangling = g.degrees == 0

@@ -30,6 +30,8 @@ def kcore(g, *, plan=None):
     ``plan`` routes the histogram edgeMaps through the planner's knobs.
     """
     n, dev = g.n, g.device
+    if plan is not None:
+        g = plan.prepare(g)
     ones = torch.ones(n, dtype=torch.int32, device=dev)
     deg = g.degrees
     alive = torch.ones(n, dtype=torch.bool, device=dev)

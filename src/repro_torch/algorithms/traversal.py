@@ -98,6 +98,8 @@ def bfs(g: GraphLike, src: int, *, mode: str = "auto", plan=None):
     PSAM: O(m) work, O(d_G log n) depth, O(n) words small memory (Thm 4.2).
     """
     n, dev = g.n, g.device
+    if plan is not None:
+        g = plan.prepare(g)
     src = int(src)
     parents0 = torch.full((n,), UNVISITED, dtype=torch.int32, device=dev)
     parents0[src] = src
@@ -130,6 +132,8 @@ def bfs_batched(g: GraphLike, sources, *, mode: str = "auto", plan=None):
     bit-identical to the corresponding single-query ``bfs`` run on the
     same plan: a drained query's empty frontier touches nothing."""
     n = g.n
+    if plan is not None:
+        g = plan.prepare(g)
     roots = _root_masks(g, sources)
     B = roots.shape[0]
     idsb = torch.arange(n, dtype=torch.int32, device=g.device).expand(B, n)
@@ -159,6 +163,8 @@ def wbfs(g: GraphLike, src: int, *, mode: str = "auto", plan=None):
     its exact minimum distance, keeping Dijkstra's invariant over the full
     int32 range."""
     n, dev = g.n, g.device
+    if plan is not None:
+        g = plan.prepare(g)
     dist0 = torch.full((n,), INF_I32, dtype=torch.int32, device=dev)
     dist0[int(src)] = 0
     settled0 = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -189,6 +195,8 @@ def wbfs_batched(g: GraphLike, sources, *, mode: str = "auto", plan=None):
     A per-query ``run`` flag stops a drained query from mutating its row
     while the rest of the batch finishes."""
     n, dev = g.n, g.device
+    if plan is not None:
+        g = plan.prepare(g)
     srcs = torch.as_tensor(sources, dtype=torch.int64, device=dev)
     ids = torch.arange(n, dtype=torch.int64, device=dev)
     dist0 = torch.where(ids[None, :] == srcs[:, None], 0, INF_I32).to(torch.int32)
@@ -297,6 +305,8 @@ def _betweenness_levels(g: GraphLike, src: int, *, mode: str = "auto", plan=None
     the BFS levels from ``src`` (-1 unreached), the shortest-path counts
     (sum monoid), and the number of rounds run."""
     n, dev = g.n, g.device
+    if plan is not None:
+        g = plan.prepare(g)
     src = int(src)
     level = torch.full((n,), UNVISITED, dtype=torch.int32, device=dev)
     level[src] = 0

@@ -1,6 +1,6 @@
-"""The single-device Sage engine in PyTorch: graph formats, filters,
-edgeMap, the planner and the PSAM cost model."""
-from .backend import GraphLike, dense_block_view, tile_block_view
+"""The Sage engine in PyTorch: graph formats, filters, edgeMap, the planner
+(single-device or sharded over a ``ShardMesh``) and the PSAM cost model."""
+from .backend import GraphBackend, GraphLike, dense_block_view, tile_block_view
 from .bucketing import NULL_BUCKET, Buckets, make_buckets
 from .compressed import (
     ESCAPE,
@@ -42,7 +42,19 @@ from .graph_filter import (
     unpack_bits,
     unpack_word_bits,
 )
-from .plan import ExecutionPlan, make_plan, round_loop
+from .mesh import ShardMesh, make_mesh
+from .plan import (
+    ExecutionPlan,
+    ShardedEdgeActive,
+    ShardedGraph,
+    compact_live_blocks,
+    make_plan,
+    round_loop,
+    shard_edge_active,
+    sharded_edgemap_reduce,
+    sharded_edgemap_reduce_batched,
+    sharded_graph_spec,
+)
 from .primitives import (
     compact_mask,
     exclusive_scan,
@@ -54,4 +66,4 @@ from .primitives import (
     segment_reduce,
 )
 from .psam import PSAMCost, TenantLedger, TenantLedgers, edgemap_round_read_words
-from .vertex_subset import VertexSubset
+from .vertex_subset import VertexSubset, empty, from_indices, from_mask, full

@@ -14,13 +14,41 @@ backend live here:
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Protocol, Union, runtime_checkable
 
 import torch
 
 from .compressed import CompressedCSR, decode_block_range, decode_block_tile
 from .csr import CSRGraph
 from .primitives import take_fill
+
+
+
+@runtime_checkable
+class GraphBackend(Protocol):
+    """Structural surface every graph execution backend provides."""
+
+    n: int
+    m: int
+    num_blocks: int
+    block_size: int
+    block_src: torch.Tensor  # int32[NB] — owner vertex per block
+    degrees: torch.Tensor    # int32[n]
+
+    @property
+    def block_dst(self) -> torch.Tensor: ...  # int32[NB, FB], sentinel n pads
+
+    @property
+    def block_w(self) -> torch.Tensor: ...    # float32[NB, FB]
+
+    @property
+    def edge_valid(self) -> torch.Tensor: ...  # bool[NB*FB]
+
+    def shard(self, num_shards: int) -> list["GraphBackend"]: ...
+    # block-range partition: each shard is a valid backend over the global
+    # vertex space (n, degrees replicated; blocks split; non-dividing counts
+    # pad with empty blocks).  Consumed by the planner (core.plan).
+
 
 GraphLike = Union[CSRGraph, CompressedCSR]
 

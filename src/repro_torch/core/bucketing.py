@@ -23,6 +23,15 @@ class Buckets:
         bid = self.bucket_of.min()
         return bid, self.bucket_of == bid, bid < NULL_BUCKET
 
+    def update(self, ids_mask: torch.Tensor, new_buckets: torch.Tensor) -> "Buckets":
+        """updateBuckets: vertices in ``ids_mask`` move to ``new_buckets[v]``."""
+        nb = torch.where(ids_mask, new_buckets.to(torch.int32), self.bucket_of)
+        return Buckets(bucket_of=nb, n=self.n)
+
+    def retire(self, ids_mask: torch.Tensor) -> "Buckets":
+        """Vertices in ``ids_mask`` leave every bucket (NULL_BUCKET)."""
+        return self.update(ids_mask, torch.full_like(self.bucket_of, NULL_BUCKET))
+
 
 def make_buckets(initial: torch.Tensor) -> Buckets:
     """initial: int32[n] bucket ids (NULL_BUCKET to start retired)."""

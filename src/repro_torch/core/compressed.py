@@ -20,7 +20,7 @@ import dataclasses
 
 import torch
 
-from .csr import CSRGraph
+from .csr import CSRGraph, block_rows, sharded_block_counts
 from .primitives import take_fill
 
 ESCAPE = 0xFFFF
@@ -62,6 +62,21 @@ class CompressedCSR:
         )
 
     @property
+    def uncompressed_bytes(self) -> int:
+        return int(self.deltas.numel() * 4)
+
+    @property
+    def compression_ratio(self) -> float:
+        return self.uncompressed_bytes / max(self.compressed_bytes, 1)
+
+    @property
+    def avg_degree(self) -> float:
+        return self.m / max(self.n, 1)
+
+    def out_degree(self, v):
+        return self.degrees[v]
+
+    @property
     def block_dst(self) -> torch.Tensor:
         """Decoded int32[NB, FB] targets (sentinel n on padding slots)."""
         return decode_blocks(self)
@@ -93,6 +108,55 @@ class CompressedCSR:
         """bool[NB*F_B] — real slots, read off ``valid_count`` (no decode)."""
         lane = torch.arange(self.block_size, device=self.device)
         return (lane[None, :] < _widen(self.valid_count)[:, None]).reshape(-1)
+
+    def shard(self, num_shards: int) -> list["CompressedCSR"]:
+        """Partition the compressed block set into ``num_shards`` contiguous
+        ranges of ``ceil(NB / num_shards)`` blocks, on the graph's device.
+
+        Compressed blocks decode independently, so a shard is a block-range
+        split of the delta stream plus its own exception list: each
+        exception goes to the shard that owns its block, its block id
+        rebased to that shard's range.  The lists are padded to the longest
+        across shards with rows of block id ``per`` (outside every shard),
+        which every decoder drops.  A non-dividing block count pads the tail
+        with empty blocks (valid count 0, owner n).  ``degrees``, ``n`` and
+        ``m`` stay global, and every shard carries the whole graph's
+        ``exception_dense`` verdict.  Rows inside the graph are views.
+        """
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        NB, n = self.num_blocks, self.n
+        per, _ = sharded_block_counts(NB, num_shards)
+        rows = {
+            "block_first": (self.block_first, 0),
+            "deltas": (self.deltas, 0),
+            "valid_count": (self.valid_count, 0),
+            "block_src": (self.block_src, n),
+        }
+        if self.block_weights is not None:
+            rows["block_weights"] = (self.block_weights, 0.0)
+        eb = self.exc_block.long()
+        owner = torch.div(eb, per, rounding_mode="floor")
+        counts = torch.bincount(owner, minlength=num_shards) if eb.numel() else None
+        ne_max = 0 if counts is None else int(counts.max())
+        hint = exception_dense(self)
+        shards = []
+        for s in range(num_shards):
+            lo, hi = s * per, (s + 1) * per
+            parts = {k: block_rows(a, lo, hi, fill) for k, (a, fill) in rows.items()}
+            sel = owner == s
+            k = int(counts[s]) if counts is not None else 0
+            exc = []
+            for arr, fill, shift in ((self.exc_block, per, lo), (self.exc_slot, 0, 0),
+                                     (self.exc_value, 0, 0)):
+                out = torch.full((ne_max,), fill, dtype=torch.int32, device=self.device)
+                out[:k] = arr[sel] - shift
+                exc.append(out)
+            shards.append(dataclasses.replace(
+                self, **parts, exc_block=exc[0], exc_slot=exc[1], exc_value=exc[2],
+                num_blocks=per, n_exceptions=ne_max, exception_dense_hint=hint,
+            ))
+        return shards
 
 
 def _widen(codes: torch.Tensor) -> torch.Tensor:
@@ -242,9 +306,11 @@ def edgemap_sum_compressed(c: CompressedCSR, x: torch.Tensor, *, edge_active=Non
     packed int32 words or a bool slot mask).  Unweighted, even on a weighted
     graph.  On the card it is one launch of the block SpMV kernel
     (``compressed_block_spmv``), the exception blocks patched exactly; the
-    CPU runs its plain version.  The sums keep ``x``'s dtype: int32 sums are
-    exact (the JAX package sums in float32)."""
+    CPU runs its plain version.  The sums are float32 whatever ``x``'s dtype:
+    an integer ``x`` is promoted first, as the reference package sums it."""
     # lazy import: kernels depend on core, never the other way around
     from ..kernels.compressed_spmv.ops import compressed_spmv_vertex
 
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
     return compressed_spmv_vertex(c, x, edge_active=edge_active, weighted=False)

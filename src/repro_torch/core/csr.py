@@ -67,6 +67,53 @@ class CSRGraph:
         """bool[NB*F_B] — True on real (non-padding) edge slots."""
         return self.edge_dst < self.n
 
+    @property
+    def avg_degree(self) -> float:
+        return self.m / max(self.n, 1)
+
+    def out_degree(self, v):
+        return self.degrees[v]
+
+    def shard(self, num_shards: int) -> list["CSRGraph"]:
+        """Partition the block set into ``num_shards`` contiguous ranges of
+        ``ceil(NB / num_shards)`` blocks, on the graph's device.
+
+        A non-dividing block count pads the tail with *empty* blocks (owner
+        = sentinel n, all targets n, zero weights), so every shard carries
+        the same block count and none is truncated.  Each shard keeps the
+        O(n) vertex arrays (``offsets``, ``block_offsets``, ``degrees``) and
+        the global ``n`` and ``m``: it is itself a valid backend over the
+        global vertex space.  Rows inside the graph are views of its arrays
+        (no copy); only a shard that reaches the padding is a new tensor.
+        """
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        NB, FB, n = self.num_blocks, self.block_size, self.n
+        per, _ = sharded_block_counts(NB, num_shards)
+        rows = {
+            "block_src": (self.block_src, n),
+            "edge_src": (self.edge_src.view(NB, FB), n),
+            "edge_dst": (self.edge_dst.view(NB, FB), n),
+            "edge_w": (self.edge_w.view(NB, FB), 0.0),
+        }
+        shards = []
+        for s in range(num_shards):
+            lo, hi = s * per, (s + 1) * per
+            parts = {k: block_rows(a, lo, hi, fill).reshape(-1) for k, (a, fill) in rows.items()}
+            shards.append(dataclasses.replace(self, **parts, num_blocks=per))
+        return shards
+
+
+def block_rows(a: torch.Tensor, lo: int, hi: int, fill) -> torch.Tensor:
+    """Rows ``lo..hi-1`` of the per-block array ``a`` (NB leading rows), the
+    rows past NB filled with ``fill``: a view when none is past NB."""
+    NB = a.shape[0]
+    if hi <= NB:
+        return a[lo:hi]
+    pad = torch.full((hi - max(lo, NB),) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                     device=a.device)
+    return torch.cat([a[min(lo, NB):NB], pad])
+
 
 def csr_host_arrays(
     n: int,

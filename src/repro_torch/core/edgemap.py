@@ -245,8 +245,6 @@ def edgemap_chunked(
 
 def _resolve_knobs(plan, mode, dense_frac, chunk_blocks, auto_sparse, batched):
     if plan is not None:
-        if plan.is_sharded:
-            raise NotImplementedError("sharded plans are not ported yet")
         mode = plan.resolve_mode(mode)
         if dense_frac is None:
             dense_frac = plan.dense_frac_batched if batched else plan.dense_frac
@@ -277,8 +275,18 @@ def edgemap_reduce(
 
     ``mode`` is ``'dense' | 'sparse' | 'sparse_streamed' | 'auto'``.  With
     ``plan`` (an ``ExecutionPlan``) the plan's strategy and knobs apply;
-    explicit ``mode`` / ``dense_frac`` / ``chunk_blocks`` arguments win.
+    explicit ``mode`` / ``dense_frac`` / ``chunk_blocks`` arguments win.  A
+    mesh plan runs the sharded executor (``core.plan``), which runs this
+    body on every shard of the plan-prepared ``ShardedGraph`` ``g``.
     """
+    if plan is not None and plan.is_sharded:
+        from .plan import sharded_edgemap_reduce
+
+        return sharded_edgemap_reduce(
+            plan, g, frontier_mask, x, monoid=monoid, map_fn=map_fn,
+            edge_active=edge_active, mode=mode, dense_frac=dense_frac,
+            chunk_blocks=chunk_blocks, auto_sparse=auto_sparse,
+        )
     mode, dense_frac, chunk_blocks, auto_sparse = _resolve_knobs(
         plan, mode, dense_frac, chunk_blocks, auto_sparse, batched=False
     )
@@ -289,6 +297,17 @@ def edgemap_reduce(
             "eager edgemap_reduce dispatches by resolved mode",
             labels=("mode",),
         ).inc(mode=mode)
+    return _edgemap_reduce_local(
+        g, frontier_mask, x, monoid=monoid, map_fn=map_fn, edge_active=edge_active,
+        mode=mode, dense_frac=dense_frac, chunk_blocks=chunk_blocks,
+        auto_sparse=auto_sparse,
+    )
+
+
+def _edgemap_reduce_local(g, frontier_mask, x, *, monoid, map_fn, mode, dense_frac,
+                          chunk_blocks, auto_sparse, edge_active=None):
+    """``edgemap_reduce``'s body on one device, its knobs resolved; the
+    sharded executor runs it on every shard."""
     dense = dict(monoid=monoid, map_fn=map_fn, edge_active=edge_active)
     if mode == "dense":
         return edgemap_dense(g, frontier_mask, x, **dense)
@@ -439,8 +458,17 @@ def edgemap_reduce_batched(
     per-lane chunk loops once the batch's mean lane density
     ``Σ sum_deg / (B·m)`` reaches it; the switch is taken on the host.
     Plans resolve the batched knobs (``dense_frac_batched``,
-    ``auto_sparse_batched``, ``batched_flavor_crossover``).
+    ``auto_sparse_batched``, ``batched_flavor_crossover``); a mesh plan runs
+    this body on every shard and combines the O(B·n) outputs.
     """
+    if plan is not None and plan.is_sharded:
+        from .plan import sharded_edgemap_reduce_batched
+
+        return sharded_edgemap_reduce_batched(
+            plan, g, frontier_masks, xb, monoid=monoid, map_fn=map_fn,
+            edge_active=edge_active, mode=mode, dense_frac=dense_frac,
+            chunk_blocks=chunk_blocks, auto_sparse=auto_sparse, map_lanes=map_lanes,
+        )
     mode, dense_frac, chunk_blocks, auto_sparse = _resolve_knobs(
         plan, mode, dense_frac, chunk_blocks, auto_sparse, batched=True
     )

@@ -27,6 +27,7 @@ import torch
 
 from ..tuning.defaults import DEFAULT_DENSE_RANGE_BLOCKS
 from .backend import dense_block_view
+from .csr import block_rows, sharded_block_counts
 from .primitives import compact_mask, segment_reduce
 
 WORD = 32
@@ -48,6 +49,21 @@ class GraphFilter:
     @property
     def block_live(self) -> torch.Tensor:
         return (self.bits != 0).any(dim=-1)
+
+    def shard(self, num_shards: int) -> list["GraphFilter"]:
+        """Partition the filter words alongside the edge blocks: the same
+        ``ceil(NB / num_shards)`` block-range split as ``CSRGraph.shard``,
+        the padded tail rows all zero (padding blocks carry no active edge).
+        ``active_deg`` and ``dirty`` stay replicated, like the graph's
+        ``degrees``, so shard s's words line up 1:1 with graph shard s."""
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        per, _ = sharded_block_counts(self.num_blocks, num_shards)
+        return [
+            dataclasses.replace(self, bits=block_rows(self.bits, s * per, (s + 1) * per, 0),
+                                num_blocks=per)
+            for s in range(num_shards)
+        ]
 
 
 def _shifts(device) -> torch.Tensor:

@@ -536,8 +536,10 @@ stream_round_kernel(const int32_t* __restrict__ block_src,
   // lane k < T: is block base + k live, i.e. does a query's frontier hold its owner
   const bool inb = lane < T && base + lane < NB;
   const int src = inb ? __ldg(block_src + base + lane) : 0;
+  // owner n: a shard's pad block (valid count 0), never live, frontier not read
+  const bool owned = inb && static_cast<uint32_t>(src) < static_cast<uint32_t>(n);
   bool any = false;
-  for (int q = 0; inb && q < B && !any; ++q) any = frontier[q * f_stride + src] != 0;
+  for (int q = 0; owned && q < B && !any; ++q) any = frontier[q * f_stride + src] != 0;
   uint32_t live = __ballot_sync(kFull, any);
   if (live == 0) return;  // a dead tile reads no edge byte
   int count = 0, first = 0, er = -1;

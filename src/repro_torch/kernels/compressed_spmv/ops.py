@@ -54,9 +54,18 @@ def _patch_rows(out: torch.Tensor, rows: torch.Tensor, values: torch.Tensor):
 
 
 def _unique_block_tile(c: CompressedCSR, bids: torch.Tensor) -> torch.Tensor:
-    """Exact decode of a block list that may repeat ids (the exception list)."""
+    """Exact decode of a block list that may repeat ids (the exception list);
+    ids outside ``[0, num_blocks)`` decode to all-sentinel rows."""
     ub, inv = torch.unique(bids.long(), return_inverse=True)
     return decode_block_tile(c, ub)[inv]
+
+
+def _exception_blocks(c: CompressedCSR) -> torch.Tensor:
+    """Each exception row's block id, with the rows outside ``[0,
+    num_blocks)`` (a shard's padded list carries ``num_blocks``) mapped to
+    ``num_blocks``: an index every scatter below drops."""
+    eb = c.exc_block.long()
+    return torch.where((eb >= 0) & (eb < c.num_blocks), eb, c.num_blocks)
 
 
 def _exception_block_sums(c: CompressedCSR, x, bits, weights=None, active=None):
@@ -82,7 +91,7 @@ def _per_block_sums(c: CompressedCSR, x, f, edge_active, tile_blocks, weighted=N
     )
     if c.n_exceptions:
         fixed = _exception_block_sums(c, x, bits, w, active)
-        per_block = _patch_rows(per_block, c.exc_block.long(), fixed)
+        per_block = _patch_rows(per_block, _exception_blocks(c), fixed)
     return per_block
 
 
@@ -134,7 +143,7 @@ def _exception_row_targets(c: CompressedCSR, active=None) -> torch.Tensor:
     from a correctly decoded one."""
     exact = _unique_block_tile(c, c.exc_block)
     if active is not None:
-        abits = unpack_word_bits(active[c.exc_block.long()])
+        abits = unpack_word_bits(take_fill(active, c.exc_block, 0))
         exact = torch.where(abits, exact, c.n)
     return exact
 
@@ -183,15 +192,19 @@ def compressed_stream_round_graph(
     ``exact_rows`` their ``_exception_row_targets(c, words)``, which a
     caller that has them passes.  Each exception block gets the index of its
     exact row (``exc_row``), so the kernel reads that row instead of its
-    decode, as ``compressed_chunked_stream_tile`` patches it."""
+    decode, as ``compressed_chunked_stream_tile`` patches it; every other
+    block, and every exception row whose block id lies outside the graph
+    (a shard's padding), leaves ``exc_row`` at -1."""
     exc_row = None
     if c.n_exceptions:
         if exact_rows is None:
             exact_rows = _exception_row_targets(c, words)
-        # all exact rows of one block are the same: any of them will do
-        exc_row = torch.full((c.num_blocks,), -1, dtype=torch.int32, device=c.device)
-        exc_row[c.exc_block.long()] = torch.arange(c.n_exceptions, dtype=torch.int32,
-                                                   device=c.device)
+        # all exact rows of one block are the same: any of them will do; the
+        # rows of no real block land on the dropped entry num_blocks
+        exc_row = torch.full((c.num_blocks + 1,), -1, dtype=torch.int32, device=c.device)
+        exc_row[_exception_blocks(c)] = torch.arange(c.n_exceptions, dtype=torch.int32,
+                                                     device=c.device)
+        exc_row = exc_row[: c.num_blocks]
     w = c.block_weights if c.weighted else None
     x = x if x.stride(-1) == 1 else x.contiguous()
     frontier = frontier if frontier.stride(-1) == 1 else frontier.contiguous()

@@ -136,7 +136,8 @@ def compressed_stream_round_ref(
     (n,) each, or (B, n) for a batch: for every block whose owner a query's
     frontier holds, every masked-in slot contributes ``map(x[owner], w)`` to
     ``out[dst]`` (min, identity ``INF_I32``) and sets ``touched[dst]``.  A
-    block with ``exc_row >= 0`` takes its targets from that exact row.
+    block with ``exc_row >= 0`` takes its targets from that exact row; a
+    block owned by the sentinel ``n`` (a shard's padding) is never live.
     Walks every block, one range at a time, and masks the dead ones."""
     batched = x.dim() == 2
     xb, fb = (x, frontier) if batched else (x[None], frontier[None])
@@ -153,8 +154,10 @@ def compressed_stream_round_ref(
             r = exc_row[ids].long()
             dst = torch.where((r >= 0)[:, None], exact_rows[r.clamp(min=0)], dst)
         src = block_src[ids].long()
+        owned = src < n                     # owner n: a shard's pad block, never live
+        src = torch.where(owned, src, 0)
         valid = (dst >= 0) & (dst < n)
-        act = fb[:, src][:, :, None] & valid[None]                     # (B, R, FB)
+        act = (fb[:, src] & owned)[:, :, None] & valid[None]          # (B, R, FB)
         xs = xb[:, src][:, :, None].expand(act.shape)
         vals = round_map(map_kind, xs, w[None])
         if map_lanes is not None:

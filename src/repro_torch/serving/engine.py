@@ -6,7 +6,7 @@ read-only large memory, every query's mutable state is O(n) words.  The
 
     submit() ──► per-(op, params) buckets ──► pad to power-of-two B
                                                      │
-                 callable cache keyed (backend,       ▼
+                 callable cache keyed (backend, mesh, ▼
                  tuning_key, op, B, scalars) ◄── flush()
                  batched algorithm (bfs_batched, …): each round reads every
                  live edge block ONCE and applies it to all B query columns
@@ -21,10 +21,13 @@ read-only large memory, every query's mutable state is O(n) words.  The
   Batched ops are bit-identical per query, so padding never perturbs a
   real lane.
 * **Callable cache** — PyTorch runs eagerly, so there is nothing to trace;
-  the cache holds one bound callable per ``(backend, tuning_key, op, B,
-  scalars)`` key and ``trace_counts`` counts its misses, the counterpart
+  the cache holds one bound callable per ``(backend, mesh, tuning_key, op,
+  B, scalars)`` key and ``trace_counts`` counts its misses, the counterpart
   of the JAX engine's retrace count.  The plan's ``tuning_key`` carries the
   kernel route, so one cache never mixes the CUDA and the plain routes.
+* **Sharding** — a mesh plan prepares the graph once (``plan.prepare``):
+  every batch runs the sharded executor, and the PSAM account charges the
+  plan's shards (padding blocks and the O(B·n) combine per shard boundary).
 """
 from __future__ import annotations
 
@@ -151,8 +154,6 @@ class QueryEngine:
     """
 
     def __init__(self, g, *, plan=None, max_batch: int | None = None, registry=None):
-        if plan is not None and plan.is_sharded:
-            raise NotImplementedError("sharded plans are not ported yet")
         self.graph = g
         self.plan = plan
         self.registry = registry if registry is not None else get_registry()
@@ -201,6 +202,10 @@ class QueryEngine:
         self.trace_counts: dict[tuple, int] = {}
         self.stats = {"submitted": 0, "served": 0, "batches": 0, "lanes": 0, "padded": 0}
         self._next_id = 0
+        if plan is not None and plan.is_sharded:
+            self._mesh_key = tuple(zip(plan.mesh.axis_names, plan.mesh.shape))
+        else:
+            self._mesh_key = None
         self._backend_key = type(g).__name__
         self._tuning_key = plan.tuning_key if plan is not None else None
 
@@ -293,9 +298,9 @@ class QueryEngine:
         return {QueryHandle(hid, op): spec.unbatch(res, i) for i, (hid, _) in enumerate(chunk)}
 
     def _compiled_fn(self, op, scalars, B, spec):
-        """Fetch or bind the callable for one ``(backend, tuning_key, op, B,
-        scalars)`` key; a miss bumps ``trace_counts[key]``."""
-        key = (self._backend_key, self._tuning_key, op, B, scalars)
+        """Fetch or bind the callable for one ``(backend, mesh, tuning_key,
+        op, B, scalars)`` key; a miss bumps ``trace_counts[key]``."""
+        key = (self._backend_key, self._mesh_key, self._tuning_key, op, B, scalars)
         fn = self._compiled.get(key)
         if fn is not None:
             self._m_cache_hits.inc(cache="engine")
@@ -329,12 +334,14 @@ class QueryEngine:
     def _charge(self, B: int, sweeps: int, op: str = "", scalars: tuple = ()):
         """PSAM model of one drained batch: ``sweeps`` rounds, each reading
         the edge blocks once for all B lanes — or, on a certified streamed
-        BFS drain, the ``min(B, sweeps) · NB / sweeps`` live share."""
+        BFS drain, the ``min(B, sweeps) · NB / sweeps`` live share — over
+        the plan's shards."""
+        shards = self.plan.num_shards if self._mesh_key is not None else 1
         sweeps = max(sweeps, 1)
         if self._streamed_accounting(op, scalars):
             live = -(-self.graph.num_blocks * min(B, sweeps) // sweeps)
             for _ in range(sweeps):
-                self.cost.charge_edgemap_sparse(self.graph, live, batch=B)
+                self.cost.charge_edgemap_sparse(self.graph, live, batch=B, num_shards=shards)
             return
         for _ in range(sweeps):
-            self.cost.charge_edgemap_batched(self.graph, B)
+            self.cost.charge_edgemap_batched(self.graph, B, num_shards=shards)

@@ -412,6 +412,7 @@ class ServingService:
         ops = [t.op for t in tickets] + ["bfs"] * (B - k)
         srcs = [int(t.params["src"]) for t in tickets] + [-1] * (B - k)
         state, weighted = traversal_cohort_init(self.engine.graph, ops, srcs)
+        shards = self.plan.num_shards if self.engine._mesh_key is not None else 1
         done: list[ServingTicket] = []
         while True:
             fn = self._cohort_fn(B, weighted)
@@ -424,7 +425,8 @@ class ServingService:
             # (activity is prefix-monotone: round r's lanes have lane_rounds > r)
             for r in range(rounds_exec):
                 act = np.flatnonzero(lane_rounds > r)
-                self.engine.cost.charge_edgemap_batched(self.engine.graph, B)
+                self.engine.cost.charge_edgemap_batched(self.engine.graph, B,
+                                                        num_shards=shards)
                 share = self._round_words / len(act)
                 for i in act:
                     lane_tickets[i].words += share
@@ -469,11 +471,11 @@ class ServingService:
         """Fetch or bind the cohort step for one lane layout.
 
         Keyed as the JAX service keys it: (backend, mesh, B, weighted lane
-        pattern, quantum, mode), the mesh always None on one device; a miss
-        bumps ``trace_counts[key]``."""
+        pattern, quantum, mode), the mesh None on one device; a miss bumps
+        ``trace_counts[key]``."""
         key = (
             self.engine._backend_key,
-            None,  # the mesh: one device
+            self.engine._mesh_key,
             B,
             weighted,
             self.config.round_quantum,

@@ -18,6 +18,7 @@ CLI: ``python -m repro_torch.tuning --out build/table.json``.
 from .defaults import (
     DEFAULT_CHUNK_BLOCKS,
     DEFAULT_DENSE_FRAC,
+    DEFAULT_EST_ROUNDS,
     DEFAULT_MAX_BATCH,
     DEFAULT_TILE_BLOCKS,
     HBM_BYTES_PER_S,

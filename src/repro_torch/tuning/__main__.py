@@ -1,4 +1,4 @@
-"""CLI: ``python -m repro_torch.tuning [--quick] [--out PATH] [--device DEV]``.
+"""CLI: ``python -m repro_torch.tuning [--quick] [--shards] [--out PATH] [--device DEV]``.
 
 Runs :func:`repro_torch.tuning.calibrate` on the card (or the device named)
 and writes the resulting TuningTable JSON.  ``--default`` writes the
@@ -25,6 +25,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3, help="timing repetitions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--shards", action="store_true",
+                    help="include the shard-count sweep (distinct devices only)")
     ap.add_argument(
         "--default",
         action="store_true",
@@ -35,7 +37,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     table = calibrate(
         n=args.n, m=args.m, quick=args.quick, seed=args.seed, reps=args.reps,
-        device=args.device,
+        device=args.device, shards=args.shards,
     )
     table.to_dict()["created"] = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
     out = _DEFAULT_PATH if args.default else args.out

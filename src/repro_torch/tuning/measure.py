@@ -318,6 +318,32 @@ def _backend_entry(g, *, quick: bool, seed: int, reps: int, tile: bool) -> dict:
     return entry
 
 
+def _shard_sweep(g, *, reps: int) -> list[dict]:
+    """Round times per shard count, on meshes of distinct devices only: the
+    counts run to the number of devices of ``g``'s kind (CUDA devices on the
+    card, one on the CPU), so a one-device host returns ``[]``."""
+    from ..core import edgemap_reduce, make_mesh, make_plan
+
+    dev = g.device
+    nd = torch.cuda.device_count() if dev.type == "cuda" else 1
+    counts = [s for s in (1, 2, 4, 8) if s <= nd]
+    if counts == [1]:
+        return []
+    x0 = torch.arange(g.n, dtype=torch.float32, device=dev)
+    mask = torch.from_numpy(_frontier_for_fraction(g, 0.2, 0)).to(dev)
+    rows = []
+    for s in counts:
+        devices = [torch.device("cuda", i) for i in range(s)]
+        plan = make_plan(g, mesh=make_mesh((s,), ("data",), devices=devices))
+        gs = plan.prepare(g)
+
+        def fn(mask, x, gs=gs, plan=plan):
+            return edgemap_reduce(gs, mask, x, monoid="min", plan=plan)
+
+        rows.append({"shards": int(s), "us": _time_us(fn, mask, x0, reps=reps)})
+    return rows
+
+
 def calibrate(
     *,
     n: int = 2048,
@@ -335,13 +361,9 @@ def calibrate(
     ``quick`` shrinks the grids (3 density points, 2 chunk candidates,
     3 batch widths, no tile sweep); full mode adds the tile sweep, which
     launches the whole-graph compressed kernel on the card.  ``shards``
-    (the shard-count sweep) waits for the sharding slice of the port.
+    adds the shard-count sweep (``shard_sweep``), which times meshes of
+    distinct devices only and so is empty on a one-device host.
     """
-    if shards:
-        raise NotImplementedError(
-            "the shard sweep needs sharded plans, which come with the sharding "
-            "slice of the port (ROADMAP.md, queue 6)"
-        )
     from ..core import compress
     from ..data.rmat import rmat_graph
 
@@ -361,4 +383,6 @@ def calibrate(
                                          tile=not quick),
         },
     }
+    if shards:
+        data["shard_sweep"] = _shard_sweep(g, reps=reps)
     return TuningTable.from_dict(data)

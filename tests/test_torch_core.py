@@ -6,8 +6,8 @@ Inputs are made with numpy from a seed and go through the JAX package and
 the port on the CPU.  The primitives and the PSAM words (fields and the
 mirrored ``sage_psam_*_words_total`` counters) must equal JAX's exactly;
 ``edgemap_sum_compressed`` within ``SUM_RTOL`` / ``SUM_ATOL`` for float32 x
-(per-block sums in another order) and exactly for int32 x (JAX sums those in
-float32, exact at these sizes).
+(per-block sums in another order) and exactly for int32 x (both packages
+promote it and sum in float32, exact at these sizes).
 """
 import contextlib
 import importlib.util
@@ -249,9 +249,11 @@ def test_edgemap_sum_compressed_matches_jax(graph, dtype, filtered):
         None if active is None else jnp.asarray(active))))
     got = edgemap_sum_compressed(c, torch.from_numpy(x), edge_active=(
         None if active is None else torch.from_numpy(active)))
-    assert got.dtype == torch.from_numpy(x).dtype and tuple(got.shape) == (c.n,)
+    # an int32 x is promoted: float32 sums, as the JAX package's
+    assert got.dtype == torch.float32 and to_np(got).dtype == want.dtype
+    assert tuple(got.shape) == (c.n,)
     if dtype == np.int32:
-        np.testing.assert_array_equal(to_np(got).astype(np.float32), want)
+        np.testing.assert_array_equal(to_np(got), want)
     else:
         np.testing.assert_allclose(to_np(got), want, rtol=SUM_RTOL, atol=SUM_ATOL)
     # unweighted even on a weighted graph: the degree (or the active count) for x = 1

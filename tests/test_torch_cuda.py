@@ -306,6 +306,146 @@ def test_stream_round_rejects_bad_operands(cuda):
     assert compressed_stream_round.launches == before
 
 
+def _padded_shards(fb, weighted):
+    """The exception graph's shards at k = 2, 3 and 4: lists padded with
+    block id ``per`` and, where k does not divide NB, pad blocks owned by
+    the sentinel ``n`` with valid count 0."""
+    c = _exception_graph(fb, weighted)
+    out = [(k, c, c.shard(k)) for k in (2, 3, 4)]
+    assert any(bool((s.exc_block == s.num_blocks).any()) for _, _, shards in out
+               for s in shards)
+    assert any(c.num_blocks % k for k, _, _ in out)
+    return out
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_stream_round_on_padded_shards_matches_plain(cuda, fb, weighted):
+    """The fused round on each shard (padded exception lists, pad blocks of
+    owner n) against its plain version bit for bit, one launch a shard, and
+    the shards' min-combined rounds equal the whole graph's."""
+    rng = np.random.default_rng(fb * 3 + weighted)
+    for k, c, shards in _padded_shards(fb, weighted):
+        for B in (None, 8):
+            frontier, x, lanes = _round_inputs(c, "all live", B, rng)
+            frontier = frontier & torch.from_numpy(rng.random(frontier.shape) < 0.5)
+            for map_kind in ("identity", "sat_add_i32"):
+                whole = compressed_stream_round_graph(c, frontier, x, None, map_kind=map_kind,
+                                                      map_lanes=lanes)
+                outs, hits = [], []
+                for s in shards:
+                    want = compressed_stream_round_graph(s, frontier, x, None,
+                                                         map_kind=map_kind, map_lanes=lanes)
+                    before = compressed_stream_round.launches
+                    got = compressed_stream_round_graph(
+                        _to(s, cuda), frontier.to(cuda), x.to(cuda), None,
+                        map_kind=map_kind, map_lanes=None if lanes is None else lanes.to(cuda))
+                    torch.cuda.synchronize()
+                    assert compressed_stream_round.launches == before + 1
+                    assert torch.equal(got[0].cpu(), want[0]), (k, B, map_kind)
+                    assert torch.equal(got[1].cpu(), want[1]), (k, B, map_kind)
+                    outs.append(got[0].cpu())
+                    hits.append(got[1].cpu())
+                assert torch.equal(torch.stack(outs).min(dim=0).values, whole[0])
+                assert torch.equal(torch.stack(hits).any(dim=0), whole[1])
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+def test_chunk_decode_on_padded_shards_matches_plain(cuda, fb):
+    """Kernel 1's decode entry on each shard's chunks (real ids, pad blocks
+    and the fill id), exception rows patched, against its plain version;
+    and an untagged min round (the chunk loop) on a (2,) and a (4,) mesh of
+    the card, equal to the whole graph's CPU route."""
+    from repro_torch.core import edgemap_reduce, make_mesh
+    from repro_torch.kernels.compressed_spmv.ops import compressed_chunked_stream_tile
+
+    rng = np.random.default_rng(fb)
+    for k, c, shards in _padded_shards(fb, True):
+        for s in shards:
+            ids = torch.from_numpy(rng.permutation(s.num_blocks)[:64].astype(np.int64))
+            ids = torch.cat([ids, torch.tensor([s.num_blocks, s.num_blocks])])
+            active = torch.from_numpy(rng.random(s.num_blocks * fb) < 0.7)
+            for words in (None, edge_active_words(active, fb)):
+                want = compressed_chunked_stream_tile(s, ids, words)
+                before = compressed_chunked_spmv.launches
+                got = compressed_chunked_stream_tile(
+                    _to(s, cuda), ids.to(cuda), None if words is None else words.to(cuda))
+                torch.cuda.synchronize()
+                assert compressed_chunked_spmv.launches == before + 1
+                assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    c = _exception_graph(fb, True)
+    gc = _to(c, cuda)
+    frontier, x, _ = _round_inputs(c, "all live", None, rng)
+
+    def untagged(xs, w):
+        return _relax(xs, w)
+
+    want = edgemap_reduce(c, frontier, x, monoid="min", map_fn=untagged, mode="sparse")
+    for shape in ((2,), (4,)):
+        plan = make_plan(gc, mesh=make_mesh(shape, ("data",)), strategy="sparse_streamed")
+        before = (compressed_stream_round.launches, compressed_chunked_spmv.launches)
+        got = edgemap_reduce(plan.prepare(gc), frontier.to(cuda), x.to(cuda), monoid="min",
+                             map_fn=untagged, plan=plan)
+        assert compressed_stream_round.launches == before[0]
+        assert compressed_chunked_spmv.launches >= before[1] + shape[0]
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_sharded_traversals_match_single_device(cuda):
+    """BFS and wBFS (single and batched) on (2,) and (4,) meshes of the card,
+    sparse_streamed: k fused launches a round, results equal to the
+    single-device card run bit for bit."""
+    from repro_torch.core import make_mesh
+
+    c = _exception_graph(64, True)
+    gc = _to(c, cuda)
+    single = make_plan(gc, strategy="sparse_streamed")
+    p1, l1 = bfs(gc, 3, plan=single)
+    d1 = wbfs(gc, 3, plan=single)
+    db = wbfs_batched(gc, [3, 5, 9], plan=single)
+    rounds = int(l1.max()) + 1
+    for k in (2, 4):
+        plan = make_plan(gc, mesh=make_mesh((k,), ("data",)), strategy="sparse_streamed")
+        gs = plan.prepare(gc)
+        before = compressed_stream_round.launches
+        p, l = bfs(gs, 3, plan=plan)
+        assert compressed_stream_round.launches == before + k * rounds
+        assert torch.equal(p, p1) and torch.equal(l, l1)
+        assert torch.equal(wbfs(gs, 3, plan=plan), d1)
+        assert torch.equal(wbfs_batched(gs, [3, 5, 9], plan=plan), db)
+
+
+@pytest.mark.parametrize("fb", [32, 64, 128])
+def test_filter_pack_on_a_shards_filter_rows(cuda, fb):
+    """Kernel 4 on each shard of a filter (zero pad rows at the tail) equals
+    its plain version, and set cover on a (2,) mesh of the card equals the
+    single-device card run, kernel 4 launched once a round and once up
+    front."""
+    from repro_torch.algorithms import set_cover
+    from repro_torch.core import make_mesh
+
+    c = _graph(fb, False, n=1000, m=6000, seed=fb)
+    rng = np.random.default_rng(fb)
+    f = make_filter(c)
+    for k in (2, 3, 4):
+        for s in f.shard(k):
+            keep = torch.from_numpy(rng.random((s.num_blocks, fb)) < 0.6)
+            sub = torch.from_numpy(rng.random(s.num_blocks) < 0.7)
+            want = filter_pack_ref(s.bits, keep, sub)
+            got = filter_pack_words(s.bits.to(cuda), keep.to(cuda), sub.to(cuda))
+            torch.cuda.synchronize()
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    gc = _to(c, cuda)
+    sets = torch.arange(c.n, device=cuda) % 2 == 0
+    pri = torch.randperm(c.n, generator=torch.Generator().manual_seed(fb)).to(torch.int32)
+    want = set_cover(gc, sets, priorities=pri.to(cuda))
+    plan = make_plan(gc, mesh=make_mesh((2,), ("data",)))
+    before = filter_pack_words.launches
+    got = set_cover(gc, sets, priorities=pri.to(cuda), plan=plan)
+    assert filter_pack_words.launches > before
+    assert torch.equal(got, want)
+
+
 def _assert_sums(got, want, exact):
     torch.cuda.synchronize()
     if exact:

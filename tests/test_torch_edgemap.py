@@ -145,7 +145,8 @@ def test_plan_routes_and_keys():
     want, _ = jreduce(jg, jnp.asarray(frontier), jnp.asarray(ids), plan=jplan)
     got, _ = edgemap_reduce(g, torch.from_numpy(frontier), torch.from_numpy(ids), plan=plan)
     np.testing.assert_array_equal(to_np(got), np.asarray(want))
-    with pytest.raises(NotImplementedError):
+    # a mesh is a ShardMesh (core.mesh.make_mesh); anything else is refused
+    with pytest.raises(TypeError, match="ShardMesh"):
         make_plan(g, mesh=object())
 
 

@@ -262,8 +262,10 @@ def test_calibrate_on_the_cpu_route():
         e = t.to_dict()["backends"][backend]
         assert len(e["density_sweep"]) == 3 and "tile_sweep" not in e
         assert "lowering" not in e and e["max_batch"] in (1, 4, 8)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        calibrate(n=64, m=128, quick=True, block_size=32, device=CPU, shards=True)
+    # the shard sweep times meshes of distinct devices only: none on one CPU,
+    # as the JAX package's sweep returns [] on one device
+    t = calibrate(n=64, m=128, quick=True, block_size=32, device=CPU, shards=True)
+    assert t.to_dict()["shard_sweep"] == []
 
 
 def test_engine_max_batch_sized_from_table():
