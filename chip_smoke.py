@@ -18,7 +18,10 @@ item lookup through the EmbeddingBag kernel); connectivity, personalized
 PageRank and the ServingService tier; the rest of Table 1 (Bellman-Ford,
 widest path, betweenness, spanning forest, spanner, biconnectivity) and
 the unweighted compressed sum over kernel 2; sharded execution (the shard
-split, the sharded executor, the round loop) on meshes of the one card.
+split, the sharded executor, the round loop) on meshes of the one card;
+mutable graphs (the delta overlay, compaction, checkpoints, the service's
+edit path) and the observability layer (trace sessions, the round-loop
+observer, the metric dump).
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -198,13 +201,38 @@ split, the sharded executor, the round loop) on meshes of the one card.
    sequentially) gives BFS and wBFS on graph B (4,) bit for bit, 4 fused
    launches a round; graph A's shards join the SHA-256 check; the phase's
    peak device memory.
+15. Mutable graphs and observability: (a) graph A (the full configuration)
+   under a ``DeltaOverlay``: a 4,096-edit script from the seed (inserts of
+   absent edges, deletes of present ones, re-inserts at the old and at a new
+   weight, self-loops, deletes of absent edges), ``live_edges()`` equal to an
+   independent numpy reference, 4 BFS and 4 wBFS through the engine over the
+   ``DeltaGraph`` and over ``compact(overlay)`` bit for bit equal (no kernel
+   launch), PageRank (10 iterations) within atol 1e-6, the compaction's words
+   the only large-memory write, the base unchanged (SHA-256); (b) a mutable
+   ``ServingService`` over ``DeltaOverlay(compress(B))`` under a
+   ``sparse_streamed`` plan: phase 12(d)'s 48 requests with 512 edits from
+   two tenants, an ``OverlayTrigger`` that fires, a final ``force_compact``,
+   checkpoints under ``build/phase15``: ``load_compacted`` equals the served
+   base, BFS and wBFS equal a graph built from scratch from ``live_edges()``,
+   kernel 1 launched 0 times over a ``DeltaGraph``; (c) the same kind of
+   stream on graph E on the card and on the CPU route: tickets, ``stats``,
+   ledgers, compactions and checkpoint arrays equal; (d) late in this
+   process, ``trace_session`` over a ``sparse_streamed`` BFS and a service
+   flush on graph B: one ``sage.round`` span a round, every fused launch a
+   ``stream_round_kernel`` event or a launch the session counts as lost,
+   ``sage_round_loop_rounds`` holding the BFS's rounds, the BFS under
+   ``noop_registry()`` bit for bit equal, 8 more traced sessions' losses,
+   the BFS's wall with a live registry and under ``noop_registry()`` in
+   turns; the same traced session as a fresh process's first, with as many
+   ``stream_round_kernel`` events as fused launches and none lost; ``python
+   -m repro_torch.obs.dump`` in a subprocess on the card.
 8. Last, the graph tensors of A, B and E, compressed and CSR, and graph A's
    shards are unchanged (SHA-256 before and after every phase).
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
-phases 4-5, 12, 13 and 14 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
+phases 4-5, 12, 13, 14 and 15 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
 phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phase 10(c) and (d) for
 kernel 6, phase 11(c) and (d) for kernel 5.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
@@ -218,6 +246,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -2766,6 +2795,473 @@ def drive_sharding(dev, A_, B_, E_, srcs, reqs, phase5_qps):
     return decode, fused, packs, gsA
 
 
+# ----------------------------------------------------------------------
+# phase 15: mutable graphs and the observability layer
+# ----------------------------------------------------------------------
+EDITS_A = 4096            # phase 15(a): the edit script over graph A
+MUT_EDITS = 512           # phase 15(b): edits in graph B's mutable service stream
+MUT_E = (24, 128)         # phase 15(c): requests and edits of graph E's stream
+MUT_SOURCES = 4           # BFS / wBFS sources over a DeltaGraph and its compaction
+MUT_CHUNK = 16384         # a mutable plan's chunk: a DeltaGraph streams no block, so a
+                          # sparse_streamed round is the plain chunk loop, lane by lane
+MUT_SWEEPS = 30           # the service trigger's hysteresis: compact after ~30 sweeps
+
+
+def base_edges(csr):
+    """(keys ``src * n + dst``, float32 weights) of a host CSR's real slots,
+    in slot order (= key order): the independent reference's base set."""
+    import numpy as np
+
+    src, dst = csr.edge_src.numpy(), csr.edge_dst.numpy()
+    ok = dst < csr.n
+    return src[ok].astype(np.int64) * csr.n + dst[ok], csr.edge_w.numpy()[ok]
+
+
+def edit_script(keys, w, n, count, seed):
+    """``count`` edits cycling through: an insert of an absent edge, a delete
+    of a present one, its re-insert at the old weight, another delete, its
+    re-insert at a new weight, a self-loop, a delete of an absent edge, an
+    insert of an absent edge.  Integer weights in [1, 20)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out, deleted = [], []
+    for i in range(count):
+        kind = i % 8
+        if kind in (0, 7):
+            u, v = (int(x) for x in rng.integers(0, n, 2))
+            out.append(("insert", u, v, float(rng.integers(1, 20))))
+        elif kind in (1, 3):
+            j = int(rng.integers(0, keys.size))
+            deleted.append((int(keys[j]), float(w[j])))
+            out.append(("delete", int(keys[j]) // n, int(keys[j]) % n))
+        elif kind in (2, 4):
+            k, w0 = deleted.pop()
+            out.append(("insert", k // n, k % n, w0 if kind == 2 else float(int(w0) % 19 + 1)))
+        elif kind == 5:
+            u = int(rng.integers(0, n))
+            out.append(("insert", u, u, 1.0))
+        else:
+            u, v = (int(x) for x in rng.integers(0, n, 2))
+            out.append(("delete", u, v))
+    return out
+
+
+def reference_live(keys, w, n, script):
+    """The live edge set after ``script``, computed without the overlay: the
+    script's last word on each edge it names (a float32 weight, or deleted)
+    over the base set.  Returns (sorted keys, their float32 weights)."""
+    import numpy as np
+
+    last = {}
+    for e in script:
+        u, v = int(e[1]), int(e[2])
+        if e[0] == "delete":
+            last[u * n + v] = None
+        elif u != v:
+            last[u * n + v] = float(np.float32(e[3]))
+    named = np.array(sorted(last), np.int64)
+    keep = ~np.isin(keys, named)
+    add = [(k, x) for k, x in last.items() if x is not None]
+    k = np.concatenate([keys[keep], np.array([a for a, _ in add], np.int64)])
+    x = np.concatenate([w[keep], np.array([b for _, b in add], np.float32)])
+    order = np.argsort(k, kind="stable")
+    return k[order], x[order].astype(np.float32)
+
+
+def live_keyed(ov):
+    """An overlay's ``live_edges()`` as (sorted keys, float32 weights)."""
+    import numpy as np
+
+    src, dst, w = ov.live_edges()
+    k = src.astype(np.int64) * ov.n + dst
+    order = np.argsort(k, kind="stable")
+    return k[order], w[order].astype(np.float32)
+
+
+def mutable_stream(svc, srcs, script, *, ppr=SERVICE_PPR):
+    """Phase 15(b)/(c)'s virtual-time stream: request i (BFS, wBFS, BFS, PPR
+    in turn, as phase 12(d)) arrives with its share of ``script``'s edits,
+    from tenants ``ed_a`` and ``ed_b`` in turn; the first 8 at time 0, then
+    0.01 apart, a tick after each; a drain at the end.  Returns (tickets,
+    admitted edits)."""
+    import numpy as np
+
+    ops = ("bfs", "wbfs", "bfs", "ppr")
+    tickets, admitted = [], 0
+    for i, (s, idx) in enumerate(zip(srcs, np.array_split(np.arange(len(script)), len(srcs)))):
+        now = 0.0 if i < 8 else 0.01 * (i - 7)
+        for j in idx:
+            e = script[j]
+            admitted += svc.submit_edit(e[0], e[1], e[2], *e[3:], tenant=("ed_a", "ed_b")[j % 2],
+                                        now=now)
+        op = ops[i % 4]
+        params = dict(ppr) if op == "ppr" else {}
+        tickets.append(svc.submit(op, src=s, tenant="open", now=now, **params))
+        svc.tick(now)
+    svc.drain(0.01 * max(len(srcs) - 7, 1))
+    return tickets, admitted
+
+
+def same_checkpoints(a, b, what):
+    """Two checkpoint directories hold the same steps, leaf for leaf."""
+    import numpy as np
+
+    check(sorted(p.name for p in a.iterdir()) == sorted(p.name for p in b.iterdir()),
+          f"{what}: the checkpoint steps differ")
+    for step in sorted(p.name for p in a.iterdir()):
+        with np.load(a / step / "arrays.npz") as x, np.load(b / step / "arrays.npz") as y:
+            check(sorted(x.files) == sorted(y.files), f"{what}: {step} leaves differ")
+            for f in x.files:
+                check(x[f].dtype == y[f].dtype and np.array_equal(x[f], y[f]),
+                      f"{what}: {step} {f} differs")
+
+
+def same_compressed(a, b, what):
+    """Two compressed graphs equal field for field (tensors read back)."""
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            check(x is not None and y is not None and x.dtype == y.dtype
+                  and torch.equal(x.cpu(), y.cpu()), f"{what}: {f.name} differs")
+        elif f.name != "exception_dense_hint":
+            check(x == y, f"{what}: {f.name} {x!r} != {y!r}")
+
+
+def trigger_for(dg, sweeps):
+    """An OverlayTrigger whose hysteresis makes ``dg``'s overlay words pay for
+    its compaction after ``sweeps`` sweeps (constants' cost scale)."""
+    from repro_torch.tuning import OverlayTrigger
+
+    hyst = dg.overlay_small_words * sweeps / (4.0 * dg.compact_write_words)
+    return OverlayTrigger(hysteresis=hyst)
+
+
+def drive_mutable(dev, A_, B_, E_, graph_b=GRAPH_B):
+    """Phase 15: mutable graphs (the delta overlay, compaction, checkpoints,
+    the service's edit path) and the observability layer, on the card.
+    Returns kernel 1's fused launches on its paths ((d)'s BFS and flush)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import bfs, pagerank, wbfs
+    from repro_torch.core import build_csr, compress, make_plan
+    from repro_torch.delta import DeltaOverlay, compact, compact_write_words, load_compacted
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
+    from repro_torch.obs import noop_registry
+    from repro_torch.serving import QueryEngine, ServiceConfig, ServingService
+
+    on_card = dev.type == "cuda"   # the CPU route (a rehearsal) launches nothing
+    work = ROOT / "build" / "phase15"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    def k1():
+        return compressed_chunked_spmv.launches, compressed_stream_round.launches
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - ts
+
+    # (a) graph A: the overlay, an edit script, queries, compaction
+    gA = A_.dev
+    digest_a = graph_digest(gA)
+    keys_a, w_a = base_edges(A_.host_csr)
+    ov, t_ov = timed(lambda: DeltaOverlay(gA))
+    script = edit_script(keys_a, w_a, gA.n, EDITS_A, SEED + 15)
+    changed, t_apply = timed(lambda: ov.apply(script))
+    dg, t_snap = timed(ov.snapshot)
+    got_k, got_w = live_keyed(ov)
+    want_k, want_w = reference_live(keys_a, w_a, gA.n, script)
+    check(np.array_equal(got_k, want_k) and np.array_equal(got_w, want_w),
+          "graph A: live_edges() differs from the numpy reference edge set")
+    check(dg.m == want_k.size and dg.device == gA.device, "graph A snapshot: m or device")
+    log(f"[15] graph A DeltaOverlay: {t_ov:.3f} s host wall over {keys_a.size} edges; "
+        f"{EDITS_A} edits ({changed} changed the edge set) in {t_apply:.3f} s = "
+        f"{EDITS_A / t_apply:.0f} edits/s; {ov.num_patch_edges} patch edges, "
+        f"{ov.num_tombstones} tombstones; snapshot {t_snap * 1e3:.1f} ms ({dg.num_patch_blocks} "
+        f"patch blocks); live_edges() equals the numpy reference ({want_k.size} edges)")
+    srcs = sources(gA, MUT_SOURCES, SEED + 16)
+    reqs = [("bfs", {"src": s}) for s in srcs] + [("wbfs", {"src": s}) for s in srcs]
+    eng = QueryEngine(dg, max_batch=MUT_SOURCES, registry=noop_registry())
+    b0 = k1()
+    got, t_q_dg = timed(lambda: eng.serve(reqs))
+    check(k1() == b0, f"graph A DeltaGraph queries launched kernel 1: {k1()} vs {b0}")
+    pr_dg, t_pr_dg = timed(lambda: pagerank(dg, eps=0.0, max_iters=PR_ITERS)[0])
+    check(eng.cost.large_writes == 0, "graph A: a query over the overlay wrote large memory")
+    c, t_compact = timed(lambda: compact(ov, cost=eng.cost, registry=noop_registry()))
+    words = compact_write_words(c)
+    check(eng.cost.large_writes == words,
+          f"graph A: large_writes {eng.cost.large_writes} != the compaction's {words}")
+    eng_c = QueryEngine(c, max_batch=MUT_SOURCES, registry=noop_registry())
+    want, t_q_c = timed(lambda: eng_c.serve(reqs))
+    check(eng_c.cost.large_writes == 0, "graph A: a query over the compacted base wrote")
+    for (op, p), a, b in zip(reqs, got, want):
+        same = (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])) if op == "bfs" \
+            else torch.equal(a, b)
+        check(same, f"graph A {op} from {p['src']}: the DeltaGraph and its compaction differ")
+    pr_c, t_pr_c = timed(lambda: pagerank(c, eps=0.0, max_iters=PR_ITERS)[0])
+    pr_err = float((pr_dg - pr_c).abs().max())
+    check(pr_err <= PR_ATOL, f"graph A PageRank: the DeltaGraph and its compaction differ "
+          f"by {pr_err}")
+    check(c.m == dg.m and graph_digest(gA) == digest_a, "graph A's base tensors changed")
+    log(f"[15] graph A {MUT_SOURCES} BFS + {MUT_SOURCES} wBFS through the engine: DeltaGraph "
+        f"{t_q_dg:.3f} s, compacted {t_q_c:.3f} s, equal bit for bit, no kernel launch; "
+        f"PageRank {PR_ITERS} iterations {t_pr_dg:.3f} s / {t_pr_c:.3f} s, max|diff| "
+        f"{pr_err!r} (atol {PR_ATOL}); compaction {t_compact:.3f} s writing "
+        f"{words} words = large_writes, queries wrote 0; the base unchanged (SHA-256)")
+    del eng, eng_c, dg, ov, c, got, want
+    torch.cuda.empty_cache()
+
+    # (b) graph B: a mutable ServingService over DeltaOverlay(compress(B))
+    keys_b, w_b = base_edges(B_.host_csr)
+    script_b = edit_script(keys_b, w_b, B_.dev.n, MUT_EDITS, SEED + 17)
+    ov_b = DeltaOverlay(B_.dev)
+    dg0 = ov_b.snapshot()
+    plan_m = make_plan(dg0, strategy="sparse_streamed", chunk_blocks=MUT_CHUNK)
+    check(plan_m.backend == "delta", f"the mutable plan's backend is {plan_m.backend}")
+    trig = trigger_for(dg0, MUT_SWEEPS)
+    cfg = ServiceConfig(slo=0.05, max_batch=8, depth_trigger=6, round_quantum=2,
+                        compact_trigger=trig, ckpt_dir=str(work / "b"), compact_keep=2)
+    svc = ServingService(ov_b, plan=plan_m, config=cfg, registry=noop_registry())
+    del dg0
+    compact_s = []
+    real_compact = svc._compact
+
+    def timed_compact(now):
+        out, secs = timed(lambda: real_compact(now))
+        compact_s.append(secs)
+        return out
+
+    svc._compact = timed_compact
+    srcs_b = sources(B_.dev, SERVICE_REQUESTS, SEED + 18)
+    b0 = k1()
+    (tickets, admitted), t_stream = timed(lambda: mutable_stream(svc, srcs_b, script_b))
+    launched = k1()
+    check(launched == b0, f"graph B mutable service launched kernel 1 {launched} vs {b0} "
+          "(a DeltaGraph takes the plain path)")
+    st = svc.stats
+    check(st["served"] == SERVICE_REQUESTS and st["edits_applied"] == admitted == MUT_EDITS
+          and all(t.status == "done" for t in tickets), f"graph B mutable stream: {st}")
+    check(st["compactions"] >= 1, f"the trigger (hysteresis {trig.hysteresis!r}) never fired")
+    ref_k, ref_w = reference_live(keys_b, w_b, B_.dev.n, script_b)
+    got_k, got_w = live_keyed(svc.overlay)
+    check(np.array_equal(got_k, ref_k) and np.array_equal(got_w, ref_w),
+          "graph B service: live_edges() differs from the numpy reference")
+    src, dst, w = svc.overlay.live_edges()
+    rb = compress(build_csr(B_.dev.n, src, dst, w, block_size=BLOCK, device=dev))
+    served = svc.engine.graph
+    for s in srcs_b[:MUT_SOURCES]:
+        p, lv = bfs(served, s, plan=plan_m)
+        p2, lv2 = bfs(rb, s)
+        check(torch.equal(p, p2) and torch.equal(lv, lv2)
+              and torch.equal(wbfs(served, s, plan=plan_m), wbfs(rb, s)),
+              f"graph B service: BFS/wBFS from {s} differ from a graph built from scratch")
+    triggered = st["compactions"]
+    c_last, t_force = timed(lambda: svc.force_compact(1.0))
+    loaded, step = load_compacted(cfg.ckpt_dir, device=dev)
+    same_compressed(loaded, c_last, "graph B: load_compacted against the service's base")
+    same_compressed(c_last, rb, "graph B: the last compaction against a from-scratch build")
+    steps = sorted(p.name for p in (work / "b").iterdir())
+    check(len(steps) <= cfg.compact_keep and step == svc._compact_step - 1,
+          f"graph B checkpoints: {steps}, step {step}")
+    log(f"[15] graph B mutable service (sparse_streamed plan, chunk {MUT_CHUNK}; trigger "
+        f"hysteresis {trig.hysteresis!r}, ~{MUT_SWEEPS} sweeps): {SERVICE_REQUESTS} requests "
+        f"and {MUT_EDITS} edits in {t_stream:.3f} s = {st['served'] / t_stream:.2f} served/s, "
+        f"{admitted / t_stream:.1f} edits/s; {triggered} triggered compactions "
+        f"({', '.join(f'{s:.3f}' for s in compact_s[:triggered])} s) + force_compact "
+        f"{t_force:.3f} s; "
+        f"checkpoint steps on disk {steps}; load_compacted equals the last base; BFS/wBFS "
+        f"from {MUT_SOURCES} sources equal a from-scratch build; kernel 1 launches 0")
+    del svc, ov_b, rb, served, loaded, c_last
+    torch.cuda.empty_cache()
+
+    # (c) graph E: the same kind of stream on the card and on the CPU route
+    keys_e, w_e = base_edges(E_.host_csr)
+    script_e = edit_script(keys_e, w_e, E_.dev.n, MUT_E[1], SEED + 19)
+    srcs_e = sources(E_.dev, MUT_E[0], SEED + 20)
+    runs = {}
+    for tag, base in (("card", E_.dev), ("cpu", E_.host)):
+        ov_e = DeltaOverlay(base)
+        dg_e = ov_e.snapshot()
+        if tag == "card":
+            trig_e = trigger_for(dg_e, MUT_SWEEPS // 2)
+        cfg_e = ServiceConfig(slo=0.05, max_batch=8, depth_trigger=6, round_quantum=2,
+                              compact_trigger=trig_e, ckpt_dir=str(work / f"e_{tag}"))
+        svc_e = ServingService(ov_e, config=cfg_e, registry=noop_registry(),
+                               plan=make_plan(dg_e, strategy="sparse_streamed",
+                                              chunk_blocks=MUT_CHUNK))
+        ts = time.perf_counter()
+        out = mutable_stream(svc_e, srcs_e, script_e)
+        torch.cuda.synchronize()
+        runs[tag] = (svc_e, out[0], time.perf_counter() - ts)
+    (svc_e, t_card, s_card), (svc_c, t_cpu, s_cpu) = runs["card"], runs["cpu"]
+    deg_e = E_.host.degrees.clamp(min=1).to(torch.float32)
+    same_tickets(t_card, t_cpu, deg_e, lambda s: ppr_power_iteration(E_.host_csr, [s])[:, 0],
+                 "graph E mutable service")
+    same_service(svc_e, svc_c, "graph E mutable service")
+    check(svc_e.stats["compactions"] >= 1 and svc_e.cost.large_writes == svc_c.cost.large_writes,
+          f"graph E: compactions {svc_e.stats['compactions']}, writes differ")
+    same_checkpoints(work / "e_card", work / "e_cpu", "graph E")
+    same_compressed(svc_e.overlay.base, svc_c.overlay.base, "graph E compacted base")
+    log(f"[15] graph E mutable service, {MUT_E[0]} requests and {MUT_E[1]} edits: card "
+        f"{s_card:.3f} s, CPU route {s_cpu:.3f} s; {svc_e.stats['compactions']} compactions "
+        f"(trigger hysteresis {trig_e.hysteresis!r}); every ticket, the stats, the ledgers, "
+        f"the compactions and the checkpoint arrays equal the CPU route's")
+    del runs, svc_e, svc_c
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[15] peak device memory of (a)-(c) {peak:.2f} GiB")
+
+    # (d) observability: a traced BFS and service flush on graph B late in
+    # this process, then as the first profiler session of a fresh process
+    fused = trace_graph_b(work / "trace", B_.dev)
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]; import chip_smoke; "
+            f"chip_smoke.fresh_trace({str(work / 'trace_fresh')!r}, {str(dev)!r}, {graph_b!r})")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                       timeout=600)
+    for line in r.stdout.splitlines():
+        log(line)
+    check(r.returncode == 0, f"phase 15(d)'s fresh process exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.obs.dump"]
+                       + ([] if on_card else ["--device", "cpu"]),
+                       capture_output=True, text=True, cwd=ROOT, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(r.returncode == 0, f"python -m repro_torch.obs.dump exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    for name in ("sage_service_latency_seconds", "sage_psam_large_read_words_total"):
+        check(f"# TYPE {name}" in r.stdout, f"the dump prints no {name}")
+    log(f"[15] python -m repro_torch.obs.dump on the card: exit 0, "
+        f"{sum(1 for x in r.stdout.splitlines() if x.startswith('# TYPE'))} metric families "
+        f"(sage_service_latency_seconds and sage_psam_large_read_words_total among them; "
+        f"sage_round_loop_seconds is in (d)'s registry)")
+    return fused
+
+
+REPEAT_TRACES = 8   # phase 15(d)'s traced BFS sessions after the first
+
+
+def trace_graph_b(trace_dir, gB, fresh=False):
+    """Phase 15(d): ``trace_session`` over a ``sparse_streamed`` BFS and a
+    service flush on graph B: one ``sage.round`` span a BFS round,
+    ``sage_round_loop_rounds`` holding the BFS's rounds, and on the card
+    every fused launch a ``stream_round_kernel`` event or a launch the
+    session counts in ``lost_kernels`` (the profiler drops a session's first
+    kernel records at times late in a process: ``repro_torch.obs.trace``),
+    with as many events as launches when it lost none.  As the first
+    session of a ``fresh`` process it must lose none.  Late in this process
+    the same BFS under ``noop_registry()`` is bit for bit equal,
+    ``REPEAT_TRACES`` more traced sessions report their losses, and the BFS
+    runs untraced with a live registry and under ``noop_registry()`` in
+    turns.  Returns the first session's fused launches."""
+    import torch
+
+    from repro_torch.algorithms import bfs
+    from repro_torch.core import make_plan
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
+    from repro_torch.obs import Registry, noop_registry, trace_session, use_registry
+    from repro_torch.serving import ServiceConfig, ServingService
+
+    on_card = gB.device.type == "cuda"
+    where = "as a fresh process's first session" if fresh else "late in the process"
+
+    def timed(fn):
+        if on_card:
+            torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - ts
+
+    plan_b = make_plan(gB, strategy="sparse_streamed")
+    s0 = sources(gB, 1, SEED + 21)[0]
+    flush_srcs = sources(gB, 8, SEED + 22)
+    bfs(gB, s0, plan=plan_b)   # warm
+    svc = ServingService(gB, plan=plan_b, config=ServiceConfig(max_batch=8),
+                         registry=noop_registry())
+    reg = Registry()
+    b0 = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
+    with use_registry(reg), trace_session(str(trace_dir), label="phase15") as sess:
+        (p_on, l_on), t_on = timed(lambda: bfs(gB, s0, plan=plan_b))
+        for j, s in enumerate(flush_srcs):
+            svc.submit(("bfs", "wbfs")[j % 2], src=s, now=0.0)
+        svc.drain(0.0)
+    fused = compressed_stream_round.launches - b0[1]
+    check(compressed_chunked_spmv.launches == b0[0], "phase 15(d) launched kernel 1's decode")
+    with open(sess.path) as fh:
+        events = json.load(fh)["traceEvents"]
+    rounds = int(l_on.max()) + 1
+    spans = sum(1 for e in events if e.get("name") == "sage.round"
+                and e.get("cat") == "user_annotation" and e.get("ph") == "X")
+    kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                  and "stream_round_kernel" in e.get("name", ""))
+    lost = sess.lost_kernels
+    check(spans == rounds, f"the trace holds {spans} sage.round spans for {rounds} rounds")
+    check(not on_card or (fused >= rounds and kernels <= fused <= kernels + lost
+                          and (lost > 0 or kernels == fused) and (lost == 0 or not fresh)),
+          f"{where}, the trace holds {kernels} stream_round_kernel events and {lost} launches "
+          f"without a kernel record, the counter {fused} ({rounds} BFS rounds, "
+          f"{svc.stats['cohort_rounds']} cohort rounds)")
+    rec = reg.get("sage_round_loop_rounds")
+    check(rec is not None and rec.sum() == float(rounds) and rec.count() == 1,
+          "sage_round_loop_rounds does not hold the BFS's rounds")
+    check(reg.get("sage_round_loop_seconds").count(path="sequential") == 1,
+          "sage_round_loop_seconds recorded no call")
+    line = (f"[15] trace_session {where} over a sparse_streamed BFS ({rounds} rounds) and a "
+            f"flush of 8 requests ({svc.stats['cohort_rounds']} cohort rounds): {len(events)} "
+            f"events in {os.path.basename(sess.path)}, {spans} sage.round spans, {kernels} "
+            f"stream_round_kernel events for {fused} fused launches, {lost} launches without a "
+            f"kernel record; sage_round_loop_rounds {rec.sum():.0f}; the BFS "
+            f"{t_on * 1e3:.3f} ms traced with a live registry")
+    if fresh:
+        print(line, flush=True)
+        return fused
+    with use_registry(noop_registry()):
+        (p_off, l_off), t_off = timed(lambda: bfs(gB, s0, plan=plan_b))
+    check(torch.equal(p_on, p_off) and torch.equal(l_on, l_off),
+          "the BFS under noop_registry() differs")
+    losses = []
+    for _ in range(REPEAT_TRACES):
+        with trace_session(str(trace_dir), label="repeat") as rs:
+            bfs(gB, s0, plan=plan_b)
+        losses.append(rs.lost_kernels)
+    log(f"{line}, {t_off * 1e3:.3f} ms under noop_registry(), bit for bit equal; "
+        f"{REPEAT_TRACES} more traced BFS sessions lost {losses} kernel records")
+    # the round-loop observer's cost: the same BFS untraced, live registry and
+    # noop_registry() in turns
+    walls = {"live": [], "noop": []}
+    for _ in range(10):
+        for tag, r in (("live", Registry()), ("noop", noop_registry())):
+            with use_registry(r):
+                walls[tag].append(timed(lambda: bfs(gB, s0, plan=plan_b))[1] * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    log(f"[15] the same BFS untraced, 10 in turns: live registry median {med['live']:.3f} ms "
+        f"(min {min(walls['live']):.3f}), noop_registry() median {med['noop']:.3f} ms "
+        f"(min {min(walls['noop']):.3f})")
+    return fused
+
+
+def fresh_trace(trace_dir, device, graph_b):
+    """Phase 15(d) in a fresh process: graph B built at ``graph_b`` on
+    ``device``, then :func:`trace_graph_b` as the process's first profiler
+    session, which must keep every kernel record."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    trace_graph_b(trace_dir, build_graph(*graph_b, dev).dev, fresh=True)
+
+
 def log_profile(tag, prof, ms):
     """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
     wall, busy_ms, n_kernels, top = prof
@@ -2838,7 +3334,7 @@ def main(argv=None) -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 14 on ``dev`` (8, the SHA-256 check, last); returns the
+    """Phases 2 to 15 on ``dev`` (8, the SHA-256 check, last); returns the
     kernels' records."""
     import numpy as np
     import torch
@@ -3249,6 +3745,11 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     launches4 += packs14
     digests.update({("A shards", k): v for k, v in graph_digest(*gsA.shards).items()})
     wall["sharding"] = time.perf_counter() - t0
+
+    # 15. mutable graphs and the observability layer ---------------------
+    t0 = time.perf_counter()
+    main_round_launches += drive_mutable(dev, A_, B_, E_, graph_b)
+    wall["mutable + observability"] = time.perf_counter() - t0
 
     # 8. large memory is never written (after every phase) ---------------
     now = graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr)

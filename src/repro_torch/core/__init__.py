@@ -13,6 +13,7 @@ from .compressed import (
     exception_dense,
 )
 from .convert import (
+    delta_from_reference_arrays,
     filter_from_reference_arrays,
     filter_to_reference_arrays,
     from_reference_arrays,

@@ -4,7 +4,9 @@ A graph is this system's "weights": the parity tests build one in the JAX
 package, take ``{field: np.asarray(getattr(g, field))}`` of its dataclass
 fields, and rebuild it here with :func:`from_reference_arrays`, so both
 packages run on the same data.  A graphFilter crosses the same way
-(:func:`filter_from_reference_arrays`).  The port stores uint16 codes and uint32
+(:func:`filter_from_reference_arrays`), and so does a delta-overlay snapshot
+(:func:`delta_from_reference_arrays`: its base, its patch arrays and its
+tombstone words).  The port stores uint16 codes and uint32
 words as int16/int32 bit-views; the conversion reinterprets, never rounds.
 """
 from __future__ import annotations
@@ -29,6 +31,8 @@ COMPRESSED_META = (
     "n", "m", "num_blocks", "block_size", "n_exceptions", "weighted",
     "exception_dense_hint",
 )
+DELTA_FIELDS = ("patch_src", "patch_dst", "patch_w", "live_words", "degrees")
+DELTA_META = ("n", "m", "num_blocks", "num_base_blocks", "block_size", "weighted")
 FILTER_FIELDS = ("bits", "active_deg", "dirty")
 FILTER_META = ("n", "num_blocks", "block_size")
 _BIT_VIEWS = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
@@ -77,6 +81,23 @@ def to_reference_arrays(g) -> tuple[str, dict, dict]:
         a = t.cpu().numpy()
         arrays[f] = a.view(_REFERENCE_VIEWS[f]) if f in _REFERENCE_VIEWS else a
     return kind, arrays, {k: getattr(g, k) for k in meta_keys}
+
+
+def delta_from_reference_arrays(kind: str, base_arrays: dict, base_meta: dict, arrays: dict,
+                                meta: dict, device=None):
+    """The port's ``DeltaGraph`` from numpy copies of a JAX ``DeltaGraph``:
+    its base (``kind``, ``base_arrays``, ``base_meta`` as for
+    :func:`from_reference_arrays`), its patch arrays, ``degrees`` and uint32
+    ``live_words`` (carried as their int32 bit-view), and its metadata,
+    placed on ``device`` (default ``cuda``)."""
+    from ..delta.overlay import DeltaGraph  # here: delta layers on core
+
+    dev = resolve_device(device)
+    return DeltaGraph(
+        base=from_reference_arrays(kind, base_arrays, base_meta, dev),
+        **{f: _to_tensor(np.asarray(arrays[f]), dev) for f in DELTA_FIELDS},
+        **{k: meta[k] for k in DELTA_META},
+    )
 
 
 def filter_from_reference_arrays(arrays: dict, meta: dict, device=None) -> GraphFilter:

@@ -30,22 +30,38 @@ plan's ``pipeline_rounds`` is kept for parity with the JAX package, whose
 skewed schedule lets XLA overlap round r's combine with round r+1's local
 sweeps inside one program; run eagerly on the host the skew issues the same
 calls in the same order, so the flag runs the sequential loop.
+
+Each round's edgeMap runs inside a ``sage.round`` span, each shard's local
+sweep inside ``sage.round.sweep`` and the combine inside
+``sage.shard_combine`` (``torch.profiler.record_function``: visible in a
+``repro_torch.obs.trace_session``).  With a live metrics registry every
+``round_loop`` call records ``sage_round_loop_seconds`` and
+``sage_round_loop_rounds`` (``_eager_round_loop_observer``); under
+``noop_registry()`` it reads no clock and syncs nothing.
+
+A delta overlay (``repro_torch.delta.DeltaGraph``, recognised by
+``psam.is_overlay``: core never imports delta) is planned as backend
+``"delta"``; ``prepare`` places its nested base and shards it through
+``DeltaGraph.shard``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
+from torch.profiler import record_function
 
 from ..device import kernel_route, resolve_device
-from ..obs import get_registry
+from ..obs import DEFAULT_LATENCY_BUCKETS, exp_buckets, get_registry
 from ..tuning.defaults import DEFAULT_CHUNK_BLOCKS, DEFAULT_DENSE_FRAC
 from ..tuning.table import TuningTable, constants_decision, default_table
 from .compressed import CompressedCSR, exception_dense
 from .csr import CSRGraph, graph_spec, sharded_block_counts
 from .graph_filter import edge_active_words
 from .mesh import ShardMesh
+from .psam import is_overlay
 
 REDUCE_MODES = ("flat", "hierarchical")
 
@@ -213,9 +229,18 @@ def shard_edge_active(
 
 
 def _place(g, device):
-    """``g`` with every tensor field on ``device`` (no copy where it is)."""
-    moved = {f.name: getattr(g, f.name).to(device) for f in dataclasses.fields(g)
-             if isinstance(getattr(g, f.name), torch.Tensor)}
+    """``g`` with every tensor field on ``device`` (no copy where it is),
+    nested graphs and tuples of tensors too (a ``DeltaGraph``'s ``base``
+    and ``base_blocks``)."""
+    moved = {}
+    for f in dataclasses.fields(g):
+        v = getattr(g, f.name)
+        if isinstance(v, torch.Tensor):
+            moved[f.name] = v.to(device)
+        elif isinstance(v, tuple) and all(isinstance(t, torch.Tensor) for t in v):
+            moved[f.name] = tuple(t.to(device) for t in v)
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            moved[f.name] = _place(v, device)
     return dataclasses.replace(g, **moved)
 
 
@@ -223,7 +248,8 @@ def _place(g, device):
 class ExecutionPlan:
     """Static description of how an edgeMap executes.
 
-    backend     — 'csr' | 'compressed' | 'auto' (recorded from the graph)
+    backend     — 'csr' | 'compressed' | 'delta' | 'auto' (recorded from the
+                  graph; 'delta' for a DeltaGraph, which plans on the constants)
     strategy    — default edgeMap mode when the call site doesn't pass one:
                   'dense' | 'sparse' | 'sparse_streamed' | 'auto'
     chunk_blocks— chunk size of the sparse strategies (ids per kernel launch)
@@ -462,6 +488,11 @@ def make_plan(
         backend = "compressed"
     elif isinstance(base, CSRGraph):
         backend = "csr"
+    elif is_overlay(base):
+        # a delta overlay: the tuning table has no overlay measurements, so
+        # the decision falls back to the constants; the recorded backend
+        # keeps cost models honest about what ran
+        backend = "delta"
     if g is not None:
         where = g.device
     elif mesh is not None and device is None:
@@ -556,7 +587,13 @@ def _combine_shards(plan: ExecutionPlan, parts: list, monoid: str, out_dtype):
     ``sum`` folds along every shard axis in turn (``flat``) or along the
     fastest axis first, then the slow ones (``hierarchical``, 1-D or (B, n)
     outputs only), in ``state_dtype`` when the plan sets one; ``min`` /
-    ``max`` fold exactly; ``or`` and ``touched`` are a count > 0."""
+    ``max`` fold exactly; ``or`` and ``touched`` are a count > 0.  Runs in
+    a ``sage.shard_combine`` span."""
+    with record_function("sage.shard_combine"):
+        return _combine_shards_body(plan, parts, monoid, out_dtype)
+
+
+def _combine_shards_body(plan: ExecutionPlan, parts: list, monoid: str, out_dtype):
     dev = plan.mesh.devices[0]
     outs = [o.to(dev) for o, _ in parts]
     hits = [t.to(dev).to(torch.int32) for _, t in parts]
@@ -604,7 +641,8 @@ def _shard_active(plan: ExecutionPlan, g: ShardedGraph, edge_active):
 
 
 def _local_sweeps(g: ShardedGraph, frontier, x, active, local, kwargs, map_lanes=None):
-    """Each shard's uncombined ``local(...)`` result, on its own device."""
+    """Each shard's uncombined ``local(...)`` result, on its own device, each
+    in a ``sage.round.sweep`` span."""
     parts = []
     for s, gl in enumerate(g.shards):
         dev = gl.device
@@ -613,7 +651,8 @@ def _local_sweeps(g: ShardedGraph, frontier, x, active, local, kwargs, map_lanes
             kw["edge_active"] = active.words[s].to(dev)
         if map_lanes is not None:
             kw["map_lanes"] = map_lanes.to(dev)
-        parts.append(local(gl, frontier.to(dev), x.to(dev), **kw))
+        with record_function("sage.round.sweep"):
+            parts.append(local(gl, frontier.to(dev), x.to(dev), **kw))
     return parts
 
 
@@ -709,6 +748,74 @@ def sharded_edgemap_reduce_batched(
     )
 
 
+# rounds-per-call buckets: traversal diameters on the tested graphs run
+# 1..~100; log-spaced to 10k covers pathological chains
+_ROUND_BUCKETS = exp_buckets(1.0, 10_000.0, per_decade=6)
+
+
+def _leaves(tree):
+    """The leaves of a state tree (tuples, lists and dicts walked)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _scalar_int(leaf) -> int | None:
+    """A 0-d integer leaf's value (a Python int or a 0-d integer tensor),
+    else None."""
+    if isinstance(leaf, bool):
+        return None
+    if isinstance(leaf, int):
+        return leaf
+    if (isinstance(leaf, torch.Tensor) and leaf.dim() == 0
+            and not leaf.is_floating_point() and not leaf.is_complex()
+            and leaf.dtype != torch.bool):
+        return int(leaf)
+    return None
+
+
+def _eager_round_loop_observer(state):
+    """Host-side timing hook for one ``round_loop`` call, or ``None`` when
+    the active registry is disabled (then no clock is read and nothing
+    syncs).  Returns ``finish(final, path)``: it synchronizes the device of
+    the final state's tensors, reads the clock, records the call's wall
+    seconds into ``sage_round_loop_seconds{path=}`` and the largest 0-d
+    integer leaf of the final state (BFS's round counter) into
+    ``sage_round_loop_rounds{path=}``.  Per-round device timing comes from
+    ``trace_session`` and the ``sage.round`` spans; this is the cheap
+    always-on aggregate."""
+    reg = get_registry()
+    if not reg.enabled:
+        return None
+    t0 = time.perf_counter()
+
+    def finish(final, path):
+        leaves = list(_leaves(final))
+        devs = {t.device for t in leaves if isinstance(t, torch.Tensor) and t.is_cuda}
+        for d in devs:
+            torch.cuda.synchronize(d)
+        reg.histogram(
+            "sage_round_loop_seconds",
+            "wall seconds per eager round_loop call",
+            labels=("path",), buckets=DEFAULT_LATENCY_BUCKETS,
+        ).observe(time.perf_counter() - t0, path=path)
+        rounds = [r for r in map(_scalar_int, leaves) if r is not None]
+        if rounds:
+            reg.histogram(
+                "sage_round_loop_rounds",
+                "rounds executed per eager round_loop call",
+                labels=("path",), buckets=_ROUND_BUCKETS,
+            ).observe(float(max(rounds)), path=path)
+        return final
+
+    return finish
+
+
 def round_loop(
     g,
     state,
@@ -733,10 +840,13 @@ def round_loop(
     the batched one) a round; a sharded plan's call runs the local sweeps
     and their combine.  ``plan.pipeline_rounds`` changes nothing here: the
     skew only pays where a compiler or an async collective can overlap the
-    combine with the next sweeps, and the eager loop has neither.
+    combine with the next sweeps, and the eager loop has neither.  Each
+    round's edgeMap runs in a ``sage.round`` span; a live registry times the
+    call (``_eager_round_loop_observer``, path ``"sequential"``).
     """
     from .edgemap import edgemap_reduce, edgemap_reduce_batched
 
+    observe = _eager_round_loop_observer(state)
     if plan is not None and plan.is_sharded and not isinstance(g, ShardedGraph):
         g = plan.prepare(g)
     kwargs = {} if map_fn is None else {"map_fn": map_fn}
@@ -745,8 +855,9 @@ def round_loop(
     local_reduce = edgemap_reduce_batched if batched else edgemap_reduce
     while bool(cond_fn(state)):
         state, frontier, x = sweep_inputs(state)
-        out, touched = local_reduce(
-            g, frontier, x, monoid=monoid, mode=mode, plan=plan, **kwargs
-        )
+        with record_function("sage.round"):
+            out, touched = local_reduce(
+                g, frontier, x, monoid=monoid, mode=mode, plan=plan, **kwargs
+            )
         state = epilogue(state, out, touched)
-    return state
+    return state if observe is None else observe(state, "sequential")

@@ -6,7 +6,10 @@ writes.  These counters model the cost of the algorithm as specified (the
 paper's Table 1), not a measurement.  Every charge is mirrored into the
 metrics registry as ``sage_psam_*_words_total{charge=...}`` counters.
 ``TenantLedger(s)`` are the serving tier's per-tenant token buckets, priced
-in the same edge-read words.
+in the same edge-read words.  The one sanctioned large-memory write is the
+mutable-graph subsystem's batched compaction (``repro_torch.delta.compact``
+→ ``charge_large_write``); queries over a delta overlay charge base reads
+plus the overlay's small-memory words (``charge_edgemap_overlay``).
 """
 from __future__ import annotations
 
@@ -38,10 +41,21 @@ def _block_read_words(g, blocks: int) -> int:
     return 2 * g.block_size * blocks  # dst + w
 
 
+def is_overlay(g) -> bool:
+    """Whether ``g`` is a delta overlay snapshot (``repro_torch.delta``'s
+    ``DeltaGraph``), duck-typed on ``overlay_small_words``: core never
+    imports delta."""
+    return hasattr(g, "overlay_small_words")
+
+
 def edgemap_round_read_words(g, num_shards: int = 1) -> int:
     """Large-memory words one dense edgeMap round reads over ``num_shards``
     (per-shard block reads, including the empty blocks that pad a
-    non-dividing count)."""
+    non-dividing count).  A delta overlay prices as its base: its patch
+    blocks and tombstone words are small memory
+    (``charge_edgemap_overlay``)."""
+    if is_overlay(g):
+        g = g.base
     _, padded_total = sharded_block_counts(g.num_blocks, num_shards)
     return _block_read_words(g, padded_total)
 
@@ -250,6 +264,29 @@ class PSAMCost:
             small=g.num_blocks + batch * (3 * g.n + (num_shards - 1) * g.n),
         )
 
+    def charge_edgemap_round(self, g, batch: int, num_shards: int = 1):
+        """One dense batched edgeMap round over any backend: a delta overlay
+        is charged ``charge_edgemap_overlay``, every other graph
+        ``charge_edgemap_batched``."""
+        if is_overlay(g):
+            self.charge_edgemap_overlay(g, batch=batch, num_shards=num_shards)
+        else:
+            self.charge_edgemap_batched(g, batch, num_shards=num_shards)
+
+    def charge_edgemap_overlay(self, dg, batch: int = 1, num_shards: int = 1):
+        """One edgeMap round over a delta overlay (``repro_torch.delta``):
+        large-memory reads are the BASE blocks only, at the per-shard padded
+        count a round over the base alone would read; the overlay's patch
+        blocks and tombstone words (``dg.overlay_small_words``) land in
+        small memory beside the O(batch·n) vertex state and the per-shard
+        combine."""
+        _, base_padded = sharded_block_counts(dg.num_base_blocks, num_shards)
+        self._charge(
+            "edgemap_overlay",
+            reads=_block_read_words(dg.base, base_padded),
+            small=dg.overlay_small_words + batch * (3 * dg.n + (num_shards - 1) * dg.n),
+        )
+
     def charge_filter_pack(self, g, touched_blocks: int):
         """One graphFilter pack over ``touched_blocks`` blocks: the edge ids
         its predicate needs are read from large memory; only the filter
@@ -266,7 +303,8 @@ class PSAMCost:
 
     def charge_large_write(self, words: int, label: str = "large_write"):
         """Charge ``words`` of large-memory writes at the ω premium.  No query
-        path calls this: Table 1's claim is ``large_writes == 0``."""
+        path calls this (Table 1's claim is ``large_writes == 0``); its one
+        caller is ``repro_torch.delta.compact``."""
         self._charge(label, writes=int(words))
 
     def charge_small(self, words: int):

@@ -141,10 +141,11 @@ class QueryHandle:
 class QueryEngine:
     """Coalesce, batch and serve graph queries over one graph backend.
 
-    ``g`` is the read-only large memory (``CSRGraph | CompressedCSR``) on
-    its device; ``plan`` (optional) the ``ExecutionPlan`` every batch runs
-    under; ``max_batch`` caps the padded batch width B (default: the plan's
-    decision, else ``DEFAULT_MAX_BATCH``).
+    ``g`` is the read-only large memory (``CSRGraph | CompressedCSR``, or a
+    ``DeltaGraph`` snapshot of a mutable graph) on its device; ``plan``
+    (optional) the ``ExecutionPlan`` every batch runs under; ``max_batch``
+    caps the padded batch width B (default: the plan's decision, else
+    ``DEFAULT_MAX_BATCH``).
 
     ``stats`` counts submitted/served queries, drained batches, batch
     columns (``lanes``) and padding columns (``padded``); ``cost``
@@ -334,14 +335,17 @@ class QueryEngine:
     def _charge(self, B: int, sweeps: int, op: str = "", scalars: tuple = ()):
         """PSAM model of one drained batch: ``sweeps`` rounds, each reading
         the edge blocks once for all B lanes — or, on a certified streamed
-        BFS drain, the ``min(B, sweeps) · NB / sweeps`` live share — over
-        the plan's shards."""
+        BFS drain, the ``min(B, sweeps) · NB / sweeps`` live share; over a
+        delta overlay, the base blocks plus the overlay's small-memory
+        words — over the plan's shards."""
         shards = self.plan.num_shards if self._mesh_key is not None else 1
         sweeps = max(sweeps, 1)
+        # a delta overlay never earns the streamed discount (it takes the
+        # plain sparse path): charge_edgemap_round prices it
         if self._streamed_accounting(op, scalars):
             live = -(-self.graph.num_blocks * min(B, sweeps) // sweeps)
             for _ in range(sweeps):
                 self.cost.charge_edgemap_sparse(self.graph, live, batch=B, num_shards=shards)
             return
         for _ in range(sweeps):
-            self.cost.charge_edgemap_batched(self.graph, B, num_shards=shards)
+            self.cost.charge_edgemap_round(self.graph, B, num_shards=shards)

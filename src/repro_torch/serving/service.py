@@ -30,9 +30,17 @@ per-tenant token buckets (:class:`~repro_torch.core.psam.TenantLedgers`):
 an estimate is reserved at submit and settled against the drain's actual
 per-lane attribution.
 
-Only the immutable-graph path is ported: a delta overlay, ``submit_edit``
-and ``force_compact`` raise ``NotImplementedError`` (mutability is not
-ported yet).  The service takes its device from the graph it serves.
+**Mutability** (``repro_torch.delta``): constructed over a
+:class:`~repro_torch.delta.DeltaOverlay` the service also serves edits.
+``submit_edit`` admits or rejects (never defers: deferral would reorder the
+edit log) one insert or delete, priced at the amortized compaction
+estimate; admitted edits apply at the next tick or drain boundary, so the
+queries of one flush see one snapshot; after each flush the
+:class:`~repro_torch.tuning.OverlayTrigger` decides whether the overlay's
+accumulated surcharge pays for folding it into a fresh compressed base
+(``repro_torch.delta.compact``, the subsystem's only large-memory write,
+persisted atomically when ``config.ckpt_dir`` is set).  The service takes
+its device from the graph it serves.
 """
 from __future__ import annotations
 
@@ -44,15 +52,15 @@ import numpy as np
 import torch
 
 from ..algorithms.traversal import traversal_cohort_init, traversal_cohort_rounds
-from ..core.compressed import CompressedCSR
-from ..core.csr import CSRGraph
 from ..core.psam import TenantLedgers, edgemap_round_read_words
+from ..delta import DeltaOverlay, compact
+from ..delta import compact_write_words as _compact_write_words
 from ..obs import DEFAULT_LATENCY_BUCKETS, get_registry
-from ..tuning.defaults import DEFAULT_EST_ROUNDS
+from ..tuning.defaults import DEFAULT_EDITS_PER_COMPACT, DEFAULT_EST_ROUNDS
+from ..tuning.overlay import constants_overlay_trigger
 from .engine import QueryEngine, _pow2_batch
 
 TRAVERSAL_OPS = ("bfs", "wbfs")
-_NO_MUTABILITY = "mutable graphs (the delta overlay and its edit path) are not ported yet"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +79,12 @@ class ServiceConfig:
     prices a request whose (op, backend) pair has never drained; after
     that an EWMA (weight ``ewma_alpha``) of the observed rounds does.
 
-    ``compact_trigger``, ``ckpt_dir`` and ``compact_keep`` belong to the
-    delta-overlay path, which is not ported yet; they are kept so a
-    configuration carries over unchanged.
+    The mutability knobs matter only for a DeltaOverlay-backed service:
+    ``compact_trigger`` is the :class:`~repro_torch.tuning.OverlayTrigger`
+    deciding when to fold the overlay into a fresh compressed base
+    (default: the constants trigger); ``ckpt_dir`` (when set) persists each
+    compacted base atomically (``repro_torch.delta.save_compacted``),
+    keeping the newest ``compact_keep`` step directories.
     """
 
     slo: float = 0.05
@@ -122,8 +133,10 @@ class ServingService:
     """Deadline-driven drain loop with admission control over a QueryEngine.
 
     ``g`` is the read-only graph (``CSRGraph | CompressedCSR``) on its
-    device, ``plan`` the ``ExecutionPlan`` every batch runs under, and
-    ``config`` the :class:`ServiceConfig`.  The service runs in virtual
+    device, or a :class:`~repro_torch.delta.DeltaOverlay` for a mutable
+    service (queries run over ``overlay.snapshot()``, and ``submit_edit`` /
+    ``force_compact`` become available); ``plan`` is the ``ExecutionPlan``
+    every batch runs under, and ``config`` the :class:`ServiceConfig`.  The service runs in virtual
     time: callers stamp ``submit`` and ``tick`` with ``now``.  Only the
     ``sage_service_flush_seconds`` histogram, the latencies and the drift
     gauge read the wall clock, and only with a live ``registry`` (the
@@ -135,10 +148,11 @@ class ServingService:
     """
 
     def __init__(self, g, *, plan=None, config: ServiceConfig | None = None, registry=None):
-        if not isinstance(g, (CSRGraph, CompressedCSR)):
-            raise NotImplementedError(f"{_NO_MUTABILITY}: serve a CSRGraph or CompressedCSR")
         self.config = config or ServiceConfig()
         self.registry = registry if registry is not None else get_registry()
+        self.overlay = g if isinstance(g, DeltaOverlay) else None
+        if self.overlay is not None:
+            g = self.overlay.snapshot()
         self.engine = QueryEngine(
             g, plan=plan, max_batch=self.config.max_batch, registry=self.registry
         )
@@ -157,6 +171,19 @@ class ServingService:
         self._cohort_compiled: dict[tuple, Callable] = {}
         self.trace_counts: dict[tuple, int] = {}
         self._next_id = 0
+        # mutability state (inert unless overlay-backed): admitted edits not
+        # yet applied, their (tenant, estimate) ledger entries (settled
+        # pro-rata at compaction), the next checkpoint step, the PSAM read
+        # mark the trigger measures sweeps from, and the observed
+        # edits-per-compaction EWMA that amortizes edit pricing
+        self.compact_trigger = self.config.compact_trigger or (
+            constants_overlay_trigger() if self.overlay is not None else None
+        )
+        self._edits: list[tuple] = []
+        self._edit_ledger: list[tuple[str, float]] = []
+        self._compact_step = 0
+        self._reads_at_compact = self.engine.cost.large_reads
+        self._edits_per_compact = float(DEFAULT_EDITS_PER_COMPACT)
         self.stats = {
             "submitted": 0,
             "admitted": 0,
@@ -211,6 +238,19 @@ class ServingService:
         self._m_drift = reg.gauge(
             "sage_psam_drift_words_per_second",
             "modeled edge-read words charged per wall second of the last flush",
+        )
+        self._m_edits = reg.counter(
+            "sage_delta_edits_total", "edits applied to the overlay", labels=("kind",),
+        )
+        self._m_patch_edges = reg.gauge(
+            "sage_delta_patch_edges", "live inserted edges in the DRAM overlay"
+        )
+        self._m_tombstones = reg.gauge(
+            "sage_delta_tombstones", "base edges masked dead by the overlay"
+        )
+        self._m_overlay_words = reg.gauge(
+            "sage_delta_overlay_small_words",
+            "per-sweep DRAM small-op surcharge of the current overlay",
         )
 
     # ------------------------------------------------------------------
@@ -280,19 +320,58 @@ class ServingService:
 
     def submit_edit(self, kind: str, u: int, v: int, w: float = 1.0, *,
                     tenant: str = "default", now: float = 0.0) -> bool:
-        """Graph edits belong to the delta-overlay path: not ported yet."""
-        raise NotImplementedError(_NO_MUTABILITY)
+        """Submit one graph edit (``kind`` in {"insert", "delete"}) at
+        virtual time ``now``; returns True iff admitted.
+
+        Edits are admit-or-reject only, whatever ``config.admission`` says:
+        a deferred edit would re-enter the log after later edits.  The price
+        is the next compaction's ``ω × compact_write_words`` split over the
+        observed edits-per-compaction (EWMA; ``DEFAULT_EDITS_PER_COMPACT``
+        while cold), reserved against the tenant's ledger and settled
+        pro-rata against the actual write when the overlay compacts.
+        Admitted edits apply at the next tick or drain boundary."""
+        if self.overlay is None:
+            raise TypeError(
+                "submit_edit requires a DeltaOverlay-backed service "
+                "(construct with ServingService(DeltaOverlay(base), ...))"
+            )
+        if kind not in ("insert", "delete"):
+            raise ValueError(f"kind must be 'insert'|'delete', got {kind!r}")
+        self.stats["edits_submitted"] += 1
+        est = self._estimate_edit_words()
+        self.ledgers.refill(now)
+        led = self.ledgers.ledger(tenant)
+        if not led.can_admit(est):
+            self.stats["edits_rejected"] += 1
+            self._m_admission.inc(outcome="edit_rejected", tenant=tenant)
+            return False
+        led.reserve(est)
+        self._edit_ledger.append((tenant, est))
+        self._edits.append(
+            ("insert", int(u), int(v), float(w)) if kind == "insert"
+            else ("delete", int(u), int(v))
+        )
+        self._m_admission.inc(outcome="edit_admitted", tenant=tenant)
+        return True
 
     def force_compact(self, now: float = 0.0):
-        """Compaction belongs to the delta-overlay path: not ported yet."""
-        raise NotImplementedError(_NO_MUTABILITY)
+        """Apply pending edits, then compact the overlay whatever the
+        trigger says; returns the new ``CompressedCSR`` base, or None when
+        the service has no overlay.  Persistence and ledger settlement are
+        a triggered compaction's."""
+        if self.overlay is None:
+            return None
+        self._apply_edits()
+        return self._compact(now)
 
     def tick(self, now: float) -> list[ServingTicket]:
-        """One drain-loop iteration at virtual time ``now``: refill the
-        tenant buckets, re-admit deferred work that now fits, and flush the
-        WHOLE queue when the depth trigger or the earliest deadline fires.
-        Returns the tickets completed by this tick."""
+        """One drain-loop iteration at virtual time ``now``: apply buffered
+        edits (the graph steps between flushes, never inside one), refill
+        the tenant buckets, re-admit deferred work that now fits, and flush
+        the WHOLE queue when the depth trigger or the earliest deadline
+        fires.  Returns the tickets completed by this tick."""
         self.stats["ticks"] += 1
+        self._apply_edits()
         self.ledgers.refill(now)
         self._readmit(now)
         if not self._queue:
@@ -309,6 +388,7 @@ class ServingService:
 
     def drain(self, now: float) -> list[ServingTicket]:
         """Force-flush everything queued, ignoring both triggers."""
+        self._apply_edits()
         self.ledgers.refill(now)
         self._readmit(now)
         if not self._queue:
@@ -361,6 +441,89 @@ class ServingService:
         self._m_queue_depth.set(float(len(self._queue)))
         self._m_deferred_depth.set(float(len(self._deferred)))
 
+    def _estimate_edit_words(self) -> float:
+        """Admission-time price of one edit: the next compaction's ω write
+        amortized over the observed edits-per-compaction count."""
+        return (
+            self.cost.omega
+            * float(self.engine.graph.compact_write_words)
+            / max(self._edits_per_compact, 1.0)
+        )
+
+    def _apply_edits(self) -> None:
+        """Fold buffered edits into the overlay and step the served graph to
+        the new snapshot, at tick and drain boundaries only."""
+        if self.overlay is None or not self._edits:
+            return
+        edits, self._edits = self._edits, []
+        self.overlay.apply(edits)
+        self.stats["edits_applied"] += len(edits)
+        for e in edits:
+            self._m_edits.inc(kind=e[0])
+        self._set_graph(self.overlay.snapshot())
+
+    def _set_graph(self, dg) -> None:
+        """Point the wrapped engine (and the per-round word model) at a new
+        snapshot.  The cohort and engine caches key on the backend name
+        ("DeltaGraph"), stable across snapshots."""
+        eng = self.engine
+        eng.graph = dg
+        eng.prepared = dg if self.plan is None else self.plan.prepare(dg)
+        if self.plan is not None:
+            self._round_words = self.plan.edge_read_words_per_round(eng.prepared)
+        else:
+            self._round_words = edgemap_round_read_words(dg)
+        if self.overlay is not None:
+            self._m_patch_edges.set(float(self.overlay.num_patch_edges))
+            self._m_tombstones.set(float(self.overlay.num_tombstones))
+            self._m_overlay_words.set(float(dg.overlay_small_words))
+
+    def _maybe_compact(self, now: float) -> None:
+        """Post-flush compaction check: the trigger gets the sweeps of edge
+        reads issued since the last compaction (from the PSAM account) and
+        folds the overlay once its surcharge has paid for the ω write.  A
+        clean overlay (no patches, no tombstones) never compacts."""
+        if self.overlay is None or self.compact_trigger is None:
+            return
+        if self.overlay.num_patch_edges == 0 and self.overlay.num_tombstones == 0:
+            return
+        sweeps = (self.cost.large_reads - self._reads_at_compact) / max(self._round_words, 1.0)
+        if self.compact_trigger.should_compact(
+            self.engine.graph, sweeps_since_compact=sweeps, omega=self.cost.omega
+        ):
+            self._compact(now)
+
+    def _compact(self, now: float):
+        """Fold the overlay into a fresh CompressedCSR base — the only
+        large-memory write of the mutable path: charge ``ω × write words``,
+        persist the step when configured, settle the edit ledger pro-rata
+        against the actual write, fold the realized edits-per-compaction
+        into the admission EWMA, and rebase an empty overlay on the new
+        base."""
+        del now
+        c = compact(
+            self.overlay,
+            cost=self.cost,
+            ckpt_dir=self.config.ckpt_dir,
+            step=self._compact_step,
+            keep=self.config.compact_keep,
+            registry=self.registry,
+        )
+        self._compact_step += 1
+        self.stats["compactions"] += 1
+        ledger, self._edit_ledger = self._edit_ledger, []
+        if ledger:
+            actual = self.cost.omega * float(_compact_write_words(c))
+            share = actual / len(ledger)
+            for tenant, est in ledger:
+                self.ledgers.ledger(tenant).settle(est, share)
+            a = self.config.ewma_alpha
+            self._edits_per_compact = (1 - a) * self._edits_per_compact + a * float(len(ledger))
+        self.overlay = DeltaOverlay(c)
+        self._set_graph(self.overlay.snapshot())
+        self._reads_at_compact = self.cost.large_reads
+        return c
+
     def _flush(self, now: float) -> list[ServingTicket]:
         """Drain the full queue: traversal tickets fuse into ≤ max_batch
         cohorts (FIFO), the rest go to the engine; every ticket is settled
@@ -394,6 +557,7 @@ class ServingService:
             self.ledgers.ledger(t.tenant).settle(t.est_words, t.words)
             self._observe_rounds(t)
         self.stats["served"] += len(done)
+        self._maybe_compact(now)
         return done
 
     # ------------------------------------------------------------------
@@ -425,8 +589,7 @@ class ServingService:
             # (activity is prefix-monotone: round r's lanes have lane_rounds > r)
             for r in range(rounds_exec):
                 act = np.flatnonzero(lane_rounds > r)
-                self.engine.cost.charge_edgemap_batched(self.engine.graph, B,
-                                                        num_shards=shards)
+                self.engine.cost.charge_edgemap_round(self.engine.graph, B, num_shards=shards)
                 share = self._round_words / len(act)
                 for i in act:
                     lane_tickets[i].words += share

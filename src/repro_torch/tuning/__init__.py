@@ -12,6 +12,8 @@
   constants_decision       — the static-defaults decision (un-tuned plans)
   crossover_from_sweep, flavor_crossover_from_sweep,
   dense_frac_from_crossover — the decisions derived from sweep rows
+  OverlayTrigger, constants_overlay_trigger, measured_overlay_trigger
+                           — when a delta overlay's compaction pays off
 
 CLI: ``python -m repro_torch.tuning --out build/table.json``.
 """
@@ -24,6 +26,7 @@ from .defaults import (
     HBM_BYTES_PER_S,
 )
 from .measure import calibrate, host_fingerprint
+from .overlay import OverlayTrigger, constants_overlay_trigger, measured_overlay_trigger
 from .table import (
     SCHEMA_VERSION,
     TuningDecision,

@@ -595,15 +595,17 @@ def test_service_metrics_carry_the_jax_names():
 
 
 def test_mutable_paths_are_not_ported():
-    from repro.delta import DeltaOverlay as JDeltaOverlay
+    """The edit path is ported now (``tests/test_torch_delta.py`` holds it to
+    JAX): a plain graph's service refuses edits as JAX's does (TypeError),
+    has nothing to compact, and a ``DeltaOverlay`` is served."""
+    from repro_torch.delta import DeltaOverlay
 
     jg, g = _graphs()
     svc = ServingService(g, registry=noop_registry())
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="DeltaOverlay"):
         svc.submit_edit("insert", 0, 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        svc.force_compact()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingService(JDeltaOverlay(jg), registry=noop_registry())
+    assert svc.force_compact() is None
+    msvc = ServingService(DeltaOverlay(g), registry=noop_registry())
+    assert msvc.submit_edit("insert", 0, 1) and msvc.engine._backend_key == "DeltaGraph"
     with pytest.raises(ValueError, match="admission"):
         ServiceConfig(admission="drop")
