@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --lm-only      # phase 10 alone (kernel 6, the LM serving path)
+    python3 chip_smoke.py --moe-only     # phase 10(a)-(b) and 16 (MoE, MLA, the other LMs)
     python3 chip_smoke.py --recsys-only  # phase 11 alone (kernel 5, SASRec serving)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
@@ -21,7 +22,9 @@ the unweighted compressed sum over kernel 2; sharded execution (the shard
 split, the sharded executor, the round loop) on meshes of the one card;
 mutable graphs (the delta overlay, compaction, checkpoints, the service's
 edit path) and the observability layer (trace sessions, the round-loop
-observer, the metric dump).
+observer, the metric dump); mixture-of-experts and latent-attention serving
+(deepseek-v2-lite-16b at full width and depth, dbrx-132b at full width) and
+the other LM configurations through the single-token attention kernel.
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -95,8 +98,9 @@ observer, the metric dump).
    equal to the CPU route exactly; ``triangle_count`` on graph B.
 10. The LM serving path (kernel 6, ``decode_attention``): (a) the kernel
    against its plain version on the card at the JAX sweep's shapes,
-   qwen2-1.5B's (B, S, Hq, Hkv, D) = (8, 1000, 12, 2, 128) and qwen1.5-4B's
-   MHA (4, 777, 20, 20, 128), float32 and bfloat16, every sequence at
+   qwen2-1.5B's (B, S, Hq, Hkv, D) = (8, 1000, 12, 2, 128), qwen1.5-4B's
+   MHA (4, 777, 20, 20, 128), dbrx-132b's (4, 600, 48, 8, 128) and
+   mistral-large-123b's (2, 333, 96, 8, 128), float32 and bfloat16, every sequence at
    length 1, 128 and S, and a mixed batch with a length on a split boundary
    and one past it: the relative L2 difference of each (sequence, head) row
    within ``ATTN_REL_TOL`` (1e-5 and 2^-7); (b) its device time, its plain
@@ -226,6 +230,27 @@ observer, the metric dump).
    turns; the same traced session as a fresh process's first, with as many
    ``stream_round_kernel`` events as fused launches and none lost; ``python
    -m repro_torch.obs.dump`` in a subprocess on the card.
+16. Mixture-of-experts and latent-attention serving, each model's weights
+   drawn in bfloat16 from a fresh seeded generator on the card and freed
+   before the next, with its peak device memory: (a) one MoE layer of
+   deepseek-v2-lite (64 experts, top 6, d 2048, f 1408, 2 shared) and of
+   dbrx (16 experts, top 4, d 6144, f 10752) at T = 8 and 4,096 tokens:
+   ``moe_route``'s assignments equal to an independent loop's (each
+   expert's first C assignments in t·K + k order), ``moe_ffn`` within
+   relative L2 2e-2 a token of the loop's float32 result, the dropped
+   assignments and the device ms beside the bound of the occupied experts;
+   (b) deepseek-v2-lite-16b at full width and depth (27 layers, MLA, 26 MoE
+   layers): 8 prompts of 512 tokens, prefill into 1,024 rows, 32 greedy
+   steps through the MLA route (``gqa_attention`` over K and V
+   materialised from the latent cache; kernel 6 launched 0 times), one
+   step under ``torch.profiler``; at no-drop capacity (``capacity_factor =
+   E / K``) a 2 x 64 prefill and 4 teacher-forced steps against ``forward``
+   over the 68 tokens, and ``forward(collect_cache=True)``'s rows against
+   the caches, within relative L2 0.1; (c) dbrx-132b at full width, 4 of
+   its 40 layers: the same serving, kernel 6 launched 4 x 32 times, held
+   teacher-forced to the plain route within 0.1; (d) qwen1.5-4b at full
+   depth and mistral-large-123b at full width, 2 of its 88 layers: 16
+   greedy steps each through kernel 6, held to the plain route the same way.
 8. Last, the graph tensors of A, B and E, compressed and CSR, and graph A's
    shards are unchanged (SHA-256 before and after every phase).
 
@@ -233,8 +258,8 @@ No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
 phases 4-5, 12, 13, 14 and 15 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
-phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phase 10(c) and (d) for
-kernel 6, phase 11(c) and (d) for kernel 5.
+phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phases 10(c), (d) and
+16(b)-(d) for kernel 6, phase 11(c) and (d) for kernel 5.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
 or outside a checkout of the repository, the script exits with code 2 and
 prints no result.
@@ -293,9 +318,10 @@ KERNEL_SOURCES = {
 }
 F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense: kernel 6's products at bf16
-ATTN_SHAPES = [        # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5B, qwen1.5-4B's MHA
+ATTN_SHAPES = [        # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5B, qwen1.5-4B's MHA,
     (2, 64, 4, 4, 8), (6, 300, 8, 2, 16), (3, 128, 6, 1, 32), (8, 1000, 12, 2, 128),
     (4, 777, 20, 20, 128),
+    (4, 600, 48, 8, 128), (2, 333, 96, 8, 128),   # dbrx-132b's and mistral-large-123b's
 ]
 ATTN_TIMED = (32, 32768, 12, 2, 128)   # qwen2-1.5B heads at the long-context shape
 LM_SERVE = (8, 512, 1024, 64)   # batch, prompt tokens, max_seq, greedy decode steps
@@ -1370,8 +1396,8 @@ def time_decode_attention(dev):
 
 
 def greedy_decode(params, caches, logits, pos0, steps, cfg):
-    """``steps`` greedy ``decode_step``s from the prefill's ``logits``;
-    returns the tokens fed in and the logits of every step."""
+    """``steps`` greedy ``decode_step``s from the prefill's ``logits`` on
+    ``cfg``'s route; returns the tokens fed in and the logits of every step."""
     from repro_torch.models.transformer_lm import decode_step
 
     tokens, out = [], []
@@ -1381,6 +1407,75 @@ def greedy_decode(params, caches, logits, pos0, steps, cfg):
         tokens.append(tok)
         out.append(logits)
     return tokens, out
+
+
+def clone_caches(caches):
+    """A copy of a cache tree ``{stack: {name: tensor}}``."""
+    return {key: {name: t.clone() for name, t in entry.items()} for key, entry in caches.items()}
+
+
+def first_k(caches):
+    """A GQA cache tree's first layer of K, (B, Smax, Hkv, D)."""
+    return next(iter(caches.values()))["k"][0]
+
+
+def serve_greedy(params, cfg, prompts, max_seq, steps):
+    """Prefill ``prompts`` into caches of ``max_seq`` rows, then ``steps``
+    greedy decode steps on ``cfg``'s route, kernel 6's count set to 0 just
+    before the decode.  Returns the prefill's seconds, a copy of its caches,
+    the decode's seconds, kernel 6's launches in it, the tokens fed in,
+    every step's logits and the caches after the last step."""
+    import torch
+
+    from repro_torch.kernels import decode_attention
+    from repro_torch.models import transformer_lm as lm
+
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    logits0, caches = lm.prefill(params, prompts, cfg, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - ts
+    cache0 = clone_caches(caches)
+    decode_attention.launches = 0
+    ts = time.perf_counter()
+    tokens, logits = greedy_decode(params, caches, logits0, prompts.shape[1], steps, cfg)
+    torch.cuda.synchronize()
+    return dict(prefill_s=prefill_s, cache0=cache0, decode_s=time.perf_counter() - ts,
+                launches=decode_attention.launches, tokens=tokens, logits=logits,
+                caches=caches)
+
+
+def teacher_forced(params, cfg, cache0, tokens, pos0, attention):
+    """The logits of decoding ``tokens`` from a copy of ``cache0`` at
+    ``pos0`` with the single-token ``attention``."""
+    from repro_torch.models import transformer_lm as lm
+
+    cache, out = clone_caches(cache0), []
+    for i, tok in enumerate(tokens):
+        logits, cache = lm.decode_step(params, cache, tok, pos0 + i, cfg, attention=attention)
+        out.append(logits)
+    return out
+
+
+def compare_logits(got, want, what, held=None):
+    """Each step's logits finite; the (step, sequence) rows that ``held``
+    marks (default all) within ``LOGITS_REL_TOL`` of ``want``'s.  Returns
+    the max relative difference over the held rows and over all rows, the
+    max abs difference and the greedy tokens that agree."""
+    import torch
+
+    worst, rel, rel_all, agree = 0.0, 0.0, 0.0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(bool(torch.isfinite(g).all()), f"{what} step {i}: logits not finite")
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+        r = (g.float() - w.float()).norm(dim=-1) / w.float().norm(dim=-1)
+        rel_all = max(rel_all, float(r.max()))
+        r = r if held is None else r[held[i]]
+        rel = max([rel] + r.tolist())
+        agree += int((w.argmax(-1) == g.argmax(-1)).sum())
+    check(rel <= LOGITS_REL_TOL, f"{what}: kernel route logits differ from the plain route by "
+                                 f"{rel} relative (> {LOGITS_REL_TOL})")
+    return rel, rel_all, worst, agree
 
 
 def logits_rel_err(got, want) -> float:
@@ -1399,23 +1494,15 @@ def fault_line(readings) -> str:
     return ", ".join(f"{name} {r!r}" for name, r in readings.items())
 
 
-def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
-    """Phase 10: kernel 6 against its plain version and timed; then
-    qwen2-1.5B serving on the card: ``serve`` = (batch, prompt tokens,
-    max_seq, greedy steps) through prefill and ``decode_step``, held to the
-    plain route teacher-forced; ``long`` = (batch, max_seq, steps) decode
-    over a cache filled to max_seq - steps.  The logits of the planted
-    faults of ``attention_faults`` are read beside the kernel route's, on
-    the same tokens.  Returns kernel 6's record."""
+def check_kernel6(dev, rng, stats):
+    """Phase 10(a) and (b): kernel 6 against its plain version at every
+    shape of ``ATTN_SHAPES`` and timed at ``ATTN_TIMED``.  Returns the max
+    abs error of (a) per dtype and (b)'s timing."""
     import torch
 
-    from repro_torch.kernels import ATTN_REL_TOL, decode_attention, decode_attention_ref
-    from repro_torch.kernels.decode_attention.decode_attention import split_rows
-    from repro_torch.models import transformer_lm as lm
+    from repro_torch.kernels import ATTN_REL_TOL
     from repro_torch.tuning import HBM_BYTES_PER_S
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
     stats["kernel 6"] = 0
     err, rel_a = compare_decode_attention(dev, rng, stats)
     timing = time_decode_attention(dev)
@@ -1435,6 +1522,47 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
         f"{timing['rel']['kernel']!r} beside the limit ATTN_REL_TOL "
         f"{ATTN_REL_TOL[torch.bfloat16]!r} (2^-8 = {2.0 ** -8!r}); "
         f"{fault_line(timing['rel'])} (the last three are planted faults, rejected)")
+    return err, timing
+
+
+def kernel6_record(err, timing, launches):
+    """Kernel 6's line of the final ``kernels`` record."""
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": KERNEL_SOURCES["attention"],
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:65",
+        "launches": launches,
+        "max_abs_err": max(err.values()),
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": "bytes" if timing["bytes"] / HBM_BYTES_PER_S >= timing["flops"] / BF16_FLOPS
+        else "operations",
+        "library_ms": timing["library_ms"],
+    }
+
+
+def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
+    """Phase 10: kernel 6 against its plain version and timed; then
+    qwen2-1.5B serving on the card: ``serve`` = (batch, prompt tokens,
+    max_seq, greedy steps) through prefill and ``decode_step``, held to the
+    plain route teacher-forced; ``long`` = (batch, max_seq, steps) decode
+    over a cache filled to max_seq - steps.  The logits of the planted
+    faults of ``attention_faults`` are read beside the kernel route's, on
+    the same tokens.  Returns kernel 6's record."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention.decode_attention import split_rows
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    err, timing = check_kernel6(dev, rng, stats)
 
     # (c) requests end to end: prefill, then greedy decode
     B, P, max_seq, steps = serve
@@ -1442,41 +1570,17 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
     wbytes = weight_bytes(params)
     prompts = torch.randint(0, cfg.vocab, (B, P),
                             generator=torch.Generator().manual_seed(SEED)).to(dev)
-    torch.cuda.synchronize()
-    ts = time.perf_counter()
-    logits0, caches = lm.prefill(params, prompts, cfg, max_seq=max_seq)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - ts
-    cache0 = {"main": {k: t.clone() for k, t in caches["main"].items()}}
-    decode_attention.launches = 0
-    ts = time.perf_counter()
-    tokens, kernel_logits = greedy_decode(params, caches, logits0, P, steps, cfg)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - ts
-    launches_c = decode_attention.launches
+    run = serve_greedy(params, cfg, prompts, max_seq, steps)
+    prefill_s, decode_s, launches_c = run["prefill_s"], run["decode_s"], run["launches"]
     check(launches_c == cfg.n_layers * steps,
           f"serving: {launches_c} kernel 6 launches, not {cfg.n_layers} x {steps}")
-
-    def teacher_forced(attention):
-        cache = {"main": {k: t.clone() for k, t in cache0["main"].items()}}
-        out = []
-        for i, tok in enumerate(tokens):
-            logits, cache = lm.decode_step(params, cache, tok, P + i, cfg, attention=attention)
-            out.append(logits)
-        return out
-
-    plain = teacher_forced(decode_attention_ref)
-    worst, rel, agree = 0.0, 0.0, 0
-    for i, (got, want) in enumerate(zip(kernel_logits, plain)):
-        check(bool(torch.isfinite(got).all()), f"serving step {i}: logits not finite")
-        worst = max(worst, float((got.float() - want.float()).abs().max()))
-        rel = max(rel, logits_rel_err(got, want))
-        agree += int((want.argmax(-1) == got.argmax(-1)).sum())
-    check(rel <= LOGITS_REL_TOL, f"serving: kernel route logits differ from the plain route "
-                                 f"by {rel} relative (> {LOGITS_REL_TOL})")
-    k0 = cache0["main"]["k"][0]
+    plain = teacher_forced(params, cfg, run["cache0"], run["tokens"], P, decode_attention_ref)
+    rel, _, worst, agree = compare_logits(run["logits"], plain, "serving")
+    k0 = first_k(run["cache0"])
     rows_c = split_rows(k0.new_empty((B, cfg.n_heads, cfg.d_head)), k0)[1]
-    faults_c = {name: max(logits_rel_err(got, want) for got, want in zip(teacher_forced(fn), plain))
+    faults_c = {name: max(logits_rel_err(got, want) for got, want in
+                          zip(teacher_forced(params, cfg, run["cache0"], run["tokens"], P, fn),
+                              plain))
                 for name, fn in attention_faults(rows_c).items()}
     check(min(faults_c.values()) > LOGITS_REL_TOL,
           f"serving: the logits limit does not reject every fault: {fault_line(faults_c)}")
@@ -1490,7 +1594,7 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
         f"{cfg.n_layers} x {steps}; teacher-forced plain route: logits relative diff "
         f"{rel!r} (tolerance {LOGITS_REL_TOL}), max abs diff {worst!r}, greedy tokens agree "
         f"{agree}/{B * steps}; planted faults (split of {rows_c} rows): {fault_line(faults_c)}")
-    del caches, cache0, plain, kernel_logits, tokens, logits0, prompts
+    del run, plain, prompts
     torch.cuda.empty_cache()
 
     # (d) long context at full width: a cache filled in place, then decode
@@ -1498,15 +1602,16 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
     fill = max_seq - steps
     caches = lm.make_cache(cfg, B, max_seq, device=dev)
     gen = torch.Generator(dev).manual_seed(SEED + 1)
-    for t in (caches["main"]["k"], caches["main"]["v"]):
-        for layer in t:
-            layer[:, :fill].normal_(generator=gen)
+    for entry in caches.values():
+        for t in entry.values():
+            for layer in t:
+                layer[:, :fill].normal_(generator=gen)
     tok = torch.randint(0, cfg.vocab, (B, 1), generator=torch.Generator().manual_seed(SEED))
     tok = tok.to(dev)
     # the plain route's first step and the faults' on the same cache: each
     # writes row `fill` itself before it attends, and reads the fill below it
     want, caches = lm.decode_step(params, caches, tok, fill, cfg, attention=decode_attention_ref)
-    k0 = caches["main"]["k"][0]
+    k0 = first_k(caches)
     rows_d = split_rows(k0.new_empty((B, cfg.n_heads, cfg.d_head)), k0)[1]
     faults_d = {name: logits_rel_err(lm.decode_step(params, caches, tok, fill, cfg,
                                                     attention=fn)[0], want)
@@ -1554,20 +1659,7 @@ def drive_lm(dev, rng, stats, cfg, serve=LM_SERVE, long=LM_LONG):
         log(f"[10]   {ms:10.3f} ms  {calls:5d} calls  {name[:110]}")
     del caches, params, logits, first, want
     torch.cuda.empty_cache()
-    return {
-        "name": "decode_attention",
-        "route": "cuda",
-        "source": KERNEL_SOURCES["attention"],
-        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:65",
-        "launches": launches_c + launches_d,
-        "max_abs_err": max(err.values()),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": "bytes" if timing["bytes"] / HBM_BYTES_PER_S >= timing["flops"] / BF16_FLOPS
-        else "operations",
-        "library_ms": timing["library_ms"],
-    }
+    return kernel6_record(err, timing, launches_c + launches_d)
 
 
 # ----------------------------------------------------------------------
@@ -3262,6 +3354,426 @@ def fresh_trace(trace_dir, device, graph_b):
     trace_graph_b(trace_dir, build_graph(*graph_b, dev).dev, fresh=True)
 
 
+# ----------------------------------------------------------------------
+# phase 16: mixture-of-experts and latent-attention serving
+# ----------------------------------------------------------------------
+MOE_T = (8, 4096)            # (a): a decode step's tokens (batch 8), a prefill's (8 x 512)
+# (a): moe_ffn in bfloat16 against the float32 loop, relative L2 of each token's row.  The
+# layer rounds g, u, SiLU, h, y, the gates and the sum to bf16 (2^-9 each, about 1 % in
+# all); a routing fault moves a row by a whole expert's share (>= 10 %)
+MOE_REL_TOL = 2e-2
+MOE_SERVE = (8, 512, 1024, 32)   # (b), (c): batch, prompt tokens, max_seq, greedy steps
+MOE_CHECK = (2, 64, 4)           # (b): no-drop consistency: batch, prompt tokens, steps
+DENSE_SERVE = (8, 512, 1024, 16)  # (d)
+DBRX_LAYERS = 4        # of 40: the full depth is ~261 GB of bfloat16 weights
+MISTRAL_LAYERS = 2     # of 88: ~246 GB at full depth
+# (b): prefill + teacher-forced decode against one forward at no-drop capacity, in float32
+# (the served bf16 weights' draws unrounded), relative L2 of the logits and of each cache
+# row: the JAX package's tolerance for the same identity (tests/test_archs.py, 2e-3).  The
+# two paths' products have other shapes and round otherwise, which can flip a routing
+# near-tie among 64 experts: the routing of every MoE call is compared, at most 1 pick in
+# 1,000 may differ (a wrong cache row or position moves thousands), and the tolerance holds
+# the tokens whose routing agrees at every layer (at least one decoded position of every
+# sequence).  In bfloat16 ties are common; that reading is printed, not held.
+CONSIST_REL_TOL = 2e-3
+# (c): the MoE kernel route against the plain route in bfloat16.  The two attentions differ
+# by an ulp, which flips routing near-ties (bf16 logits often tie among 16 experts), and a
+# flipped pick moves a step's logits past LOGITS_REL_TOL.  The routing of both is compared:
+# at most this share of picks may differ (an attention fault reroutes most of them: 3 of 4
+# at random for dbrx), and LOGITS_REL_TOL holds every (step, sequence) whose routing agrees
+# at every layer, at least one step of each sequence.
+ROUTE_FLIP_SHARE = 0.05
+
+
+def moe_loop_reference(params, x, cfg):
+    """An independent loop over the experts: each token's top K by router
+    logit (the lower expert id first on ties: a stable sort on the host),
+    each expert's first C assignments in t·K + k order, the SwiGLU and the
+    gated sum in float32.  The logits are the router product as
+    ``moe_ffn`` forms it (activation dtype, then float32).  Returns the
+    output (T, d) float32, the kept mask (T, K), the top ids (T, K) and the
+    slots (T, K), E·C where dropped."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.nn.moe import capacity
+
+    T, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = capacity(cfg, T)
+    logits = (x @ params["router"]).float().cpu().numpy()
+    topi = np.argsort(-logits, axis=1, kind="stable")[:, :K]
+    topv = np.take_along_axis(logits, topi, 1).astype(np.float64)
+    gates = np.exp(topv - topv.max(1, keepdims=True))
+    gates /= gates.sum(1, keepdims=True)
+    slot = np.full((T, K), E * C)
+    taken = np.zeros(E, dtype=np.int64)
+    for t in range(T):
+        for k in range(K):
+            e = topi[t, k]
+            if taken[e] < C:
+                slot[t, k] = e * C + taken[e]
+                taken[e] += 1
+    kept = slot < E * C
+    xf = x.float()
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        t_idx, k_idx = np.nonzero(kept & (topi == e))
+        if len(t_idx) == 0:
+            continue
+        ti = torch.from_numpy(t_idx).to(x.device)
+        xe = xf[ti]
+        h = F.silu(xe @ params["w_gate"][e].float()) * (xe @ params["w_up"][e].float())
+        g = torch.from_numpy(gates[t_idx, k_idx]).float().to(x.device)
+        out.index_add_(0, ti, g[:, None] * (h @ params["w_down"][e].float()))
+    if "shared" in params:
+        sh = params["shared"]
+        out += (F.silu(xf @ sh["w_gate"].float()) * (xf @ sh["w_up"].float())) @ sh["w_down"].float()
+    return out, kept, topi, slot
+
+
+def moe_bound(params, route, cfg, T):
+    """The least time of one ``moe_ffn`` call on this data: the weights of
+    the experts that hold an assignment, the router, the shared experts, x
+    and the output read or written once, against the products of the kept
+    assignments at the bf16 peak.  Returns (bound ms, needed bytes, bytes
+    the batched products read)."""
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff_expert
+    esize = params["router"].element_size()
+    experts = int(route.topi[route.keep].unique().numel())
+    expert_bytes = 3 * d * f * esize
+    shared = weight_bytes(params.get("shared", {}))
+    io = 2 * T * d * esize + params["router"].numel() * esize + shared
+    kept = int(route.keep.sum())
+    flops = 2 * 3 * d * f * kept + 2 * T * d * E + 2 * 3 * T * d * cfg.n_shared * f
+    nbytes = experts * expert_bytes + io
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    return bound, nbytes, E * expert_bytes + io
+
+
+def check_moe_layer(dev, name, lm_cfg):
+    """Phase 16(a): one MoE layer of ``lm_cfg`` at full width in bfloat16,
+    weights and tokens from a fresh seeded generator on the card, at each T
+    of ``MOE_T``: ``moe_route`` and ``moe_ffn`` against
+    ``moe_loop_reference``, and ``moe_ffn``'s device ms."""
+    import torch
+
+    from repro_torch.nn.moe import capacity, init_moe, moe_ffn, moe_route
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated: the loop is float32
+    cfg = lm_cfg.moe_cfg()
+    gen = torch.Generator(dev).manual_seed(SEED)
+    params = init_moe(cfg, generator=gen, dtype=torch.bfloat16, device=dev)
+    for T in MOE_T:
+        x = torch.randn((T, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        out = moe_ffn(params, x, cfg)
+        route = moe_route(params, x, cfg)
+        want, kept, topi, slot = moe_loop_reference(params, x, cfg)
+        check(torch.equal(route.keep.cpu(), torch.from_numpy(kept))
+              and torch.equal(route.topi.cpu(), torch.from_numpy(topi))
+              and torch.equal(route.slot.cpu(), torch.from_numpy(slot)),
+              f"16(a) {name} T={T}: moe_route's assignments differ from the loop's")
+        err = ((out.float() - want).norm(dim=1) / want.norm(dim=1).clamp_min(1e-30)).max()
+        check(out.dtype == torch.bfloat16 and float(err) <= MOE_REL_TOL,
+              f"16(a) {name} T={T}: moe_ffn differs from the loop by {float(err)} relative")
+        bound, nbytes, read = moe_bound(params, route, cfg, T)
+        runs = (5, 3) if T > 64 else (15, 10)
+        t = check_bound(f"16(a) {name} moe_ffn T={T}",
+                        {"ms": device_ms(lambda: moe_ffn(params, x, cfg), runs=runs[0],
+                                         per_run=runs[1]), "bound_ms": bound})
+        dropped = int((~route.keep).sum())
+        log(f"[16] (a) {name} MoE layer (E={cfg.num_experts}, K={cfg.top_k}, d={cfg.d_model}, "
+            f"f={cfg.d_ff_expert}, shared {cfg.n_shared}) bfloat16, T={T}, C={capacity(cfg, T)}: "
+            f"moe_route == the loop's assignments ({kept.sum()} kept, {dropped} dropped of "
+            f"{T * cfg.top_k}); moe_ffn against the float32 loop: max relative L2 a token "
+            f"{float(err)!r} (tolerance {MOE_REL_TOL}); moe_ffn {t['ms']!r} ms device, bound "
+            f"{bound!r} ms ({nbytes} B of the occupied experts and I/O; the batched products "
+            f"read {read} B of every expert)")
+        del x, out, route, want
+    del params
+    torch.cuda.empty_cache()
+
+
+def drive_model(dev, cfg, serve, tag):
+    """Phase 16(b)-(d): ``cfg`` on the card, random bf16 weights from a fresh
+    seeded generator: ``serve`` = (batch, prompt tokens, max_seq, greedy
+    steps) through ``prefill`` and ``decode_step``, one more step under
+    ``torch.profiler``.  A GQA config launches kernel 6 once a layer a step
+    and is held teacher-forced to the plain route (a MoE config on the rows
+    whose routing agrees, ``ROUTE_FLIP_SHARE``); an MLA config launches it
+    never.  Returns the parameters, kernel 6's launches and the peak device
+    memory."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention.decode_attention import split_rows
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    B, P, max_seq, steps = serve
+    params = lm.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    wbytes = weight_bytes(params)
+    prompts = torch.randint(0, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    run = serve_greedy(params, cfg, prompts, max_seq, steps)
+    launches = run["launches"]
+    mla = cfg.attn == "mla"
+    want = 0 if mla else cfg.n_layers * steps
+    check(run["launches"] == want, f"16 {cfg.name}: {run['launches']} kernel 6 launches, not "
+                                   f"{want} ({cfg.n_layers} layers x {steps} steps, {cfg.attn})")
+    if not mla:
+        def forced(attention):
+            return teacher_forced(params, cfg, run["cache0"], run["tokens"], P, attention)
+
+        rows, routed = None, ""
+        if cfg.moe:
+            kern, k_routes = routing_log(lambda: forced(decode_attention))
+            ref, p_routes = routing_log(lambda: forced(decode_attention_ref))
+            rows, differ, picks, _, _ = routed_diff(kern, k_routes, ref, p_routes)
+            check(flip_rule(rows, differ, picks),
+                  f"16 {cfg.name}: {differ} of {picks} routing picks differ between the kernel "
+                  f"and the plain route, or a sequence has no step whose routing agrees")
+            same = all(torch.equal(a, b) for a, b in zip(kern, run["logits"]))
+            k0 = first_k(run["cache0"])
+            faults = {}
+            for name, fn in attention_faults(
+                    split_rows(k0.new_empty((B, cfg.n_heads, cfg.d_head)), k0)[1]).items():
+                f_rows, f_differ, _, f_held, f_all = routed_diff(*routing_log(lambda: forced(fn)),
+                                                                 ref, p_routes)
+                rejected = not flip_rule(f_rows, f_differ, picks) or f_held > LOGITS_REL_TOL
+                faults[name] = (f"{f_held!r} on agreeing rows, {f_all!r} on all, {f_differ} "
+                                f"picks differ, rejected {rejected}")
+            routed = (f"; routing picks that differ between the routes {differ} of {picks}, "
+                      f"(step, sequence) rows held {int(rows.sum())} of {rows.numel()}; the "
+                      f"routed re-run of the kernel route equals the served logits bit for "
+                      f"bit: {same}; planted faults against the plain route (a reading): "
+                      + "; ".join(f"{k} {v}" for k, v in faults.items()))
+            del kern
+        else:
+            ref = forced(decode_attention_ref)
+        rel, rel_all, worst, agree = compare_logits(run["logits"], ref, f"16 {cfg.name}", rows)
+        held = (f"teacher-forced plain route: logits relative diff {rel!r} (tolerance "
+                f"{LOGITS_REL_TOL}; over all rows {rel_all!r}), max abs diff {worst!r}, greedy "
+                f"tokens agree {agree}/{B * steps}{routed}")
+        del ref
+    else:
+        for i, g in enumerate(run["logits"]):
+            check(bool(torch.isfinite(g).all()), f"16 {cfg.name} step {i}: logits not finite")
+        held = "logits finite"
+    ms = run["decode_s"] / steps * 1e3
+    cache_rows = B * (P + steps / 2)
+    if mla:
+        row = 2 * (cfg.kv_lora_rank + cfg.rope_head_dim)
+        kv = 2 * 2 * cfg.n_layers * B * max_seq * cfg.n_heads * (
+            cfg.nope_head_dim + cfg.rope_head_dim + cfg.v_head_dim)
+        extra = (f"; K and V materialised from the whole latent cache every step: {kv} B "
+                 "written, then read")
+    else:
+        row = 2 * 2 * cfg.n_kv_heads * cfg.d_head
+        extra = ""
+    cache_bytes = cfg.n_layers * cache_rows * row
+    bound = (wbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    prof = profile_run(lambda: lm.decode_step(params, run["caches"],
+                                              run["tokens"][-1], P + steps, cfg))
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[16] {tag} {cfg.name}, {cfg.n_layers} layers, {wbytes} B of weights: {B} prompts x "
+        f"{P} tokens, max_seq {max_seq}: prefill {run['prefill_s']:.3f} s; {steps} greedy "
+        f"decode steps in {run['decode_s']:.3f} s = {ms:.3f} ms/step = "
+        f"{B * steps / run['decode_s']:.1f} tokens/s (bytes bound {bound:.3f} ms/step: the "
+        f"weights and {cache_bytes:.0f} B of cache{extra}); kernel 6 launches "
+        f"{run['launches']} = {want}; {held}; peak device memory {peak} B")
+    log_profile(f"16 {tag} {cfg.name} decode step", prof, ms)
+    del run, prompts
+    torch.cuda.empty_cache()
+    return params, launches, peak
+
+
+def token_rows_err(got, want):
+    """The relative L2 difference of each cache row, the max over the layers
+    and entries of each token: (B, S)."""
+    err = None
+    for key, entry in want.items():
+        for name, w in entry.items():
+            w = w.float()
+            d = (got[key][name].float() - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+            d = d.amax(dim=0)
+            err = d if err is None else err.maximum(d)
+    return err
+
+
+def routing_log(fn):
+    """``fn()`` with every ``moe_ffn`` call of the transformer's blocks
+    recording its top-k expert ids (``moe_route``, computed again beside the
+    call).  Returns ``fn()``'s result and the ids of each call in order."""
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.nn.moe import moe_route
+
+    calls, inner = [], lm.moe_ffn
+
+    def recording(params, x, cfg):
+        calls.append(moe_route(params, x, cfg).topi)
+        return inner(params, x, cfg)
+
+    lm.moe_ffn = recording
+    try:
+        return fn(), calls
+    finally:
+        lm.moe_ffn = inner
+
+
+def picks_differ(want, got):
+    """For each row, the top-k picks in ``got`` (rows, K) that ``want``'s same
+    row lacks."""
+    return (~(got[:, :, None] == want[:, None, :]).any(-1)).sum(-1)
+
+
+def routed_diff(got, got_routes, want, want_routes):
+    """Two teacher-forced decodes of one token sequence with their routing
+    logs: the (step, sequence) rows whose routing agrees at every layer,
+    the picks that differ and all picks, and the max logits relative L2
+    over the agreeing rows and over all rows."""
+    import torch
+
+    steps = len(got)
+    n = len(got_routes) // steps
+    flips = torch.stack([sum(picks_differ(want_routes[i * n + j], got_routes[i * n + j])
+                             for j in range(n)) for i in range(steps)])
+    rows = flips == 0
+    rel = torch.stack([(g.float() - w.float()).norm(dim=-1) / w.float().norm(dim=-1)
+                       for g, w in zip(got, want)])
+    held = float(rel[rows].max()) if bool(rows.any()) else float("inf")
+    return rows, int(flips.sum()), sum(r.numel() for r in got_routes), held, float(rel.max())
+
+
+def flip_rule(rows, differ, picks) -> bool:
+    """At most ``ROUTE_FLIP_SHARE`` of the picks differ, and every sequence
+    has a step whose routing agrees at every layer."""
+    return differ <= ROUTE_FLIP_SHARE * picks and bool(rows.any(dim=0).all())
+
+
+def consistency(dev, params, cfg):
+    """Phase 16(b)'s identity at no-drop capacity (``capacity_factor = E /
+    K``, as ``tests/test_archs.py`` runs it): ``forward`` over the whole
+    ``MOE_CHECK`` sequence of S tokens against a prefill of its P prompt
+    tokens and teacher-forced decode steps, every MoE call's routing
+    logged.  Returns ``logits`` (B, S - P + 1), the relative L2 of the
+    prefill's last logits and of each step's; ``rows`` (B, S), each token's
+    worst cache row (relative L2, over layers and entries) against
+    ``forward(collect_cache=True)``'s; ``flipped`` (B, S), the tokens with a
+    routing pick that differs from the forward's in some layer; the picks
+    that differ and the picks compared; and ``exact``: the prompt alone
+    through ``forward(collect_cache=True)`` gives the prefill's caches bit
+    for bit."""
+    import torch
+
+    from repro_torch.models import transformer_lm as lm
+
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    B, P, steps = MOE_CHECK
+    S = P + steps
+    toks = torch.randint(0, cfg.vocab, (B, S),
+                         generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    (h, full), fwd = routing_log(lambda: lm.forward(params, toks, cfg, collect_cache=True))
+    ref = lm.logits_from_hidden(params, h, cfg)
+    (logits, cache), routes = routing_log(lambda: lm.prefill(params, toks[:, :P], cfg,
+                                                             max_seq=S))
+    flips = torch.zeros((B, S), dtype=torch.long, device=dev)
+    rows = (torch.arange(B, device=dev)[:, None] * S + torch.arange(P, device=dev)).reshape(-1)
+    for f, g in zip(fwd, routes):
+        flips[:, :P] += picks_differ(f[rows], g).reshape(B, P)
+    picks = sum(g.numel() for g in routes)
+    rel = [(logits.float() - ref[:, P - 1].float()).norm(dim=-1)
+           / ref[:, P - 1].float().norm(dim=-1)]
+    for p in range(P, S):
+        (logits, cache), routes = routing_log(
+            lambda: lm.decode_step(params, cache, toks[:, p:p + 1], p, cfg))
+        rows = torch.arange(B, device=dev) * S + p
+        for f, g in zip(fwd, routes):
+            flips[:, p] += picks_differ(f[rows], g)
+        picks += sum(g.numel() for g in routes)
+        rel.append((logits.float() - ref[:, p].float()).norm(dim=-1)
+                   / ref[:, p].float().norm(dim=-1))
+    _, alone = lm.forward(params, toks[:, :P], cfg, collect_cache=True)
+    _, prefilled = lm.prefill(params, toks[:, :P], cfg)
+    exact = all(torch.equal(alone[k][n], prefilled[k][n]) for k in alone for n in alone[k])
+    return dict(logits=torch.stack(rel, dim=1), rows=token_rows_err(cache, full),
+                flipped=flips > 0, differ=int(flips.sum()), picks=picks, exact=exact)
+
+
+def consistency_line(c) -> str:
+    ok = ~c["flipped"]
+    P = MOE_CHECK[1]
+    logits_ok = c["logits"][ok[:, P - 1:]]
+    return (f"routing picks that differ from the forward's {c['differ']} of {c['picks']}, "
+            f"tokens with one {int(c['flipped'].sum())} of {c['flipped'].numel()}; logits "
+            f"relative L2 (prefill's last, then each step; a row a sequence) "
+            f"{c['logits'].tolist()!r}, max over the tokens whose routing agrees "
+            f"{float(logits_ok.max()) if logits_ok.numel() else None!r}; cache rows against "
+            f"forward(collect_cache=True)'s, max relative L2 a token "
+            f"{float(c['rows'].max())!r}, over the tokens whose routing agrees "
+            f"{float(c['rows'][ok].max()) if bool(ok.any()) else None!r}; the prompt alone "
+            f"through forward(collect_cache=True) equals the prefill's caches bit for bit: "
+            f"{c['exact']}")
+
+
+def drive_moe(dev) -> int:
+    """Phase 16: the MoE layer at full width (a); deepseek-v2-lite-16b at
+    full width and depth through the MLA route, with its no-drop
+    consistency check (b); dbrx-132b at full width, ``DBRX_LAYERS`` of its
+    40 layers (c); qwen1.5-4b at full depth and mistral-large-123b at full
+    width, ``MISTRAL_LAYERS`` of its 88 layers (d), through kernel 6.  Each
+    model is freed before the next.  Returns kernel 6's launches."""
+    import torch
+
+    from repro_torch.configs import dbrx_132b, deepseek_v2_lite_16b, mistral_large_123b
+    from repro_torch.configs import qwen1_5_4b
+    from repro_torch.models import transformer_lm as lm
+
+    deepseek = deepseek_v2_lite_16b.full_config()
+    dbrx = dataclasses.replace(dbrx_132b.full_config(), n_layers=DBRX_LAYERS)
+    for name, cfg in (("deepseek-v2-lite-16b", deepseek), ("dbrx-132b", dbrx)):
+        check_moe_layer(dev, name, cfg)
+    params, launches, _ = drive_model(dev, deepseek, MOE_SERVE, "(b)")
+    B, P, steps = MOE_CHECK
+    head = (f"[16] (b) {deepseek.name} at no-drop capacity, {B} x {P} prompt tokens + {steps} "
+            f"teacher-forced steps against forward over {P + steps}")
+    log(f"{head}, the served bfloat16 weights (a reading): "
+        + consistency_line(consistency(dev, params, deepseek)))
+    del params
+    torch.cuda.empty_cache()
+    # the check: float32 weights, the same seeded draws unrounded
+    f32 = dataclasses.replace(deepseek, dtype="float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init(f32, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    c = consistency(dev, params, f32)
+    ok = ~c["flipped"]
+    check(c["exact"] and c["differ"] * 1000 <= c["picks"]
+          and bool(ok[:, P - 1:].any(dim=1).all())
+          and float(c["logits"][ok[:, P - 1:]].max()) <= CONSIST_REL_TOL
+          and float(c["rows"][ok].max()) <= CONSIST_REL_TOL,
+          f"16(b) no-drop consistency in float32: {consistency_line(c)} "
+          f"(tolerance {CONSIST_REL_TOL})")
+    log(f"{head}, float32 weights (the same draws, {weight_bytes(params)} B): "
+        f"{consistency_line(c)} (tolerance {CONSIST_REL_TOL}); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    del params
+    for cfg, serve, tag in (
+            (dbrx, MOE_SERVE, "(c)"),
+            (qwen1_5_4b.full_config(), DENSE_SERVE, "(d)"),
+            (dataclasses.replace(mistral_large_123b.full_config(), n_layers=MISTRAL_LAYERS),
+             DENSE_SERVE, "(d)")):
+        params, n, _ = drive_model(dev, cfg, serve, tag)
+        launches += n
+        del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def log_profile(tag, prof, ms):
     """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
     wall, busy_ms, n_kernels, top = prof
@@ -3278,6 +3790,10 @@ def main(argv=None) -> int:
     only.add_argument("--lm-only", action="store_true",
                       help="build the kernels and run phase 10 alone (kernel 6 and the LM "
                            "serving path): a quick check after editing kernel 6")
+    only.add_argument("--moe-only", action="store_true",
+                      help="build the kernels and run phase 10(a)-(b) (kernel 6 against its "
+                           "plain version, timed) and phase 16 alone (MoE and MLA serving, "
+                           "the other LM configurations through kernel 6)")
     only.add_argument("--recsys-only", action="store_true",
                       help="build the kernels and run phase 11 alone (kernel 5 and SASRec "
                            "serving): a quick check after editing kernel 5")
@@ -3320,6 +3836,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         kernels = [drive_lm(dev, np.random.default_rng(SEED), {}, qwen2_1_5b.full_config())]
         log(f"wall seconds: LM serving {time.perf_counter() - t0:.1f}")
+    elif args.moe_only:
+        import numpy as np
+
+        t0 = time.perf_counter()
+        err, timing = check_kernel6(dev, np.random.default_rng(SEED), {})
+        kernels = [kernel6_record(err, timing, drive_moe(dev))]
+        log(f"wall seconds: MoE and MLA serving {time.perf_counter() - t0:.1f}")
     elif args.recsys_only:
         t0 = time.perf_counter()
         kernels = [drive_recsys(dev, {})]
@@ -3334,7 +3857,7 @@ def main(argv=None) -> int:
 
 
 def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
-    """Phases 2 to 15 on ``dev`` (8, the SHA-256 check, last); returns the
+    """Phases 2 to 16 on ``dev`` (8, the SHA-256 check, last); returns the
     kernels' records."""
     import numpy as np
     import torch
@@ -3750,6 +4273,11 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     t0 = time.perf_counter()
     main_round_launches += drive_mutable(dev, A_, B_, E_, graph_b)
     wall["mutable + observability"] = time.perf_counter() - t0
+
+    # 16. mixture-of-experts and latent-attention serving (kernel 6) -------
+    t0 = time.perf_counter()
+    record6["launches"] += drive_moe(dev)
+    wall["MoE + MLA serving"] = time.perf_counter() - t0
 
     # 8. large memory is never written (after every phase) ---------------
     now = graph_digest(gA, A_.csr, gB, B_.csr, E_.dev, E_.csr)

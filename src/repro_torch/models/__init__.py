@@ -1,3 +1,3 @@
-"""Models of the port: the dense-GQA transformer LM's serving path and
-SASRec's serving path."""
+"""Models of the port: the transformer LM's serving path (dense GQA, MoE,
+MLA) and SASRec's serving path."""
 from . import sasrec, transformer_lm

@@ -27,7 +27,7 @@ def swiglu_specs(d: int, f: int) -> dict:
 def draw_normal(shape, scale, *, generator, dtype, device) -> torch.Tensor:
     """A standard normal draw in float32, times ``scale``, cast to ``dtype``."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)  # in place: one float32 temporary a leaf
 
 
 def init_swiglu(d: int, f: int, *, generator: torch.Generator, dtype=torch.float32,

@@ -49,7 +49,7 @@ from repro_torch.core import (
 from repro_torch.core.edgemap import _identity_map
 from repro_torch.core.graph_filter import edge_active_words
 from repro_torch.core.primitives import INF_I32
-from repro_torch.configs import qwen2_1_5b
+from repro_torch.configs import dbrx_132b, qwen2_1_5b
 from repro_torch.configs import sasrec as sasrec_config
 from repro_torch.core.convert import from_reference_arrays, to_reference_arrays
 from repro_torch.data import rmat_graph
@@ -777,6 +777,8 @@ ATTN_SHAPES = [  # (B, S, Hq, Hkv, D): the JAX sweep, qwen2-1.5b, an MHA, a grou
     (4, 777, 20, 20, 128), (3, 500, 24, 2, 64),
     # groups of 2 and 8, and 12 (two head chunks) at D = 16; S not a multiple of 32
     (5, 97, 4, 2, 64), (4, 201, 16, 2, 32), (2, 130, 12, 1, 16), (3, 95, 16, 2, 8),
+    # dbrx-132b's 48 over 8 and mistral-large-123b's 96 over 8 (two head chunks) at D = 128
+    (4, 600, 48, 8, 128), (2, 333, 96, 8, 128),
 ]
 # the edges of the tensor-core kernel's ring: 1, one short of a 32-row stage,
 # one stage, one past it, two stages and around them, and S
@@ -859,6 +861,28 @@ def test_decode_step_kernel_route_matches_plain(cuda, dtype):
     tol = LOGITS_TOL[cfg.activation_dtype]
     for p in range(12, 20):
         plain_cache = {"main": {k: t.clone() for k, t in cache["main"].items()}}
+        before = decode_attention.launches
+        logits, _ = lm.decode_step(params, cache, toks[:, p:p + 1], p, cfg)
+        assert decode_attention.launches == before + cfg.n_layers
+        want, _ = lm.decode_step(params, plain_cache, toks[:, p:p + 1], p, cfg,
+                                 attention=decode_attention_ref)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(logits.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_decode_step_kernel_route_matches_plain(cuda, dtype):
+    """dbrx-132b's smoke config (MoE blocks, GQA) on the card: one kernel
+    launch a layer a step, and the logits of the plain route on the same
+    caches."""
+    cfg = dataclasses.replace(dbrx_132b.smoke_config(), dtype=dtype)
+    params = lm.init(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (3, 20), generator=torch.Generator().manual_seed(1))
+    toks = toks.to(cuda)
+    _, cache = lm.prefill(params, toks[:, :12], cfg, max_seq=20)
+    tol = LOGITS_TOL[cfg.activation_dtype]
+    for p in range(12, 20):
+        plain_cache = {"moe": {k: t.clone() for k, t in cache["moe"].items()}}
         before = decode_attention.launches
         logits, _ = lm.decode_step(params, cache, toks[:, p:p + 1], p, cfg)
         assert decode_attention.launches == before + cfg.n_layers

@@ -24,6 +24,9 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 import numpy as np
+from torch_parity import assert_close as _close
+from torch_parity import leaves as _leaves
+from torch_parity import numpy_tree as _numpy_tree
 
 from repro.configs import qwen2_1_5b as jqwen
 from repro.kernels.decode_attention import decode_attention as jdecode_attention
@@ -35,6 +38,7 @@ from repro.nn.mlp import swiglu as jswiglu
 from repro.nn.norms import layer_norm as jlayer_norm
 from repro.nn.norms import rms_norm as jrms_norm
 from repro.nn.rotary import apply_rope as japply_rope
+from repro_torch.configs import dbrx_132b, deepseek_v2_lite_16b
 from repro_torch.configs import qwen2_1_5b as qwen
 from repro_torch.core.convert import lm_params_from_reference
 from repro_torch.kernels import (
@@ -60,21 +64,8 @@ def _pair(a, dtype):
     return jnp.asarray(a, jnp.float32).astype(JDT[dtype]), torch.from_numpy(a).to(TDT[dtype])
 
 
-def _close(got, want, tol):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
-    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol, atol=tol)
-
-
 def _tol(dtype):
     return F32_TOL if dtype == "float32" else BF16_TOL
-
-
-def _numpy_tree(tree):
-    """A JAX parameter tree as numpy arrays; bfloat16 leaves as their uint16
-    bit patterns (numpy has no bfloat16 of its own)."""
-    return jax.tree.map(
-        lambda a: np.asarray(a).view(np.uint16) if a.dtype == jnp.bfloat16 else np.asarray(a),
-        tree)
 
 
 # ---------------------------------------------------------------- nn
@@ -321,16 +312,6 @@ def test_full_config_matches_jax():
     assert qwen.full_config().q_dim == jqwen.full_config().q_dim
 
 
-def _leaves(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_leaves(v, f"{prefix}/{k}"))
-        else:
-            out[f"{prefix}/{k}"] = v
-    return out
-
-
 @pytest.mark.parametrize("which", ["smoke", "full"])
 def test_init_tree_matches_jax(which):
     jcfg = getattr(jqwen, f"{which}_config")()
@@ -423,8 +404,20 @@ def test_decode_step_matches_teacher_forced_forward():
 
 @pytest.mark.parametrize("field,value", [("moe", True), ("attn", "mla")])
 def test_later_slices_raise(field, value):
-    cfg = dataclasses.replace(qwen.smoke_config(), **{field: value})
-    with pytest.raises(NotImplementedError):
-        lm.init(cfg, generator=torch.Generator().manual_seed(0), device=CPU)
-    with pytest.raises(NotImplementedError):
-        lm.make_cache(cfg, 1, 4, device=CPU)
+    """MoE and MLA configs serve (``tests/test_torch_moe_lm.py``); what the
+    decode kernel does not take yet raises: a sliding window at decode (on
+    dbrx's MoE config), and a single-token attention for an MLA layer
+    (deepseek-v2-lite), which attends with ``gqa_attention`` over its
+    materialised K and V."""
+    arch = {"moe": dbrx_132b, "attn": deepseek_v2_lite_16b}[field]
+    cfg = arch.smoke_config()
+    assert getattr(cfg, field) == value
+    params = lm.init(cfg, generator=torch.Generator().manual_seed(0), device=CPU)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    _, cache = lm.prefill(params, toks, cfg, max_seq=5)
+    if field == "moe":
+        with pytest.raises(NotImplementedError, match="window"):
+            lm.decode_step(params, cache, toks[:, :1], 4, dataclasses.replace(cfg, window=2))
+    else:
+        with pytest.raises(ValueError, match="MLA"):
+            lm.decode_step(params, cache, toks[:, :1], 4, cfg, attention=decode_attention)

@@ -37,3 +37,29 @@ def port_graph(g):
 def words_u32(t):
     """Port int32 packed words as the JAX package's uint32 words."""
     return to_np(t).view(np.uint32)
+
+
+def leaves(tree, prefix=""):
+    """A nested dict's leaves as ``{"/a/b": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaves(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def numpy_tree(tree):
+    """A JAX parameter tree (nested dicts) as numpy arrays; bfloat16 leaves
+    as their uint16 bit patterns (numpy has no bfloat16 of its own)."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def assert_close(got, want, tol):
+    """Element for element within rtol = atol = ``tol``, in float32."""
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol, atol=tol)
