@@ -5,6 +5,7 @@
     python3 chip_smoke.py --lm-only      # phase 10 alone (kernel 6, the LM serving path)
     python3 chip_smoke.py --moe-only     # phase 10(a)-(b) and 16 (MoE, MLA, the other LMs)
     python3 chip_smoke.py --recsys-only  # phase 11 alone (kernel 5, SASRec serving)
+    python3 chip_smoke.py --train-only   # phase 17 alone (kernel 5', training)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version on the
@@ -24,7 +25,9 @@ mutable graphs (the delta overlay, compaction, checkpoints, the service's
 edit path) and the observability layer (trace sessions, the round-loop
 observer, the metric dump); mixture-of-experts and latent-attention serving
 (deepseek-v2-lite-16b at full width and depth, dbrx-132b at full width) and
-the other LM configurations through the single-token attention kernel.
+the other LM configurations through the single-token attention kernel;
+training (AdamW, the fault-tolerant trainer with checkpoint and restart, the
+LM and SASRec losses, the EmbeddingBag backward kernel).
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -157,9 +160,11 @@ the other LM configurations through the single-token attention kernel.
    stream of 48 BFS, wBFS and PPR requests from two tenants, one under a
    budget (admission "defer"), and 16 more on a "reject" service, firing the
    deadline, depth and forced flushes, a defer, a reject, repacks and mixed
-   cohorts; every ticket (status, finish time, rounds, words), ``stats``,
-   ledgers and ``trace_counts`` equal to the CPU route's, every traversal
-   result equal to its single run, the tickets' words summing to the read
+   cohorts; on the first 16 requests of the stream (a service of their own,
+   on the card and on the CPU route), every ticket (status, finish time,
+   rounds, words), ``stats``, ledgers and ``trace_counts`` equal to the CPU
+   route's; every traversal result of the whole stream equal to its single
+   run, the tickets' words summing to the read
    delta, at most one fused launch a cohort round, ``map_lanes`` bool (B,)
    on the card after every repack; then one flush under ``torch.profiler``.
 13. The rest of Table 1 and of the core: (a) on graph B under the
@@ -251,15 +256,47 @@ the other LM configurations through the single-token attention kernel.
    teacher-forced to the plain route within 0.1; (d) qwen1.5-4b at full
    depth and mistral-large-123b at full width, 2 of its 88 layers: 16
    greedy steps each through kernel 6, held to the plain route the same way.
-8. Last, the graph tensors of A, B and E, compressed and CSR, and graph A's
-   shards are unchanged (SHA-256 before and after every phase).
+8. After phase 16, the graph tensors of A, B and E, compressed and CSR, and
+   graph A's shards are unchanged (SHA-256 before and after every phase);
+   then the graphs are freed.
+17. Training on the card, float32 products full (TF32 off, stated), every
+   time printed beside the card's name and power limit: (a) the EmbeddingBag
+   backward (kernel 5', ``embedding_bag_backward``) against its plain
+   version bit for bit (its record's ``max_abs_err`` the largest difference
+   of (a) and (b), measured): bags of one, L > 1 with weights, ids -1, -7, V and
+   V+3, duplicates, a hot row holding half the ids, D from 1 to 200, rows of
+   exactly a chunk and one slot more, each called twice; ``take_rows`` under
+   ``backward()`` on the card against the CPU route bit for bit; (b) its
+   device ms (its stable sort included, and alone), its plain version's, and
+   two yardsticks the port never calls (``aten.embedding_dense_backward``,
+   sort-based; ``zeros.index_add_``, atomic) at train_batch's lookup
+   (3,276,800 ids into a 2^20 x 50 float32 table) with the hot padding row
+   and with uniform ids, beside the bytes bound; (c) SASRec's train_batch at
+   full size (65,536 users x 50, the 2^20-item catalog, d 50, float32,
+   ``make_sasrec_batch_fn``): the first step's gradient non-zero on every
+   ``item_emb`` row the batch touches and exactly 0 on every other, the loss
+   and gradients at 1,024 users within 1e-5 of the CPU route; ``Trainer``, 6
+   steps with a checkpoint every 3, against a run that fails at step 4 and
+   resumes: parameters and AdamW state bit for bit, kernel 5 and 5' launched
+   3 times a step; ms a step (median of the steps after the first that write
+   no checkpoint), users/s, peak memory; (d) qwen2-1.5B whole (28
+   layers, bf16, remat full): train_4k's 4,096-token sequences, the global
+   batch cut from 256 to 8, accumulated over 8 microbatches, 4 steps; the
+   first loss within 0.05 of ln V + sigma^2 / 2 (``first_loss_reckoned``),
+   every loss finite; ms a step, tokens/s, model flops over the dense bf16
+   peak, peak memory beside the reckoning; cut to 2 layers at full width,
+   one ``train_step`` against the CPU route (loss, grad norm, parameters
+   after the update, stated tolerances) and a bf16 restart bit for bit; (e)
+   deepseek-v2-lite-16b cut to its dense layer and one MoE layer at full
+   width, 4 steps of 2 x 4,096 tokens: finite losses, the router and every
+   expert tensor moved, ms a step (median of steps 2-4), peak memory.
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
 phases 4-5, 12, 13, 14 and 15 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
 phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phases 10(c), (d) and
-16(b)-(d) for kernel 6, phase 11(c) and (d) for kernel 5.
+16(b)-(d) for kernel 6, phase 11(c) and (d) and 17(c) for kernel 5, phase 17(c) for kernel 5'.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
 or outside a checkout of the repository, the script exits with code 2 and
 prints no result.
@@ -273,6 +310,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -305,6 +343,7 @@ PPR_ROUNDS = 50
 # converging at this eps, so no float-order flip changes the words they cost
 SERVICE_PPR = {"eps": 1e-7, "max_rounds": 3}
 SERVICE_REQUESTS = 48
+SERVICE_HELD = 16  # phase 12(d): requests of a stream the CPU route serves again
 T1_SOURCES = 4     # phase 13(a): sources of each float-monoid traversal on graph B
 BC_REL_TOL = 1e-4  # betweenness: max|Δ| / max|ref|, float sums in another order
 SPANNER_K = 4
@@ -2269,7 +2308,7 @@ def drive_serving_tier(dev, A_, B_):
         return plain_round(*args, **kwargs)
 
     served = {}
-    for admission, k in (("defer", SERVICE_REQUESTS), ("reject", 16)):
+    for admission, k in (("defer", SERVICE_REQUESTS), ("reject", SERVICE_HELD)):
         cfg = ServiceConfig(slo=0.05, max_batch=8, depth_trigger=6, round_quantum=2,
                             admission=admission, budgets=budgets)
         svc = ServingService(gB, plan=plan_b, config=cfg, registry=noop_registry())
@@ -2284,11 +2323,21 @@ def drive_serving_tier(dev, A_, B_):
         finally:
             ops.compressed_stream_round = plain_round
         launches = read()
-        svc_cpu = ServingService(hB, plan=plan_cpu, config=cfg, registry=noop_registry())
-        tickets_cpu = service_stream(svc_cpu, stream_srcs[:k])
         what = f"graph B service ({admission})"
-        same_tickets(tickets, tickets_cpu, deg, pi_of, what)
-        same_service(svc, svc_cpu, what)
+        # the CPU route serves the first SERVICE_HELD requests only (its
+        # graph B sweeps take ~2 s each); a stream's tickets depend on the
+        # whole stream, so a card service serves the same shorter stream
+        held_svc, held_tickets = svc, tickets
+        if k > SERVICE_HELD:
+            held_svc = ServingService(gB, plan=plan_b, config=cfg, registry=noop_registry())
+            reset()
+            held_tickets = service_stream(held_svc, stream_srcs[:SERVICE_HELD])
+            read()
+        svc_cpu = ServingService(hB, plan=plan_cpu, config=cfg, registry=noop_registry())
+        tickets_cpu = service_stream(svc_cpu, stream_srcs[:SERVICE_HELD])
+        same_tickets(held_tickets, tickets_cpu, deg, pi_of,
+                     f"{what}, first {SERVICE_HELD} requests")
+        same_service(held_svc, svc_cpu, f"{what}, first {SERVICE_HELD} requests")
         for t in tickets:
             if t.result is None:
                 continue
@@ -2312,8 +2361,9 @@ def drive_serving_tier(dev, A_, B_):
         log(f"[12] {what}: {k} requests in {secs:.3f} s = {st['served'] / secs:.2f} served/s "
             f"of the drain loop; stats {st}; occupancy {svc.occupancy:.3f}; kernel 1 launches: "
             f"fused {launches[1]} in {st['cohort_rounds']} cohort rounds, decode {launches[0]} "
-            f"(PPR); every ticket equals the CPU route's, every traversal result its single "
-            f"run; ticket words sum to the read delta ({delta} words)")
+            f"(PPR); every traversal result equals its single run; ticket words sum to the "
+            f"read delta ({delta} words); the first {SERVICE_HELD} requests' stream equals the "
+            f"CPU route's (tickets, stats, ledgers, trace_counts, PSAM account)")
     st_d, st_r = served["defer"][0].stats, served["reject"][0].stats
     layouts = {key[3] for key in served["defer"][0].trace_counts}
     check(st_d["deadline_flushes"] and st_d["depth_flushes"] and st_d["forced_flushes"]
@@ -3774,6 +3824,576 @@ def drive_moe(dev) -> int:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 17: training on the card (kernel 5', the trainer, the LM losses)
+# ----------------------------------------------------------------------
+CARD = "card not read"   # nvidia-smi's name and power limit, set by main()
+GRAD_CASES = [         # (V, D, B, L, hot share, weighted): kernel 5' against its plain version
+    (1000, 50, 4099, 1, 0.0, False),     # bags of one, planted ids, duplicates
+    (500, 33, 300, 9, 0.0, True),        # L > 1 with weights
+    (2000, 50, 20000, 1, 0.5, False),    # a hot row holding half the ids (~10 chunks)
+    (3000, 50, 1000, 50, 0.5, True),     # the same in bags of 50, weighted
+    (97, 200, 700, 3, 0.2, True),        # two column tiles
+    (50, 16, 1024, 1, 1.0, False),       # a row of exactly one chunk (BACKWARD_CHUNK)
+    (50, 16, 1025, 1, 1.0, True),        # one slot over
+]
+GRAD_TIMED = (1 << 20, 50, 65_536 * 50)  # train_batch's lookup: catalog, width, ids
+SAS_TRAIN = (65_536, 6, 3, 4)  # train_batch users; steps, ckpt_every, fail_at_step
+SAS_CHECK_USERS = 1_024        # the first step held to the CPU route
+GRAD_REL_TOL = 1e-5            # float32 gradients, card against CPU: other sum orders
+LM_TRAIN = (8, 4096, 8, 4)     # train_4k cut: global batch (of 256), seq, accum, steps
+LM_CHECK = (2, 2, 128)         # qwen2 cut to 2 layers: layers; the CPU-held step's batch, seq
+LM_RESTART = (2, 512, 3, 2)    # the 2-layer bf16 restart: batch, seq; steps, fail_at = ckpt_every
+MOE_TRAIN = (2, 2, 4096, 4)    # deepseek cut: layers; global batch, seq (accum 2), steps
+# A random LM's first loss: the tied embedding (std INIT_STD) against a
+# hidden state of unit RMS gives logits of spread sigma = INIT_STD sqrt(d),
+# so logsumexp ~ ln(vocab) + sigma^2 / 2 and the target's logit ~ 0 (qwen2:
+# ln 151,936 = 11.931 + 0.307 = 12.238; one layer of it on the CPU, 128
+# tokens: logsumexp 12.2373).  The first loss must lie within this of it.
+FIRST_LOSS_TOL = 0.05
+
+
+def first_loss_reckoned(cfg) -> float:
+    from repro_torch.models.transformer_lm import INIT_STD
+
+    return math.log(cfg.vocab) + 0.5 * INIT_STD ** 2 * cfg.d_model
+# qwen2's one step, bf16, card against the CPU route: the two round bf16
+# products at other places (the logits ~1e-3 of 11.93 apart), and AdamW's
+# first step moves each element by ~lr times the sign of its gradient, so an
+# element whose gradient is near 0 moves opposite ways on the two routes
+BF16_LOSS_RTOL = 1e-2
+BF16_NORM_RTOL = 5e-2
+BF16_FLIP_SHARE = 0.05         # elements more than one bf16 ulp apart after the update
+
+
+def same_tree_bits(a, b) -> bool:
+    """Two parameter / optimizer trees equal leaf for leaf, bit for bit
+    (-0.0 is not +0.0)."""
+    import torch
+
+    from repro_torch.kernels import same_bits
+    from repro_torch.optim import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        same_bits(x, y) if x.is_floating_point() else x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def tree_rel_l2(got, want) -> list:
+    """Relative L2 distance of each leaf of ``got`` from ``want``, in
+    ``tree_leaves`` order."""
+    from repro_torch.optim import tree_leaves
+
+    la, lb = tree_leaves(got), tree_leaves(want)
+    check(len(la) == len(lb), f"trees of {len(la)} and {len(lb)} leaves")
+    return [float((g.detach().double().cpu() - w.detach().double().cpu()).norm()
+                  / max(float(w.detach().double().norm()), 1e-30)) for g, w in zip(la, lb)]
+
+
+def compare_bag_backward(dev):
+    """Phase 17(a): kernel 5' against its plain version on the card, bit for
+    bit, at ``GRAD_CASES``; ``take_rows`` under ``backward()`` on the card
+    (wrapped negatives, out-of-range ids, duplicates) against the CPU route
+    on the same tensors.  Returns the count of cases and the largest
+    absolute difference of any of them (0.0 when all are bit for bit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (
+        bag_grad_case,
+        embedding_bag_backward,
+        embedding_bag_backward_ref,
+        same_bits,
+        take_rows,
+    )
+
+    cases, err = 0, 0.0
+    for i, (V, D, B, L, hot, weighted) in enumerate(GRAD_CASES):
+        g, ids, w = bag_grad_case(V, D, B, L, SEED + i, hot=hot, weighted=weighted, device=dev)
+        got = embedding_bag_backward(g, ids, V, w)
+        want = embedding_bag_backward_ref(g, ids, V, w)
+        again = embedding_bag_backward(g, ids, V, w)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()), float((again - got).abs().max()))
+        check(same_bits(got, want), f"kernel 5' {(V, D, B, L, hot, weighted)}: not bit for bit "
+                                    "the plain version's")
+        check(same_bits(again, got), f"kernel 5' {(V, D, B, L, hot, weighted)}: a second call "
+                                     "differs")
+        cases += 2
+    rng = np.random.default_rng(SEED)
+    for V in (777, 4099):
+        table = torch.from_numpy(rng.standard_normal((V, 50)).astype(np.float32))
+        ids = torch.from_numpy(rng.integers(-V - 3, V + 3, (256, 50)).astype(np.int32))
+        ids[:128, :25] = 5                                   # a hot row
+        up = torch.from_numpy(rng.standard_normal((256, 50, 50)).astype(np.float32))
+        t_card = table.to(dev).detach().clone().requires_grad_(True)
+        (take_rows(t_card, ids.to(dev)) * up.to(dev)).sum().backward()
+        t_cpu = table.detach().clone().requires_grad_(True)
+        (take_rows(t_cpu, ids) * up).sum().backward()
+        torch.cuda.synchronize()
+        check(t_card.grad is not None, f"take_rows backward on the card (V={V}): no gradient")
+        err = max(err, float((t_card.grad.cpu() - t_cpu.grad).abs().max()))
+        check(same_bits(t_card.grad.cpu(), t_cpu.grad),
+              f"take_rows backward on the card (V={V}) differs from the CPU route")
+        cases += 1
+    return cases, err
+
+
+def bag_backward_bytes(g, ids, V):
+    """Bytes kernel 5' must move: the gradient rows and the ids read once,
+    the (V, D) table gradient written once."""
+    return g.numel() * 4 + ids.numel() * 4 + V * g.shape[1] * 4
+
+
+def time_bag_backward(dev, hot: bool):
+    """Phase 17(b): device ms of kernel 5' (its sort included), of its plain
+    version and of two yardsticks the port never calls
+    (``aten.embedding_dense_backward``, sort-based; ``zeros.index_add_``,
+    atomic) at train_batch's lookup: 3,276,800 ids into a 2^20 x 50 float32
+    table.  ``hot``: the ids of a ``make_sasrec_batch_fn`` history, padding
+    item 0 (~24 % of the slots) a hot row; else uniform ids.  Each held to
+    the plain version first (the kernel bit for bit)."""
+    import torch
+
+    from repro_torch.data import make_sasrec_batch_fn
+    from repro_torch.kernels import (
+        backward_plan,
+        embedding_bag_backward,
+        embedding_bag_backward_ref,
+        same_bits,
+    )
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    V, D, N = GRAD_TIMED
+    gen = torch.Generator(dev).manual_seed(SEED + 17)
+    if hot:
+        ids = make_sasrec_batch_fn(V, N // 50, 50, device=dev)(SEED)["seq"].reshape(N, 1)
+    else:
+        ids = torch.randint(0, V, (N, 1), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn((N, D), generator=gen, device=dev)
+    flat = ids.reshape(-1).long()
+    want = embedding_bag_backward_ref(g, ids, V)
+    got = embedding_bag_backward(g, ids, V)
+    err = float((got - want).abs().max())
+    check(same_bits(got, want),
+          f"kernel 5' at train_batch (hot={hot}): not bit for bit the plain version's")
+    del got
+
+    def dense():
+        return torch.ops.aten.embedding_dense_backward(g, flat, V, -1, False)
+
+    def atomic():
+        return torch.zeros((V, D), device=dev).index_add_(0, flat, g)
+
+    lib_err = max(float((f() - want).abs().max()) for f in (dense, atomic))
+    rel = max(float((f() - want).norm() / want.norm()) for f in (dense, atomic))
+    check(rel <= GRAD_REL_TOL, f"a yardstick at train_batch differs from plain by {rel}")
+    hot_share = float((ids == int(torch.mode(flat).values)).float().mean())
+    del want
+    nbytes = bag_backward_bytes(g, ids, V)
+    t = dict(
+        ms=device_ms(lambda: embedding_bag_backward(g, ids, V), runs=9, per_run=5),
+        sort_ms=device_ms(lambda: backward_plan(ids, V), runs=9, per_run=5),
+        plain_ms=device_ms(lambda: embedding_bag_backward_ref(g, ids, V), runs=3, per_run=1),
+        library_ms=device_ms(dense, runs=9, per_run=5),
+        atomic_ms=device_ms(atomic, runs=9, per_run=5),
+        bytes=nbytes,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, N * D / F32_FLOPS) * 1e3,
+        err=err, lib_err=lib_err, lib_rel=rel, hot_share=hot_share,
+    )
+    check_bound(f"kernel 5' at train_batch (hot={hot})", t)
+    check_bound(f"index_add_ at train_batch (hot={hot})", dict(ms=t["atomic_ms"],
+                                                                bound_ms=t["bound_ms"]))
+    return t
+
+
+def sasrec_train(dev):
+    """Phase 17(c): SASRec's train_batch at full size through ``Trainer``.
+    Returns (kernel 5' launches, kernel 5 launches) of the trainer's runs."""
+    import torch
+
+    from repro_torch.configs import sasrec as sasrec_config
+    from repro_torch.data import make_sasrec_batch_fn
+    from repro_torch.kernels import embedding_bag_backward, embedding_bag_sums
+    from repro_torch.launch import TrainConfig, Trainer, value_and_grad
+    from repro_torch.models import sasrec
+
+    users, steps, every, fail_at = SAS_TRAIN
+    cfg = sasrec_config.full_config()
+    make = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)
+    tc = dict(steps=steps, ckpt_every=every, log_every=1)
+    trainer = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tc), device=dev)
+    params, _ = trainer.init_state(torch.Generator(dev).manual_seed(SEED))
+    batch = make(0)
+    # the gradient reaches the table: every row the batch touches, none other
+    bwd0 = embedding_bag_backward.launches
+    loss0, grads = value_and_grad(lambda p: sasrec.loss_fn(p, batch, cfg), params)
+    check(embedding_bag_backward.launches - bwd0 == 3,
+          "a SASRec gradient did not launch kernel 5' once a lookup (seq, pos, neg)")
+    ge = grads["item_emb"]
+    touched = torch.zeros(cfg.vocab, dtype=torch.bool, device=dev)
+    for k in ("seq", "pos", "neg"):
+        touched[batch[k].reshape(-1).long()] = True
+    touched[0] = False  # the padding item: its lookups are masked, its gradient 0
+    nonzero = (ge != 0).any(dim=1)
+    check(bool(torch.isfinite(loss0)) and bool(nonzero[touched].all())
+          and not bool(nonzero[~touched].any()),
+          f"item_emb's gradient: {int(nonzero[touched].sum())} of {int(touched.sum())} touched "
+          f"rows non-zero, {int(nonzero[~touched].sum())} others non-zero")
+    n_touched = int(touched.sum())
+    del grads, ge, touched, nonzero
+    # the first step's loss and gradients at SAS_CHECK_USERS users, card and CPU
+    few = {k: v[:SAS_CHECK_USERS] for k, v in batch.items()}
+    l_card, g_card = value_and_grad(lambda p: sasrec.loss_fn(p, few, cfg), params)
+    host = sasrec.params_to(params, "cpu")
+    l_cpu, g_cpu = value_and_grad(lambda p: sasrec.loss_fn(p, {k: v.cpu() for k, v in
+                                                                few.items()}, cfg), host)
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    rels = tree_rel_l2(g_card, g_cpu)
+    check(loss_rel <= GRAD_REL_TOL and max(rels) <= GRAD_REL_TOL,
+          f"SASRec's first step at {SAS_CHECK_USERS} users: loss {loss_rel}, gradients "
+          f"{max(rels)} relative from the CPU route")
+    del g_card, g_cpu, host, params, batch
+    torch.cuda.empty_cache()
+    # the trainer: a clean run, a run that fails, its resumption
+    ckpt = ROOT / "build" / "phase17"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    embedding_bag_backward.launches = 0
+    embedding_bag_sums.launches = 0
+    gen = lambda: torch.Generator(dev).manual_seed(SEED)  # noqa: E731
+    p_clean, o_clean, hist = trainer.fit(make, generator=gen(), ckpt_dir=str(ckpt / "clean"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    failing = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tc, fail_at_step=fail_at), device=dev)
+    try:
+        failing.fit(make, generator=gen(), ckpt_dir=str(ckpt / "crash"))
+        check(False, "the injected failure did not raise")
+    except RuntimeError as exc:
+        check(str(exc) == f"injected failure at step {fail_at}", f"another failure: {exc}")
+    p, o, hist_r = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tc), device=dev).fit(
+        make, generator=gen(), ckpt_dir=str(ckpt / "crash"))
+    bwd, fwd = embedding_bag_backward.launches, embedding_bag_sums.launches
+    runs = steps + fail_at + (steps - every)
+    check(bwd == fwd == 3 * runs, f"the trainer's {runs} steps launched kernel 5' {bwd} and "
+                                  f"kernel 5 {fwd} times, not 3 a step")
+    check(same_tree_bits(p, p_clean) and same_tree_bits(o, o_clean),
+          "SASRec's resumed run differs from the clean run")
+    check([h["loss"] for h in hist_r] == [h["loss"] for h in hist[every:]],
+          "the resumed losses differ from the clean run's")
+    batch = make(steps)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    trainer.train_step(p, o, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - ts) * 1e3
+    prof = profile_run(lambda: trainer.train_step(p, o, batch), top=10)
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses) and losses[0] == float(loss0),
+          f"SASRec's losses {losses} (the first step's loss was {float(loss0)})")
+    # a step that writes a checkpoint times the write too (as in the JAX trainer)
+    timed_steps = [h for h in hist[1:] if h["step"] % every]
+    ms = statistics.median(h["sec_per_step"] for h in timed_steps) * 1e3
+    each = ", ".join(f"{h['sec_per_step'] * 1e3:.3f}" for h in hist)
+    log(f"[17] (c) SASRec train_batch ({users} users x {cfg.seq_len}, {cfg.vocab} items, d "
+        f"{cfg.embed_dim}, float32, TF32 off) on {CARD}: the first step's gradient non-zero on "
+        f"all {n_touched} item rows the batch touches and exactly 0 on every other; at "
+        f"{SAS_CHECK_USERS} users the loss {loss_rel:.3g} and the gradients at most "
+        f"{max(rels):.3g} (relative L2) from the CPU route (tolerance {GRAD_REL_TOL})")
+    log(f"[17] (c) Trainer, {steps} steps, a checkpoint every {every}: losses "
+        f"{[round(x, 6) for x in losses]}; {ms:.3f} ms a step (median of steps "
+        f"{', '.join(str(h['step']) for h in timed_steps)}, which write no checkpoint; each "
+        f"{each}) = "
+        f"{users / (ms / 1e3):.1f} users/s; peak device memory {peak} B; a run failing at "
+        f"step {fail_at} resumed from step {every}: parameters and AdamW state bit for bit the "
+        f"clean run's; kernel 5' launches {bwd}, kernel 5 {fwd} (3 a step, {runs} steps)")
+    log_profile("17 (c) one train_batch step", prof, step_ms)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del p, o, p_clean, o_clean
+    torch.cuda.empty_cache()
+    return bwd, fwd
+
+
+def lm_step_flops(cfg, batch, seq) -> float:
+    """Model flops of one training step as the port computes it: the
+    layers' products three times (forward, the remat forward, and twice
+    that in the backward: 8 x params x tokens), the tied logits' 6 x V x d
+    x tokens, and attention over all S keys (no causal skip) 16 x tokens
+    x S x d_attn a layer.  Active parameters for a MoE layer."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    if cfg.attn == "mla":
+        dqk = cfg.nope_head_dim + cfg.rope_head_dim
+        attn_p = (d * (cfg.n_heads * dqk + cfg.kv_lora_rank + cfg.rope_head_dim)
+                  + cfg.kv_lora_rank * cfg.n_heads * (cfg.nope_head_dim + cfg.v_head_dim)
+                  + cfg.n_heads * cfg.v_head_dim * d)
+        dh = cfg.n_heads * dqk
+    else:
+        attn_p = d * cfg.d_head * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+        dh = cfg.n_heads * cfg.d_head
+    if cfg.moe:
+        dense = cfg.first_dense_layers
+        ffn = (3 * d * cfg.d_ff * dense
+               + 3 * d * cfg.d_ff_expert * (cfg.top_k + cfg.n_shared) * (L - dense))
+    else:
+        ffn = 3 * d * cfg.d_ff * L
+    tokens = batch * seq
+    return float(8 * (L * attn_p + ffn) * tokens + 6 * V * d * tokens
+                 + 16 * tokens * seq * dh * L)
+
+
+def lm_memory_line(cfg, params, accum_mb):
+    """Phase 17(d)'s reckoning of the peak before the run, in GB."""
+    from repro_torch.optim import tree_leaves
+
+    n = sum(p.numel() for p in tree_leaves(params))
+    w = n * params["embed"].element_size()
+    logits = 10 * cfg.vocab * accum_mb
+    parts = {"weights": w, "gradients": w, "float32 accumulators": 4 * n,
+             "moments, old and new": 2 * 8 * n, "new weights": w, "logits": logits}
+    return n, sum(parts.values()), ", ".join(f"{k} {v / 1e9:.2f}" for k, v in parts.items())
+
+
+def qwen2_train(dev):
+    """Phase 17(d): qwen2-1.5B whole (train_4k's sequences, batch cut to 8),
+    and cut to 2 layers: one step held to the CPU route, a bf16 restart."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.data import make_lm_batch_fn
+    from repro_torch.launch import TrainConfig, Trainer, train_step, value_and_grad
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.optim import adamw_init, tree_leaves, tree_map
+
+    gb, seq, accum, steps = LM_TRAIN
+    cfg = qwen2_1_5b.full_config()
+    check(cfg.remat_policy == "full", "qwen2 trains with remat_policy full")
+    trainer = Trainer(lm, cfg, train_cfg=TrainConfig(steps=steps, accum=accum, warmup=1,
+                                                     log_every=1), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = trainer.init_state(torch.Generator(dev).manual_seed(SEED))
+    n, reckoned, parts = lm_memory_line(cfg, params, seq * gb // accum)
+    log(f"[17] (d) {cfg.name}: {n} parameters, {cfg.n_layers} layers, {cfg.dtype}; peak reckoned "
+        f"before the run {reckoned / 1e9:.2f} GB ({parts})")
+    make = make_lm_batch_fn(cfg.vocab, gb, seq, device=dev)
+    fit_retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+    params, opt, hist = trainer.fit(make, params=params, opt_state=opt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    fit_retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - fit_retries
+    losses = [h["loss"] for h in hist]
+    reckoned_loss = first_loss_reckoned(cfg)
+    first = abs(losses[0] - reckoned_loss)
+    check(all(math.isfinite(x) for x in losses) and first <= FIRST_LOSS_TOL,
+          f"{cfg.name} losses {losses}: the first {first} from {reckoned_loss}")
+    ms = statistics.median(h["sec_per_step"] for h in hist[1:]) * 1e3
+    each = ", ".join(f"{h['sec_per_step'] * 1e3:.1f}" for h in hist)
+    flops = lm_step_flops(cfg, gb, seq)
+    log(f"[17] (d) {cfg.name} whole, train_4k cut to a global batch of {gb} x {seq} tokens "
+        f"(accum {accum}, microbatch {gb // accum}), remat full, {steps} steps on {CARD}: losses "
+        f"{[round(x, 5) for x in losses]} (the first {first:.4f} from ln V + sigma^2 / 2 = "
+        f"{reckoned_loss:.4f}, {losses[0] - math.log(cfg.vocab):+.4f} from ln {cfg.vocab}); "
+        f"{ms:.1f} ms a step (median of steps 2-{steps}; each {each}) = "
+        f"{gb * seq / (ms / 1e3):.1f} tokens/s; model flops {flops:.4g} a step = "
+        f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {flops / (ms / 1e3) / BF16_FLOPS:.4f} of the "
+        f"dense bf16 peak ({BF16_FLOPS / 1e12:.0f} TFLOP/s, H100 SXM data sheet); peak device "
+        f"memory {peak} B (reckoned {reckoned / 1e9:.2f} GB); allocator retries {fit_retries}")
+    mb = {k: v[:gb // accum] for k, v in make(steps).items()}
+
+    def microbatch():
+        return value_and_grad(lambda p: lm.loss_fn(p, mb, cfg), params)
+
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        microbatch()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - ts) * 1e3)
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - retries
+    log(f"[17] (d) one microbatch's loss and gradient after the run, 3 calls: "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms; the caching allocator's retries (a cudaFree "
+        f"of its cache and a new cudaMalloc) {retries}")
+    log_profile("17 (d) one microbatch's loss and gradient", profile_run(microbatch, top=10),
+                statistics.median(walls))
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # qwen2 cut to 2 layers at full width: one step against the CPU route
+    layers, b, s = LM_CHECK
+    cfg2 = dc.replace(cfg, n_layers=layers)
+    params = lm.init(cfg2, generator=torch.Generator(dev).manual_seed(SEED + 1), device=dev)
+    batch = make_lm_batch_fn(cfg2.vocab, b, s, device=dev)(0)
+    host = {k: v.cpu() for k, v in batch.items()}
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    new, _, m = train_step(lm, params, adamw_init(params), batch, cfg2)
+    ts = time.perf_counter()
+    new_cpu, _, m_cpu = train_step(lm, p_cpu, adamw_init(p_cpu), host, cfg2)
+    cpu_s = time.perf_counter() - ts
+    loss_rel = abs(float(m["loss"]) - float(m_cpu["loss"])) / float(m_cpu["loss"])
+    norm_rel = abs(float(m["grad_norm"]) - float(m_cpu["grad_norm"])) / float(m_cpu["grad_norm"])
+    lr = 3e-4
+    far = total = 0
+    worst = 0.0
+    for a, c, p0 in zip(tree_leaves(new), tree_leaves(new_cpu), tree_leaves(p_cpu)):
+        a, c, p0 = a.float().cpu(), c.float(), p0.float()
+        d = (a - c).abs()
+        ulp = torch.clamp(c.abs(), min=1e-30) * 2.0 ** -7
+        worst = max(worst, float((d / (2 * lr * (1 + 0.1 * p0.abs()) + 2 * ulp)).max()))
+        far += int((d > ulp).sum())
+        total += d.numel()
+    check(loss_rel <= BF16_LOSS_RTOL and norm_rel <= BF16_NORM_RTOL and worst <= 1.0
+          and far <= BF16_FLIP_SHARE * total,
+          f"qwen2 2 layers, one step against the CPU route: loss {loss_rel}, grad norm "
+          f"{norm_rel}, parameters {worst} of their bound, {far} of {total} past one ulp")
+    log(f"[17] (d) {cfg2.name} cut to {layers} of 28 layers at full width, one train_step "
+        f"(loss, grad, clip, AdamW at lr 3e-4) on {b} x {s} tokens against the CPU route "
+        f"({cpu_s:.1f} s there): loss {float(m['loss']):.6f} vs {float(m_cpu['loss']):.6f} "
+        f"({loss_rel:.3g}, tolerance {BF16_LOSS_RTOL}), grad norm {norm_rel:.3g} "
+        f"({BF16_NORM_RTOL}); "
+        f"parameters after the update: {far} of {total} elements more than one bf16 ulp apart "
+        f"({far / total:.4f}, at most {BF16_FLIP_SHARE}), every element within "
+        f"{worst:.3f} of 2 lr (1 + wd |p|) + 2 ulp")
+    del new, new_cpu, p_cpu, params
+    torch.cuda.empty_cache()
+
+    # the bf16 restart of the 2-layer model
+    b, s, steps2, at = LM_RESTART
+    make2 = make_lm_batch_fn(cfg2.vocab, b, s, device=dev)
+    tc = dict(steps=steps2, ckpt_every=at, warmup=1, log_every=1)
+    ckpt = ROOT / "build" / "phase17"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gen = lambda: torch.Generator(dev).manual_seed(SEED + 2)  # noqa: E731
+    ts = time.perf_counter()
+    p_clean, o_clean, _ = Trainer(lm, cfg2, train_cfg=TrainConfig(**tc), device=dev).fit(
+        make2, generator=gen(), ckpt_dir=str(ckpt / "clean"))
+    try:
+        Trainer(lm, cfg2, train_cfg=TrainConfig(**tc, fail_at_step=at), device=dev).fit(
+            make2, generator=gen(), ckpt_dir=str(ckpt / "crash"))
+        check(False, "the injected failure did not raise")
+    except RuntimeError as exc:
+        check(str(exc) == f"injected failure at step {at}", f"another failure: {exc}")
+    p, o, _ = Trainer(lm, cfg2, train_cfg=TrainConfig(**tc), device=dev).fit(
+        make2, generator=gen(), ckpt_dir=str(ckpt / "crash"))
+    check(tree_leaves(p)[0].dtype == torch.bfloat16, "the 2-layer model is not bf16")
+    check(same_tree_bits(p, p_clean) and same_tree_bits(o, o_clean),
+          "qwen2's bf16 resumed run differs from the clean run")
+    log(f"[17] (d) {cfg2.name} {layers} layers, bf16, {steps2} steps of {b} x {s}, a checkpoint at "
+        f"step {at}, a run failing there resumed: parameters (bf16 through the checkpoint) "
+        f"and AdamW state bit for bit the clean run's ({time.perf_counter() - ts:.1f} s)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del p, o, p_clean, o_clean
+    torch.cuda.empty_cache()
+
+
+def deepseek_train(dev):
+    """Phase 17(e): deepseek-v2-lite-16b cut to its leading dense layer and
+    one MoE layer at full width, 4 steps through the MoE dispatch's backward."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.data import make_lm_batch_fn
+    from repro_torch.launch import TrainConfig, Trainer
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.optim import tree_leaves
+
+    layers, gb, seq, steps = MOE_TRAIN
+    cfg = dc.replace(deepseek_v2_lite_16b.full_config(), n_layers=layers)
+    trainer = Trainer(lm, cfg, train_cfg=TrainConfig(steps=steps, accum=gb, warmup=1,
+                                                     log_every=1), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = trainer.init_state(torch.Generator(dev).manual_seed(SEED))
+    n = sum(p.numel() for p in tree_leaves(params))
+    moe0 = {k: v.clone() for k, v in params["layers"]["moe"].items() if k != "shared"}
+    params, opt, hist = trainer.fit(make_lm_batch_fn(cfg.vocab, gb, seq, device=dev),
+                                    params=params, opt_state=opt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"deepseek's losses {losses}")
+    moved = {k: bool((params["layers"]["moe"][k] != v).any()) for k, v in moe0.items()}
+    check(all(moved.values()), f"the MoE layer's weights did not all move: {moved}")
+    ms = statistics.median(h["sec_per_step"] for h in hist[1:]) * 1e3
+    each = ", ".join(f"{h['sec_per_step'] * 1e3:.1f}" for h in hist)
+    log(f"[17] (e) {cfg.name} cut to {layers} layers ({cfg.first_dense_layers} dense, "
+        f"{layers - cfg.first_dense_layers} MoE: {cfg.num_experts} experts top {cfg.top_k} + "
+        f"{cfg.n_shared} shared, {cfg.attn}) at full width, {n} parameters, {cfg.dtype}, "
+        f"{steps} steps of {gb} x {seq} "
+        f"tokens (accum {gb}) on {CARD}: losses {[round(x, 5) for x in losses]} (ln V + "
+        f"sigma^2 / 2 = {first_loss_reckoned(cfg):.4f}); router and experts moved ({moved}); "
+        f"{ms:.1f} ms a step (median of steps 2-{steps}; each {each}); peak device memory {peak} B; the dispatch's gathers "
+        f"accumulate by atomics in the backward, so no bit identity is claimed")
+    del params, opt, moe0
+    torch.cuda.empty_cache()
+
+
+def drive_train(dev) -> dict:
+    """Phase 17: kernel 5' checked and timed, SASRec's train_batch through
+    the trainer with a restart, qwen2-1.5B whole and cut, deepseek-v2-lite
+    cut.  Returns kernel 5's forward launches on the path and kernel 5''s
+    record."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag_backward
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.get_float32_matmul_precision() == "highest", "float32 products must be full")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cases, err = compare_bag_backward(dev)
+    log(f"[17] (a) kernel 5' == plain on the card bit for bit in {cases} cases (bags of one, "
+        f"L > 1 with weights, ids -1, -7, V, V+3, duplicates, a hot row of half the ids, D "
+        f"1 to 200, rows of a chunk and a chunk and one; each called twice, the same bits); "
+        f"take_rows under backward() on the card bit for bit the CPU route's (wrapped "
+        f"negatives, out of range, a hot row); max abs difference {err!r}")
+    timing = {hot: time_bag_backward(dev, hot) for hot in (True, False)}
+    for hot, t in timing.items():
+        ids = ("history ids: the padding row holds" if hot else
+               "uniform ids: the most frequent row holds")
+        log(f"[17] (b) kernel 5' at train_batch ({GRAD_TIMED[2]} ids into a {GRAD_TIMED[0]} x "
+            f"{GRAD_TIMED[1]} float32 table, {ids} "
+            f"{t['hot_share']:.4f} of them) on {CARD}: kernel {t['ms']!r} ms (its stable sort "
+            f"{t['sort_ms']!r}), plain {t['plain_ms']!r} ms, embedding_dense_backward "
+            f"{t['library_ms']!r} ms, zeros.index_add_ {t['atomic_ms']!r} ms, bound "
+            f"{t['bound_ms']!r} ms ({t['bytes']} B at {3.35} TB/s); kernel against plain: max "
+            f"abs {t['err']!r}; yardsticks against plain: "
+            f"max abs {t['lib_err']!r}, relative L2 {t['lib_rel']!r}")
+    wall = {"kernel 5'": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    bwd, fwd = sasrec_train(dev)
+    wall["SASRec train_batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qwen2_train(dev)
+    wall["qwen2-1.5B"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deepseek_train(dev)
+    wall["deepseek-v2-lite cut"] = time.perf_counter() - t0
+    log("[17] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    check(bwd > 0, "the training path did not launch kernel 5'")
+    t = timing[True]
+    return fwd, {
+        "name": "embedding_bag_backward",
+        "route": "cuda",
+        "source": KERNEL_SOURCES["embedding_bag"],
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:38",
+        "launches": bwd,
+        "max_abs_err": max(err, *(x["err"] for x in timing.values())),
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": t["library_ms"],
+    }
+
+
 def log_profile(tag, prof, ms):
     """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
     wall, busy_ms, n_kernels, top = prof
@@ -3797,6 +4417,9 @@ def main(argv=None) -> int:
     only.add_argument("--recsys-only", action="store_true",
                       help="build the kernels and run phase 11 alone (kernel 5 and SASRec "
                            "serving): a quick check after editing kernel 5")
+    only.add_argument("--train-only", action="store_true",
+                      help="build the kernels and run phase 17 alone (kernel 5', the trainer, "
+                           "SASRec, qwen2-1.5B and deepseek-v2-lite training)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}: run it from a "
@@ -3817,7 +4440,9 @@ def main(argv=None) -> int:
     # 1. device ---------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -3847,8 +4472,19 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         kernels = [drive_recsys(dev, {})]
         log(f"wall seconds: SASRec serving {time.perf_counter() - t0:.1f}")
+    elif args.train_only:
+        t0 = time.perf_counter()
+        _, record = drive_train(dev)
+        kernels = [record]
+        log(f"wall seconds: training {time.perf_counter() - t0:.1f}")
     else:
-        kernels = drive(dev)
+        kernels = drive(dev)  # phases 2-16 and 8; their device memory is freed on return
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fwd, record = drive_train(dev)   # 17. training on the card (kernel 5')
+        log(f"wall seconds: training {time.perf_counter() - t0:.1f}")
+        next(k for k in kernels if k["name"] == "embedding_bag")["launches"] += fwd
+        kernels.append(record)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

@@ -16,12 +16,20 @@ trees itself for that reason (``torch.utils._pytree`` keeps a dict's
 insertion order).  Tensors are read back to the host for the save;
 ``restore`` places every leaf on ``device`` (default ``cuda``), uint16 and
 uint32 arrays as the port's int16 / int32 bit-views.
+
+numpy has no bfloat16.  The JAX package's ``np.asarray`` of a bfloat16
+leaf is a 2-byte type that ``np.save`` records with the descr ``<V2`` and
+its raw bit patterns; the port writes a bfloat16 tensor's bits under the
+same descr, so both packages write the same bytes.  ``np.load`` reads such
+a leaf back as 2-byte void, which ``restore`` turns into bfloat16 where the
+example tree's leaf is a bfloat16 tensor (and refuses elsewhere).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import zipfile
 
 import numpy as np
 import torch
@@ -69,10 +77,31 @@ def _unflatten(example, leaves: list):
     return build(example)
 
 
+BF16_DESCR = "<V2"  # what np.save records for the JAX package's host bfloat16 arrays
+
+
 def _host(x) -> np.ndarray:
+    """A leaf on the host; a bfloat16 tensor as its bits, in 2-byte void."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.contiguous().view(torch.int16).numpy().view("V2").copy()
+        return x.numpy()
     return np.asarray(x)
+
+
+def _savez(path: str, arrays: dict) -> None:
+    """``np.savez(path, **arrays)``, but a 2-byte void array is recorded with
+    the descr ``BF16_DESCR`` (``np.savez`` would write ``|V2``)."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for name, a in arrays.items():
+            with zf.open(name + ".npy", "w", force_zip64=True) as fid:
+                if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+                    np.lib.format.write_array_header_1_0(
+                        fid, {"descr": BF16_DESCR, "fortran_order": False, "shape": a.shape})
+                    fid.write(np.ascontiguousarray(a).tobytes())
+                else:
+                    np.lib.format.write_array(fid, a, allow_pickle=False)
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
@@ -86,7 +115,7 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     os.makedirs(tmp)
     leaves, treedef = _flatten(tree)
     arrays = {f"leaf_{i}": _host(x) for i, x in enumerate(leaves)}
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    _savez(os.path.join(tmp, "arrays.npz"), arrays)
     manifest = {"step": step, "n_leaves": len(leaves), "treedef": treedef}
     with open(os.path.join(tmp, "manifest.json"), "w") as fh:
         json.dump(manifest, fh)
@@ -118,8 +147,17 @@ def latest_step(ckpt_dir: str) -> int | None:
 _BIT_VIEWS = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 
 
-def _to_device(a: np.ndarray, dev) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+def _to_device(a: np.ndarray, like, dev, path: str) -> torch.Tensor:
+    """A loaded leaf as a tensor on ``dev``; 2-byte void becomes bfloat16
+    where the example leaf ``like`` is a bfloat16 tensor."""
+    a = np.ascontiguousarray(a).reshape(a.shape)  # ascontiguousarray makes a 0-d array 1-d
+    if a.dtype.kind == "V":
+        if not (a.dtype.itemsize == 2 and isinstance(like, torch.Tensor)
+                and like.dtype == torch.bfloat16):
+            raise TypeError(f"{path}: a {a.dtype.itemsize}-byte void leaf restores only into "
+                            f"a bfloat16 leaf, the example's is "
+                            f"{getattr(like, 'dtype', type(like).__name__)}")
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
     view = _BIT_VIEWS.get(a.dtype)
     if view is not None:
         a = a.view(view)
@@ -133,7 +171,8 @@ def restore(ckpt_dir: str, step: int, example_tree, *, device=None):
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with np.load(os.path.join(path, "arrays.npz")) as data:
         leaves, _ = _flatten(example_tree)
-        loaded = [_to_device(data[f"leaf_{i}"], dev) for i in range(len(leaves))]
+        loaded = [_to_device(data[f"leaf_{i}"], like, dev, f"{path} leaf_{i}")
+                  for i, like in enumerate(leaves)]
     return _unflatten(example_tree, loaded)
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..optim import tree_map
 from .compressed import CompressedCSR
 from .csr import CSRGraph
 from .graph_filter import GraphFilter
@@ -188,3 +189,38 @@ def sasrec_params_from_reference(tree: dict, cfg, device=None) -> dict:
         return torch.from_numpy(a.copy()).to(dev)
 
     return carry(param_shapes(cfg), tree, "")
+
+
+def adamw_state_from_reference(state: dict, params_like, device=None) -> dict:
+    """The port's AdamW state from the JAX package's ``{"step", "m", "v"}``
+    given as numpy arrays (nested dicts and lists, as ``np.asarray`` of each
+    leaf gives them), placed on ``device`` (default ``cuda``).
+
+    ``m`` and ``v`` must have the leaves of ``params_like`` (a port
+    parameter tree) with their shapes, float32; ``step`` a 0-d integer,
+    carried as int32.  Anything else raises."""
+    dev = resolve_device(device)
+
+    def moments(tree, name):
+        if tree_map(lambda _: 0, tree) != tree_map(lambda _: 0, params_like):
+            raise ValueError(f"{name}: leaves differ from the parameters'")
+
+        def carry(like, node):
+            a = np.asarray(node)
+            if a.shape != tuple(like.shape):
+                raise ValueError(f"{name}: a leaf of shape {a.shape}, the parameter's is "
+                                 f"{tuple(like.shape)}")
+            if a.dtype != np.float32:
+                raise TypeError(f"{name}: a leaf of dtype {a.dtype}, a moment is float32")
+            return torch.from_numpy(a.copy()).to(dev)
+
+        return tree_map(carry, params_like, tree)
+
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype.kind not in "iu":
+        raise TypeError(f"step must be a 0-d integer, got {step.dtype} {step.shape}")
+    return {
+        "step": torch.tensor(int(step), dtype=torch.int32, device=dev),
+        "m": moments(state["m"], "m"),
+        "v": moments(state["v"], "v"),
+    }

@@ -28,10 +28,15 @@ from .edge_block_spmv import (
 )
 from .filter_pack import filter_pack, filter_pack_ref, filter_pack_words
 from .embedding_bag import (
+    BACKWARD_CHUNK,
+    backward_plan,
     bag_case,
+    bag_grad_case,
     bag_of_one_case,
     bf16_ulps,
     embedding_bag,
+    embedding_bag_backward,
+    embedding_bag_backward_ref,
     embedding_bag_ref,
     embedding_bag_sums,
     same_bits,

@@ -1,3 +1,13 @@
-from .embedding_bag import embedding_bag_sums
+from .embedding_bag import embedding_bag_backward, embedding_bag_sums
 from .ops import embedding_bag, take_rows
-from .ref import bag_case, bag_of_one_case, bf16_ulps, embedding_bag_ref, same_bits
+from .ref import (
+    BACKWARD_CHUNK,
+    backward_plan,
+    bag_case,
+    bag_grad_case,
+    bag_of_one_case,
+    bf16_ulps,
+    embedding_bag_backward_ref,
+    embedding_bag_ref,
+    same_bits,
+)

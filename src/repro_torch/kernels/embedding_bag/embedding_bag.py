@@ -15,6 +15,15 @@ streams 32 bags' rows at once.
 
 ``embedding_bag_sums.launches`` counts the kernel launches (a plain
 integer, bumped once per launch and nowhere else).
+
+The sums are differentiable with respect to the table: where the table
+(or the weights) asks for a gradient, ``embedding_bag_sums`` goes through
+an ``autograd.Function`` whose backward is ``embedding_bag_backward``, the
+backward kernel (kernel 5', same source) on a CUDA tensor and
+``ref.embedding_bag_backward_ref`` on a CPU one.  It takes a float32 table
+only (a bfloat16 table raises ``TypeError`` in the backward) and gives no
+gradient for the weights (``NotImplementedError``), as the Pallas kernel
+has none.  ``embedding_bag_backward.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import torch
 
 from ...device import kernel_route
 from ..build import check_launch, check_operand, load_library
-from .ref import embedding_bag_ref
+from .ref import BACKWARD_CHUNK, backward_plan, embedding_bag_backward_ref, embedding_bag_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "embedding_bag.cu"
 VECTOR_BYTES = (16, 8, 4, 2)  # the row loads the kernel has, widest first
@@ -41,9 +50,17 @@ _ARGTYPES = [
 ]
 
 
-def _entry():
-    fn = load_library(SOURCE).embedding_bag_launch
-    fn.argtypes = _ARGTYPES
+_BACKWARD_ARGTYPES = [
+    _P, _P, _P,                # grad_out, order, weights (NULL: every weight 1)
+    _P, _P, _P, _I,            # row_start, chunk_base, partials, max_chunks
+    _I, _I, _I, _I,            # V, D, L, chunk
+    _P, _P,                    # out, stream
+]
+
+
+def _entry(name="embedding_bag_launch", argtypes=_ARGTYPES):
+    fn = getattr(load_library(SOURCE), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -64,7 +81,17 @@ def embedding_bag_sums(table: torch.Tensor, indices: torch.Tensor,
     (every weight 1) → (B, D) bag sums in ``table.dtype``.  The weights are
     rounded to the table's dtype first, as the JAX kernel does; the sums are
     float32, rounded once.  On the card: a float32 or bfloat16 table,
-    contiguous operands.  Exactly ``embedding_bag_ref``'s arithmetic."""
+    contiguous operands.  Exactly ``embedding_bag_ref``'s arithmetic.
+    Differentiable with respect to a float32 table (see the module note)."""
+    if weights is not None:
+        weights = weights.to(table.dtype)
+    if torch.is_grad_enabled() and (table.requires_grad
+                                    or (weights is not None and weights.requires_grad)):
+        return _BagSums.apply(table, indices, weights)
+    return _bag_sums(table, indices, weights)
+
+
+def _bag_sums(table, indices, weights):
     if kernel_route(table.device) == "torch":
         return embedding_bag_ref(table, indices, weights)
     dev = table.device
@@ -78,7 +105,6 @@ def embedding_bag_sums(table: torch.Tensor, indices: torch.Tensor,
     check_operand("table", table, (table.dtype,), (V, D), dev, align=table.element_size())
     check_operand("indices", indices, (torch.int32,), (B, L), dev)
     if weights is not None:
-        weights = weights.to(table.dtype)
         check_operand("weights", weights, (table.dtype,), (B, L), dev,
                       align=table.element_size())
     out = torch.empty((B, D), dtype=table.dtype, device=dev)
@@ -97,3 +123,67 @@ def embedding_bag_sums(table: torch.Tensor, indices: torch.Tensor,
 
 
 embedding_bag_sums.launches = 0
+
+
+class _BagSums(torch.autograd.Function):
+    """The bag sums with the backward kernel as their gradient."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights):
+        ctx.save_for_backward(indices, weights)
+        ctx.V, ctx.dtype = table.shape[0], table.dtype
+        return _bag_sums(table, indices, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        indices, weights = ctx.saved_tensors
+        if ctx.needs_input_grad[2]:
+            raise NotImplementedError("the EmbeddingBag kernel gives no gradient with respect "
+                                      "to its weights (nor does the Pallas kernel)")
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        if ctx.dtype != torch.float32:
+            raise TypeError(f"the EmbeddingBag backward takes a float32 table, not {ctx.dtype}")
+        return embedding_bag_backward(grad_out.contiguous(), indices, ctx.V, weights), None, None
+
+
+def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor, V: int,
+                           weights: torch.Tensor | None = None) -> torch.Tensor:
+    """The gradient of ``embedding_bag_sums(table, indices, weights)`` with
+    respect to a (V, D) float32 table, given ``grad_out`` (B, D) float32:
+    (V, D) float32, each row the float32 sum of ``w * grad_out[b]`` over the
+    slots holding its id, untouched rows exact zeros.  On the card the
+    backward kernel (its preparation, a stable sort of the ids, in torch
+    ops), bit for bit ``embedding_bag_backward_ref``; on the CPU that plain
+    version.  Deterministic: no float atomics."""
+    if kernel_route(grad_out.device) == "torch":
+        return embedding_bag_backward_ref(grad_out, indices, V, weights)
+    dev = grad_out.device
+    if grad_out.dim() != 2 or indices.dim() != 2:
+        raise ValueError(f"grad_out must be (B, D) and indices (B, L), got "
+                         f"{tuple(grad_out.shape)}, {tuple(indices.shape)}")
+    B, D = grad_out.shape
+    L = indices.shape[1]
+    check_operand("grad_out", grad_out, (torch.float32,), (B, D), dev)
+    check_operand("indices", indices, (torch.int32,), (B, L), dev)
+    if weights is not None:
+        check_operand("weights", weights, (torch.float32,), (B, L), dev)
+    out = torch.empty((V, D), dtype=torch.float32, device=dev)
+    if V == 0 or D == 0:
+        return out
+    if B * L == 0:
+        return out.zero_()
+    order, row_start, chunk_base = backward_plan(indices, V)
+    max_chunks = 2 * B * L // BACKWARD_CHUNK + 1  # a row of n > chunk slots has < 2n/chunk
+    partials = torch.empty((max_chunks, D), dtype=torch.float32, device=dev)
+    status = _entry("embedding_bag_backward_launch", _BACKWARD_ARGTYPES)(
+        grad_out.data_ptr(), order.data_ptr(), None if weights is None else weights.data_ptr(),
+        row_start.data_ptr(), chunk_base.data_ptr(), partials.data_ptr(), max_chunks,
+        V, D, L, BACKWARD_CHUNK, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch(status, "embedding_bag_backward")
+    embedding_bag_backward.launches += 1
+    return out
+
+
+embedding_bag_backward.launches = 0

@@ -9,10 +9,17 @@ It repeats the kernel's arithmetic: the weights are rounded to the table's
 dtype, each slot's product and the running sum are float32, added slot by
 slot in order, and the sum is rounded once to the table's dtype.
 
-``bag_case``, ``bag_of_one_case``, ``bf16_ulps`` and ``same_bits`` are
-what the card tests and ``chip_smoke.py`` share to hold the kernel to this
-version: the inputs, with padding and out-of-range ids (and a -0.0)
-planted, the bfloat16 distance and bit-for-bit equality.
+``embedding_bag_backward_ref`` is the plain version of the backward kernel
+(kernel 5'): the gradient of the bag sums with respect to a float32 table,
+each row's contributions summed in the association the kernel uses
+(``backward_plan``, ``BACKWARD_CHUNK``), so the card holds the kernel to it
+bit for bit.
+
+``bag_case``, ``bag_of_one_case``, ``bag_grad_case``, ``bf16_ulps`` and
+``same_bits`` are what the card tests and ``chip_smoke.py`` share to hold
+the kernels to these versions: the inputs, with padding and out-of-range
+ids (and a -0.0, or a hot row) planted, the bfloat16 distance and
+bit-for-bit equality.
 """
 from __future__ import annotations
 
@@ -39,6 +46,90 @@ def embedding_bag_ref(table, indices, weights=None):
             term = term * w[:, s, None]
         acc = acc + torch.where(valid[:, s, None], term, 0.0)
     return acc.to(table.dtype)
+
+
+BACKWARD_CHUNK = 1024  # contributions a partial sum of the backward takes, in order
+
+
+def backward_plan(indices, V: int, chunk: int = BACKWARD_CHUNK):
+    """The grouping the backward sums by, shared by the kernel and the plain
+    version: ``(order, row_start, chunk_base)``, int32 on ``indices``' device.
+
+    ``order`` lists the flat slots ``b * L + s`` stably sorted by id, the
+    padding slots (ids outside ``[0, V)``) last; row ``v``'s slots are
+    ``order[row_start[v]:row_start[v + 1]]``, in slot order.  A row of more
+    than ``chunk`` slots is cut into chunks of ``chunk`` from its first slot,
+    and its chunks are numbered ``chunk_base[v] .. chunk_base[v + 1] - 1``;
+    a row of at most ``chunk`` slots has none (``chunk_base`` is the
+    exclusive prefix sum of the chunk counts, ``chunk_base[V]`` the total).
+    The slots are numbered in int32: ``B * L >= 2**31`` raises ``ValueError``."""
+    if indices.numel() >= 2 ** 31:
+        raise ValueError(f"the EmbeddingBag backward numbers its slots in int32: "
+                         f"{indices.numel()} slots is too many")
+    flat = indices.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < V), flat, V).to(torch.int32)
+    sorted_key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(V + 1, dtype=torch.int32, device=flat.device)
+    row_start = torch.searchsorted(sorted_key, bounds, out_int32=True)
+    count = row_start[1:] - row_start[:-1]
+    chunks = torch.where(count > chunk, (count + chunk - 1) // chunk, 0)
+    chunk_base = torch.zeros(V + 1, dtype=torch.int32, device=flat.device)
+    chunk_base[1:] = torch.cumsum(chunks, 0, dtype=torch.int32)
+    return order.to(torch.int32), row_start, chunk_base
+
+
+def _prefix_sizes(sizes: torch.Tensor) -> list[int]:
+    """For ``k = 0, 1, ...``: how many of ``sizes`` exceed ``k`` (host ints)."""
+    if sizes.numel() == 0:
+        return []
+    hist = torch.bincount(sizes.long().cpu())
+    return (sizes.numel() - torch.cumsum(hist, 0))[:-1].tolist()
+
+
+def embedding_bag_backward_ref(grad_out, indices, V: int, weights=None, *,
+                               chunk: int = BACKWARD_CHUNK):
+    """The gradient of ``embedding_bag_ref(table, indices, weights)`` with
+    respect to a (V, D) float32 table, given ``grad_out`` (B, D): row ``v``
+    is the sum of ``w[b, s] * grad_out[b]`` over the slots with id ``v``
+    (``w`` 1 without weights), in float32; padding and out-of-range ids add
+    nothing, untouched rows are exact zeros.
+
+    The association is the backward kernel's: a row's contributions are
+    added in slot order, from 0, in chunks of ``chunk`` (``backward_plan``);
+    the row is the sum of its chunks' partial sums, in order, from 0.  A row
+    of at most ``chunk`` slots is one chunk, so its sum is the plain slot
+    order's (0 + a partial sum is that sum: a sum that starts at +0.0 is
+    never -0.0)."""
+    B, L = indices.shape
+    D = grad_out.shape[1]
+    dev = grad_out.device
+    order, row_start, _ = backward_plan(indices, V, chunk)
+    count = (row_start[1:] - row_start[:-1]).long()
+    slots = order[:int(row_start[V])].long()
+    contrib = grad_out.float()[slots // L]
+    if weights is not None:
+        contrib = contrib * weights.reshape(-1).float()[slots][:, None]
+    # every touched row's chunks, numbered row by row: (row, first slot, length)
+    nseg = (count + chunk - 1) // chunk
+    seg_first = torch.cumsum(nseg, 0) - nseg
+    seg_row = torch.repeat_interleave(torch.arange(V, device=dev), nseg)
+    seg_j = torch.arange(seg_row.numel(), device=dev) - seg_first[seg_row]
+    seg_start = row_start[seg_row].long() + seg_j * chunk
+    seg_len = torch.clamp(count[seg_row] - seg_j * chunk, max=chunk)
+    # level 1: each chunk's slots in order; the chunks longest first, so the
+    # chunks that have an o-th slot are a prefix
+    by_len = torch.argsort(seg_len, descending=True, stable=True)
+    partials = torch.zeros((seg_row.numel(), D), dtype=torch.float32, device=dev)
+    for o, n in enumerate(_prefix_sizes(seg_len)):
+        segs = by_len[:n]
+        partials[segs] += contrib[seg_start[segs] + o]
+    # level 2: each row's partials in order, the rows with most chunks first
+    by_nseg = torch.argsort(nseg, descending=True, stable=True)
+    out = torch.zeros((V, D), dtype=torch.float32, device=dev)
+    for j, n in enumerate(_prefix_sizes(nseg)):
+        rows = by_nseg[:n]
+        out[rows] += partials[seg_first[rows] + j]
+    return out
 
 
 def bag_case(V, D, B, L, dtype=torch.float32, seed=0, device="cpu"):
@@ -75,6 +166,25 @@ def bag_of_one_case(V, D, B, dtype=torch.float32, seed=0, device="cpu"):
         w[slots[-1], 0] = np.nan
     return (torch.from_numpy(table).to(dtype).to(device), torch.from_numpy(idx).to(device),
             torch.from_numpy(w).to(dtype).to(device))
+
+
+def bag_grad_case(V, D, B, L, seed=0, *, hot=0.0, weighted=False, device="cpu"):
+    """Inputs of the backward kernel: normal float32 ``grad_out`` (B, D),
+    (B, L) int32 ids in [0, V) with -1, -7, V and V+3 planted (duplicates
+    throughout), a share ``hot`` of the slots set to id 1 (a row longer
+    than ``BACKWARD_CHUNK`` when ``hot * B * L`` exceeds it), and normal
+    (B, L) float32 weights or None; drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((B, D)).astype(np.float32)
+    idx = rng.integers(0, V, (B, L)).astype(np.int32)
+    flat = idx.reshape(-1)
+    if hot:
+        flat[rng.choice(flat.size, int(hot * flat.size), replace=False)] = 1
+    planted = [-1, -7, V, V + 3][:flat.size]
+    flat[rng.choice(flat.size, len(planted), replace=False)] = planted
+    w = rng.standard_normal((B, L)).astype(np.float32) if weighted else None
+    return (torch.from_numpy(g).to(device), torch.from_numpy(idx).to(device),
+            None if w is None else torch.from_numpy(w).to(device))
 
 
 def same_bits(got, want) -> bool:

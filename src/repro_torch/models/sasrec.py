@@ -1,5 +1,5 @@
 """SASRec — Self-Attentive Sequential Recommendation [arXiv:1808.09781]:
-its serving path.
+its serving and training paths.
 
 Config: embed_dim=50, 2 blocks, 1 head, seq_len=50.  The item-embedding
 table is the large memory of serving: scored, never written; per-request
@@ -9,15 +9,18 @@ package's tree leaf by leaf (``blocks`` a list of dicts).
   init(cfg, generator=, device=)        → params
   params_to(params, device)             → the same tree on ``device``
   encode(params, seq, cfg)              → user states (B, L, d)
+  loss_fn(params, batch, cfg)           → the paper's BCE over sampled negatives
   serve_scores(params, batch, cfg)      → full-catalog scores (B, vocab)
   retrieval_scores(params, batch, cfg)  → candidate scores (B, NC)
 
-Both item lookups (the history in ``encode``, the candidates in
-``retrieval_scores``) are ``jnp.take(mode="fill")`` in the JAX package and
-``kernels.take_rows`` here: bags of one of the EmbeddingBag kernel.  The
-catalog product and the candidate dot are plain products.
+Every item lookup (the history in ``encode``, the positives and negatives
+in ``loss_fn``, the candidates in ``retrieval_scores``) is
+``jnp.take(mode="fill")`` in the JAX package and ``kernels.take_rows``
+here: bags of one of the EmbeddingBag kernel, whose backward kernel carries
+the gradient to ``item_emb``.  The catalog product and the candidate dot
+are plain products.  No remat, as in the JAX package.
 
-Not here yet: ``loss_fn`` (training) and ``param_specs`` (sharding).
+Not here yet: ``param_specs`` (sharding).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.embedding_bag import take_rows
@@ -121,6 +125,20 @@ def encode(params: dict, seq: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
         ff = torch.relu(h @ bp["w1"] + bp["b1"]) @ bp["w2"] + bp["b2"]
         x = (x + ff) * keep
     return layer_norm(x, params["final_ln_s"], params["final_ln_b"])
+
+
+def loss_fn(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:
+    """batch: ``seq`` (B, L), ``pos`` (B, L) next-item targets, ``neg``
+    (B, L) sampled negatives; 0 = padding.  The paper's binary
+    cross-entropy, averaged over the positions with a positive."""
+    h = encode(params, batch["seq"], cfg)  # (B, L, d)
+    pe = take_rows(params["item_emb"], batch["pos"])
+    ne = take_rows(params["item_emb"], batch["neg"])
+    ps = torch.sum(h * pe, dim=-1).float()
+    ns = torch.sum(h * ne, dim=-1).float()
+    mask = (batch["pos"] > 0).float()
+    loss = -(F.logsigmoid(ps) + F.logsigmoid(-ns)) * mask
+    return torch.sum(loss) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def serve_scores(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:

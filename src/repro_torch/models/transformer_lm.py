@@ -9,12 +9,21 @@ Parameters are a dict of tensors with the JAX package's tree leaf by leaf:
 the layers' parameters are stacked on a leading axis ``(L, ...)`` under
 ``params["layers"]`` (and a MoE config's first dense layers under
 ``params["dense_layers"]``), and the layers run as a Python loop over views
-of them (the JAX package scans them).  Serving needs no remat.
+of them (the JAX package scans them).
 
   init(cfg, generator=, device=)            → params
   forward(params, tokens, cfg, ...)         → (hidden, caches)
+  loss_fn(params, batch, cfg)               → masked causal-LM cross-entropy
   prefill(params, tokens, cfg, max_seq=)    → (last-position logits, caches)
   decode_step(params, caches, tok, pos, cfg) → (logits, caches)
+
+A training forward (no caches, autograd recording) recomputes each layer
+in the backward, as the JAX package wraps each layer in ``jax.checkpoint``:
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` per layer.
+``remat_policy="dots"`` keeps the outputs of the unbatched products
+(``aten.mm`` / ``aten.addmm``, the ``dots_with_no_batch_dims_saveable``
+policy); any other value (``"full"``) recomputes everything, as in the
+JAX package.  Serving and ``torch.no_grad()`` calls run no checkpoint.
 
 The caches are ``{"main" | "moe": entry, "dense": entry}`` (``"dense"`` for
 a MoE config's first dense layers), each entry stacked over its layers: GQA
@@ -29,15 +38,21 @@ cache and attends with ``gqa_attention`` at ``q_offset = pos``, as the JAX
 package does (the kernel takes no 192/128 head dims).  ``cfg.attn`` alone
 picks the route.
 
-Not here yet: the training loss, and a sliding window at decode (no
-configuration sets ``window``; the decode kernel raises on it).
+Not here yet: a sliding window at decode (no configuration sets
+``window``; the decode kernel raises on it).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
@@ -52,8 +67,9 @@ INIT_STD = 0.02  # std of the attention weights and of the embedding at init
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The JAX package's ``LMConfig``, field for field.  ``unroll`` and
-    ``remat_policy`` shape the JAX traces only and change nothing here."""
+    """The JAX package's ``LMConfig``, field for field.  ``unroll`` shapes
+    the JAX traces only and changes nothing here; ``remat_policy`` picks
+    what a training forward recomputes (module note)."""
 
     name: str
     n_layers: int
@@ -277,6 +293,25 @@ def _block(p, x, cfg: LMConfig, positions, moe_block: bool, cache=None, pos=None
     return x + swiglu(p["ffn"], h)
 
 
+_UNBATCHED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the unbatched products."""
+    if op in _UNBATCHED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(p, x, cfg: LMConfig, positions, moe_block: bool):
+    """``_block`` of a training forward, recomputed in the backward."""
+    if cfg.remat_policy == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(_block, p, x, cfg, positions, moe_block, use_reentrant=False,
+                          context_fn=context)
+    return checkpoint(_block, p, x, cfg, positions, moe_block, use_reentrant=False)
+
+
 def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = None,
             attention: Callable | None = None, collect_cache: bool = False):
     """tokens (B, S) → ``(hidden (B, S, d), caches)``; with ``caches`` the
@@ -308,17 +343,34 @@ def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = Non
         if cfg.window is not None:
             raise NotImplementedError("the decode attention kernel has no sliding window")
         lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=tokens.device)
+    remat = caches is None and torch.is_grad_enabled()
     for key, cache_key, n, moe_block in _stacks(cfg):
         stack = None if caches is None else caches[cache_key]
         for i in range(n):
+            lp = layer_params(params[key], i)
+            if remat:
+                x = _remat_block(lp, x, cfg, positions, moe_block)
+                continue
             cache_l = None if stack is None else {k: t[i] for k, t in stack.items()}
-            x = _block(layer_params(params[key], i), x, cfg, positions, moe_block, cache_l,
-                       pos, attention, lengths)
+            x = _block(lp, x, cfg, positions, moe_block, cache_l, pos, attention, lengths)
     return rms_norm(x, params["final_norm"]), caches
 
 
 def logits_from_hidden(params, x, cfg: LMConfig):
     return x @ params["embed"].T  # tied embedding
+
+
+def loss_fn(params, batch: dict, cfg: LMConfig) -> torch.Tensor:
+    """Causal-LM cross-entropy; ``batch = {"tokens", "targets"}`` (B, S)
+    integer ids.  The logits are taken in float32; a target ``< 0`` is
+    masked out; the mean is over the unmasked positions (at least 1)."""
+    x, _ = forward(params, batch["tokens"], cfg)
+    logits = logits_from_hidden(params, x, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    targets = batch["targets"].long()
+    tgt = torch.gather(logits, -1, targets.clamp(min=0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    return torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 # ----------------------------------------------------------------------

@@ -139,3 +139,13 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoECfg) -> torch.Tensor:
     if "shared" in params:
         out = out + swiglu(params["shared"], x)
     return out
+
+
+def moe_aux_loss(logits_f32: torch.Tensor, topi: torch.Tensor, E: int) -> torch.Tensor:
+    """Switch-style load-balance loss (fraction·probability dot), as the JAX
+    package's: ``E · Σ_e frac_e · mean_t softmax(logits)_e``, where
+    ``frac_e`` is the share of tokens whose first choice ``topi[:, 0]`` is
+    ``e``.  No loss of either package calls it."""
+    probs = torch.softmax(logits_f32, dim=-1)
+    frac = torch.mean(F.one_hot(topi[..., 0].long(), E).to(torch.float32), dim=0)
+    return E * torch.sum(frac * torch.mean(probs, dim=0))

@@ -80,6 +80,10 @@ from repro_torch.kernels import (
     same_bits,
     spmv_vertex,
     take_rows,
+    BACKWARD_CHUNK,
+    bag_grad_case,
+    embedding_bag_backward,
+    embedding_bag_backward_ref,
 )
 from repro_torch.kernels.decode_attention.decode_attention import split_rows
 from repro_torch.data import make_candidates
@@ -986,6 +990,95 @@ def test_embedding_bag_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         embedding_bag_sums(table[0], idx, w)
     assert embedding_bag_sums.launches == before
+
+
+# (V, D, B, L, hot share, weighted): bags of one, weighted bags, a row over
+# BACKWARD_CHUNK slots, two column tiles (D = 200), one column, a row of exactly
+# one chunk and one of a chunk and one slot
+GRAD_CASES = [(1000, 50, 4099, 1, 0.0, False), (500, 33, 300, 9, 0.0, True),
+              (2000, 50, 20000, 1, 0.5, False), (3000, 50, 1000, 50, 0.5, True),
+              (97, 200, 700, 3, 0.2, True), (64, 1, 333, 2, 0.0, False),
+              (50, 16, BACKWARD_CHUNK, 1, 1.0, False), (50, 16, BACKWARD_CHUNK + 1, 1, 1.0, True)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_embedding_bag_backward_matches_plain_bit_for_bit(cuda, case):
+    """Kernel 5' against its plain version (on the CPU and on the card), bit
+    for bit, one launch a call, the same bits on a second call."""
+    V, D, B, L, hot, weighted = case
+    g, ids, w = bag_grad_case(V, D, B, L, seed=V + D, hot=hot, weighted=weighted)
+    want = embedding_bag_backward_ref(g, ids, V, w)
+    before = embedding_bag_backward.launches
+    got = embedding_bag_backward(g.to(cuda), ids.to(cuda), V, None if w is None else w.to(cuda))
+    assert embedding_bag_backward.launches == before + 1
+    torch.cuda.synchronize()
+    assert same_bits(got.cpu(), want)
+    again = embedding_bag_backward(g.to(cuda), ids.to(cuda), V,
+                                   None if w is None else w.to(cuda))
+    assert same_bits(again, got)
+    plain_on_card = embedding_bag_backward_ref(g.to(cuda), ids.to(cuda), V,
+                                               None if w is None else w.to(cuda))
+    assert same_bits(plain_on_card.cpu(), want)
+
+
+def test_take_rows_backward_reaches_the_table_on_the_card(cuda):
+    """``take_rows(...).sum().backward()`` on the card fills ``table.grad``
+    through kernel 5' (wrapped negatives, out-of-range ids, duplicates), bit
+    for bit the CPU route's."""
+    V, D = 777, 50
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-V - 3, V + 3, (64, 50)).astype(np.int32))
+    weights_out = torch.from_numpy(rng.standard_normal((64, 50, D)).astype(np.float32))
+    t_card = table.to(cuda).requires_grad_(True)
+    t_cpu = table.clone().requires_grad_(True)
+    fwd, bwd = embedding_bag_sums.launches, embedding_bag_backward.launches
+    (take_rows(t_card, ids.to(cuda)) * weights_out.to(cuda)).sum().backward()
+    assert (embedding_bag_sums.launches, embedding_bag_backward.launches) == (fwd + 1, bwd + 1)
+    (take_rows(t_cpu, ids) * weights_out).sum().backward()
+    torch.cuda.synchronize()
+    assert t_card.grad is not None and same_bits(t_card.grad.cpu(), t_cpu.grad)
+    t2 = table.to(cuda).requires_grad_(True)
+    take_rows(t2, ids.to(cuda)).sum().backward()
+    assert bool((t2.grad != 0).any())
+
+
+def test_embedding_bag_backward_refusals_on_the_card(cuda):
+    table, idx, w = bag_case(50, 8, 16, 4, torch.float32, 0, cuda)
+    with pytest.raises(NotImplementedError):
+        embedding_bag_sums(table, idx, w.clone().requires_grad_(True)).sum().backward()
+    with pytest.raises(TypeError, match="float32"):
+        take_rows(table.to(torch.bfloat16).requires_grad_(True), idx).sum().backward()
+    g = torch.ones(16, 8, device=cuda)
+    before = embedding_bag_backward.launches
+    with pytest.raises(TypeError):
+        embedding_bag_backward(g, idx.long(), 50)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_backward(torch.ones(8, 16, device=cuda).T, idx, 50)
+    with pytest.raises(ValueError):
+        embedding_bag_backward(g, idx.cpu(), 50)
+    assert embedding_bag_backward.launches == before
+
+
+def test_sasrec_loss_gradients_on_the_card_match_the_cpu_route(cuda):
+    """SASRec's smoke config: ``loss_fn``'s gradients on the card (three
+    lookups, three kernel 5' launches) within 1e-5 of the CPU route's."""
+    from repro_torch.launch import value_and_grad
+
+    cfg = sasrec_config.smoke_config()
+    params = sasrec.init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: v for k, v in sasrec_config.smoke_batch(0, device="cpu").items()
+             if k != "candidates"}
+    before = embedding_bag_backward.launches
+    l_card, g_card = value_and_grad(
+        lambda p: sasrec.loss_fn(p, {k: v.to(cuda) for k, v in batch.items()}, cfg),
+        sasrec.params_to(params, cuda))
+    assert embedding_bag_backward.launches == before + 3
+    l_cpu, g_cpu = value_and_grad(lambda p: sasrec.loss_fn(p, batch, cfg), params)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g_card["item_emb"].cpu(), g_cpu["item_emb"], rtol=1e-5,
+                               atol=1e-6)
+    assert bool((g_card["item_emb"] != 0).any())
 
 
 def test_sasrec_serving_on_the_card_matches_the_cpu_route(cuda):

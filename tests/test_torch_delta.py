@@ -435,11 +435,11 @@ ov1.apply([("insert", 5, 6), ("insert", 7, 8)])
 
 _CRASH_MODES = {
     "during_arrays": r"""
-def boom(path, **arrs):
+def boom(path, arrays):
     with open(path, "wb") as fh:
         fh.write(b"torn partial garbage")
     os._exit(42)
-ck.np.savez = boom
+ck._savez = boom
 """,
     "before_manifest": r"""
 ck.json.dump = lambda *a, **k: os._exit(42)
