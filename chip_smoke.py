@@ -6,6 +6,7 @@
     python3 chip_smoke.py --moe-only     # phase 10(a)-(b) and 16 (MoE, MLA, the other LMs)
     python3 chip_smoke.py --recsys-only  # phase 11 alone (kernel 5, SASRec serving)
     python3 chip_smoke.py --train-only   # phase 17 alone (kernel 5', training)
+    python3 chip_smoke.py --gnn-only     # phase 18 alone (the GNN family trained)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version on the
@@ -27,7 +28,9 @@ observer, the metric dump); mixture-of-experts and latent-attention serving
 (deepseek-v2-lite-16b at full width and depth, dbrx-132b at full width) and
 the other LM configurations through the single-token attention kernel;
 training (AdamW, the fault-tolerant trainer with checkpoint and restart, the
-LM and SASRec losses, the EmbeddingBag backward kernel).
+LM and SASRec losses, the EmbeddingBag backward kernel); the GNN family
+(GIN, PNA, DimeNet, Equiformer-v2) trained on its cells, with its
+aggregation layer and neighbour sampler.
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -98,7 +101,9 @@ LM and SASRec losses, the EmbeddingBag backward kernel).
    one more matching under ``torch.profiler`` for its device time by kernel;
    (d) the eight filter algorithms, ``pack_vertices`` with a partial
    subset and ``filter_edges`` on graph E, compressed and CSR, on the card
-   equal to the CPU route exactly; ``triangle_count`` on graph B.
+   equal to the CPU route exactly (the CPU route runs in a child process
+   started before the graphs are built, so it overlaps phases 2-8);
+   ``triangle_count`` on graph B.
 10. The LM serving path (kernel 6, ``decode_attention``): (a) the kernel
    against its plain version on the card at the JAX sweep's shapes,
    qwen2-1.5B's (B, S, Hq, Hkv, D) = (8, 1000, 12, 2, 128), qwen1.5-4B's
@@ -290,6 +295,25 @@ LM and SASRec losses, the EmbeddingBag backward kernel).
    deepseek-v2-lite-16b cut to its dense layer and one MoE layer at full
    width, 4 steps of 2 x 4,096 tokens: finite losses, the router and every
    expert tensor moved, ms a step (median of steps 2-4), peak memory.
+18. The GNN family trained on the card, float32 (TF32 off), no hand kernel on
+   the path: (a) the aggregation primitives (``scatter_sum/mean/max/min/std``,
+   ``segment_softmax``, ``gather_src``) on 440,000 edges into 50,000 nodes x
+   64 with empty segments, the sentinel, ids out of range and duplicate
+   edges, value and gradient against the CPU route: max and min bit for
+   bit, the rest within 1e-5 of the largest value; (b) GIN, PNA, DimeNet
+   and Equiformer-v2 at their full configs on the molecule cell (128
+   molecules of 30 atoms and 64 bonds, 262,144 DimeNet triplet slots): each
+   cut to 2 layers on 16 molecules, one loss and gradient against the CPU
+   route (every leaf within relative L2 1e-4 beside 1e-6 of the whole
+   norm), then 4 ``Trainer`` steps at full depth: ms a step (median of
+   steps 2-4), graphs/s, model flops a second, peak memory, every loss and
+   grad norm finite; (c) the same four at full_graph_sm (2,720 x 1,433, 10,752
+   edges, 7 classes); (d) GIN at ogb_products, full batch (2,449,056 x 100,
+   61,859,328 edges made on the card), 4 steps and one under
+   ``torch.profiler`` (the scatter's and the gathers' share of the device
+   time); (e) PNA at minibatch_lg: a 232,965-vertex, 114,615,892-edge CSR
+   built on the host, 1,024 seeds a step through ``sample_fanout`` (15, 10),
+   the sampler's host seconds beside the step's ms.
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
@@ -1259,6 +1283,69 @@ def filter_results(g, pri, sets, rng_seed):
         "triangle_count": A.triangle_count(g),
         "orientation_filter": (orient.bits, orient.active_deg, orient.dirty, orient_keep),
     }
+
+
+def filter_inputs(n):
+    """Phase 9(d)'s priorities (a permutation from the seed) and sets (ids
+    below n/3) on the host."""
+    import torch
+
+    return (torch.randperm(n, generator=torch.Generator().manual_seed(SEED)),
+            torch.arange(n) < n // 3)
+
+
+FILTER_CPU_ROUTE = ROOT / "build" / "phase9d_cpu.pt"
+CPU_ROUTE_THREADS = 2   # the CPU route's torch threads beside the main process
+
+
+def filter_cpu_route(out_path, n, m):
+    """Phase 9(d)'s CPU route, in a process of its own: graph E (``n``,
+    ``m``) built on the host as ``drive`` builds it, ``filter_results`` over
+    its compressed form and its CSR, saved with each one's seconds to
+    ``out_path``."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    torch.set_num_threads(CPU_ROUTE_THREADS)
+    E_ = build_graph(n, m, torch.device("cpu"))
+    pri, sets = filter_inputs(E_.host.n)
+    out = {}
+    for kind, g in (("compressed", E_.host), ("CSR", E_.host_csr)):
+        ts = time.perf_counter()
+        res = filter_results(g, pri, sets, SEED)
+        out[kind] = (res, time.perf_counter() - ts)
+    torch.save(out, out_path)
+
+
+def start_filter_cpu_route(graph_e):
+    """Start phase 9(d)'s CPU route (``filter_cpu_route``) in a child
+    process that sees no card, so it runs while the card works through
+    phases 2-8; the child is killed if this process exits first."""
+    import atexit
+
+    FILTER_CPU_ROUTE.parent.mkdir(parents=True, exist_ok=True)
+    FILTER_CPU_ROUTE.unlink(missing_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.filter_cpu_route({str(FILTER_CPU_ROUTE)!r}, {graph_e[0]}, "
+            f"{graph_e[1]})")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env)
+    atexit.register(proc.kill)
+    return proc
+
+
+def finish_filter_cpu_route(proc) -> dict:
+    """Wait for the CPU route's child (the host seconds it kept this
+    process waiting are returned under ``"waited"``) and load its
+    results."""
+    import torch
+
+    ts = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    check(rc == 0, f"phase 9(d)'s CPU route exited {rc}")
+    out = torch.load(FILTER_CPU_ROUTE)
+    out["waited"] = time.perf_counter() - ts
+    return out
 
 
 def same_result(a, b) -> bool:
@@ -3946,6 +4033,33 @@ def bag_backward_bytes(g, ids, V):
     return g.numel() * 4 + ids.numel() * 4 + V * g.shape[1] * 4
 
 
+def sum_error_share(flat, g, V, results) -> float:
+    """Holds each (V, D) float32 result to the float64 sum of row ``v`` over
+    the rows ``g[i]`` with ``flat[i] == v``, element by element, within the
+    a-priori error bound of a k-term float32 sum in any order or tree,
+    ``gamma(k - 1) * sum |x|`` with ``gamma(m) = m u / (1 - m u)``, ``u = 2^-24``
+    (Higham, Accuracy and Stability of Numerical Algorithms, 2nd ed., §4.2):
+    a row of one term exact, an untouched row 0.  Returns the largest share of
+    the bound a result used."""
+    import torch
+
+    exact = torch.zeros((V, g.shape[1]), dtype=torch.float64, device=g.device)
+    exact.index_add_(0, flat, g.double())
+    bound = torch.zeros_like(exact).index_add_(0, flat, g.double().abs())
+    m = (torch.bincount(flat, minlength=V).double() - 1).clamp(min=0)[:, None]
+    u = 2.0 ** -24
+    check(float(m.max()) * u < 1, "a row sums too many terms for the float32 bound")
+    bound *= m * u / (1 - m * u)
+    share = 0.0
+    for name, got in results.items():
+        err = (got.double() - exact).abs()
+        check(bool((err <= bound).all()),
+              f"{name} at train_batch: an element outside the float32 sum's error bound "
+              f"({int((err > bound).sum())} of {err.numel()})")
+        share = max(share, float((err / bound.clamp(min=1e-300)).max()))
+    return share
+
+
 def time_bag_backward(dev, hot: bool):
     """Phase 17(b): device ms of kernel 5' (its sort included), of its plain
     version and of two yardsticks the port never calls
@@ -3988,7 +4102,10 @@ def time_bag_backward(dev, hot: bool):
 
     lib_err = max(float((f() - want).abs().max()) for f in (dense, atomic))
     rel = max(float((f() - want).norm() / want.norm()) for f in (dense, atomic))
-    check(rel <= GRAD_REL_TOL, f"a yardstick at train_batch differs from plain by {rel}")
+    # the hot row sums ~786,000 terms in an order the atomics pick anew each
+    # call: each result is held to the exact sum, not to another order's
+    sum_share = sum_error_share(flat, g, V, {"plain": want, "embedding_dense_backward": dense(),
+                                             "index_add_": atomic()})
     hot_share = float((ids == int(torch.mode(flat).values)).float().mean())
     del want
     nbytes = bag_backward_bytes(g, ids, V)
@@ -4000,7 +4117,7 @@ def time_bag_backward(dev, hot: bool):
         atomic_ms=device_ms(atomic, runs=9, per_run=5),
         bytes=nbytes,
         bound_ms=max(nbytes / HBM_BYTES_PER_S, N * D / F32_FLOPS) * 1e3,
-        err=err, lib_err=lib_err, lib_rel=rel, hot_share=hot_share,
+        err=err, lib_err=lib_err, lib_rel=rel, sum_share=sum_share, hot_share=hot_share,
     )
     check_bound(f"kernel 5' at train_batch (hot={hot})", t)
     check_bound(f"index_add_ at train_batch (hot={hot})", dict(ms=t["atomic_ms"],
@@ -4365,7 +4482,9 @@ def drive_train(dev) -> dict:
             f"{t['library_ms']!r} ms, zeros.index_add_ {t['atomic_ms']!r} ms, bound "
             f"{t['bound_ms']!r} ms ({t['bytes']} B at {3.35} TB/s); kernel against plain: max "
             f"abs {t['err']!r}; yardsticks against plain: "
-            f"max abs {t['lib_err']!r}, relative L2 {t['lib_rel']!r}")
+            f"max abs {t['lib_err']!r}, relative L2 {t['lib_rel']!r}; plain and yardsticks "
+            f"against the float64 sum: at most {t['sum_share']!r} of float32's summation "
+            f"error bound")
     wall = {"kernel 5'": time.perf_counter() - t0}
     t0 = time.perf_counter()
     bwd, fwd = sasrec_train(dev)
@@ -4394,6 +4513,433 @@ def drive_train(dev) -> dict:
     }
 
 
+# ----------------------------------------------------------------------
+# phase 18: the GNN family trained on the card
+# ----------------------------------------------------------------------
+GNN_CHECK = (16, 2)         # (b): molecules and layers of the step held to the CPU route
+GNN_STEPS = 4               # Trainer steps a model and cell; ms a step: median of steps 2-4
+GNN_REL_TOL = 1e-4          # float32 gradient leaves, card against CPU: relative L2
+GNN_FLOOR = 1e-6            # ... plus this share of the whole gradient's norm (a leaf whose
+#                             gradient vanishes analytically, as the attention bias under the
+#                             edge softmax's shift invariance, holds rounding noise only)
+AGG_REL_TOL = 1e-5          # (a): sums, means, std and softmax, atomic adds in another order
+AGG_SHAPE = (50_000, 400_000, 64)   # (a): nodes, edges, features
+SAMPLER = (1024, (15, 10))  # (e): seeds a step and the fanouts of minibatch_lg
+
+
+def compare_aggregation(dev) -> int:
+    """Phase 18(a): the aggregation primitives on the card against the CPU
+    route, value and the gradient of a random cotangent: max and min bit for
+    bit, sums, means, std and the edge softmax within ``AGG_REL_TOL`` of the
+    largest value; the gathers exactly.  Empty segments (the last 1,000
+    nodes receive nothing), the sentinel ``n``, duplicate edges (exact ties)
+    and ids outside [0, n].  Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.gnn import aggregate as agg
+
+    n, E, d = AGG_SHAPE
+    rng = np.random.default_rng(SEED)
+    dst = rng.integers(0, n - 1000, E)
+    dst[::97] = n                                   # the sentinel: dropped
+    dst[1::997] = n + 7                             # outside [0, n]: dropped
+    dup = rng.choice(E, E // 10)                    # duplicate edges: exact ties
+    dst = np.concatenate([dst, dst[dup]]).astype(np.int32)
+    vals = (rng.integers(-64, 64, (E, d)) / 8).astype(np.float32)
+    vals = np.concatenate([vals, vals[dup]])
+    cot = rng.normal(size=(n, d)).astype(np.float32)
+    cases = 0
+
+    def run(fn, v, idx, c, where):
+        x = torch.from_numpy(v).to(where).requires_grad_(True)
+        out = fn(x, torch.from_numpy(idx).to(where))
+        (g,) = torch.autograd.grad(out, x, torch.from_numpy(c).to(where))
+        return out.detach().cpu(), g.cpu()
+
+    def held(got, want, exact, what):
+        if exact:
+            check(torch.equal(got, want), f"18(a) {what} on the card differs from the CPU route")
+            return
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        check(err <= AGG_REL_TOL, f"18(a) {what}: {err} of the largest value from the CPU route")
+
+    for name in ("scatter_sum", "scatter_mean", "scatter_max", "scatter_min", "scatter_std"):
+        fn = lambda x, i, f=getattr(agg, name): f(x, i, n)  # noqa: E731
+        card, host = run(fn, vals, dst, cot, dev), run(fn, vals, dst, cot, "cpu")
+        exact = name in ("scatter_max", "scatter_min")
+        held(card[0], host[0], exact, f"{name} value")
+        held(card[1], host[1], exact, f"{name} gradient")
+        cases += 2
+    # the edge softmax over 8 heads: node n - 1 receives a real edge, so the
+    # sentinel edges read a finite max
+    sdst = dst.copy()
+    sdst[5] = n - 1
+    scores = rng.normal(size=(len(sdst), 8)).astype(np.float32)
+    scores[sdst >= n] = -1e30
+    scot = rng.normal(size=scores.shape).astype(np.float32)
+    fn = lambda x, i: agg.segment_softmax(x, i, n)  # noqa: E731
+    card, host = run(fn, scores, np.minimum(sdst, n), scot, dev), run(
+        fn, scores, np.minimum(sdst, n), scot, "cpu")
+    held(card[0], host[0], False, "segment_softmax value")
+    held(card[1], host[1], False, "segment_softmax gradient")
+    # the gather: the sentinel, ids past it and wrapped negatives
+    ids = rng.integers(-n, n + 5, E).astype(np.int32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    gx = run(lambda t, i: agg.gather_src(t, i), x, ids, rng.normal(size=(E, d)).astype(
+        np.float32), dev)
+    hx = run(lambda t, i: agg.gather_src(t, i), x, ids, rng.normal(size=(E, d)).astype(
+        np.float32), "cpu")
+    held(gx[0], hx[0], True, "gather_src value")
+    return cases + 3
+
+
+def triplet_lists(src, dst, n, cap, length):
+    """DimeNet's triplets: for each edge j -> i (its index in ``t_ji``), up
+    to ``cap`` edges k -> j with k != i (in ``t_kj``), padded with E to
+    ``length``."""
+    import numpy as np
+
+    E = len(src)
+    order = np.argsort(dst, kind="stable")
+    starts = np.searchsorted(dst[order], np.arange(n + 1))
+    kj, ji = [], []
+    for e in range(E):
+        into = order[starts[src[e]]:starts[src[e] + 1]]
+        into = into[src[into] != dst[e]][:cap]
+        kj.append(into)
+        ji.append(np.full(len(into), e))
+    kj, ji = np.concatenate(kj), np.concatenate(ji)
+    check(len(kj) <= length, f"{len(kj)} triplets over the cell's {length}")
+    t_kj = np.full(length, E, np.int32)
+    t_ji = np.full(length, E, np.int32)
+    t_kj[:len(kj)], t_ji[:len(ji)] = kj, ji
+    return t_kj, t_ji, len(kj)
+
+
+def gnn_batch(cell, dev, seed, *, n_mol=None) -> tuple[dict, dict]:
+    """A batch of ``cell``'s ``batch_specs`` from ``seed`` (``n_mol``
+    molecules for a cut of the molecule cell), and what it holds.
+
+    molecule: molecules of 30 atoms and 64 distinct bonds, both directions
+    (no self-loop), positions ~N(0, 1.5^2) a coordinate, triplets k -> j ->
+    i with k != i, a float32 energy a molecule.  full_graph_sm: 10,556
+    uniform edges (no self-loop) over the 2,708 real nodes, the padding
+    edges self-loops on the padded tail nodes (labels -1), classes 0-6,
+    triplets capped at 8 an edge.  Every tensor is checked against its
+    spec's shape and dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.common import GNN_SHAPES, TRIPLET_CAP
+    from repro_torch.configs.gnn_common import SHAPE_TASK
+
+    specs = cell.batch_specs
+    info = GNN_SHAPES[cell.shape]
+    rng = np.random.default_rng(seed)
+    n, e = specs["node_feat"].shape[0], specs["edge_src"].shape[0]
+    note = {}
+    if cell.shape == "molecule":
+        atoms, bonds = info["n_nodes"], info["n_edges"]
+        mols = n_mol or cell.model_cfg.n_graphs
+        n, e = atoms * mols, 2 * bonds * mols
+        pairs = np.stack(np.triu_indices(atoms, 1), 1)
+        b = np.concatenate([pairs[rng.choice(len(pairs), bonds, replace=False)] + atoms * g
+                            for g in range(mols)])
+        src = np.concatenate([b[:, 0], b[:, 1]])
+        dst = np.concatenate([b[:, 1], b[:, 0]])
+        batch = {"node_graph": np.repeat(np.arange(mols), atoms).astype(np.int32),
+                 "graph_labels": rng.normal(size=mols).astype(np.float32)}
+        pos_scale = 1.5
+    elif cell.shape == "full_graph_sm":
+        n_real, e_real = info["n_nodes"], info["n_edges"]
+        src = rng.integers(0, n_real, e_real)
+        dst = (src + rng.integers(1, n_real, e_real)) % n_real      # no self-loop
+        tail = n_real + np.arange(e - e_real) % (n - n_real)
+        src, dst = np.concatenate([src, tail]), np.concatenate([dst, tail])
+        labels = rng.integers(0, SHAPE_TASK[cell.shape][1], n).astype(np.int32)
+        labels[n_real:] = -1
+        batch = {"labels": labels}
+        pos_scale = 1.0
+    else:
+        raise ValueError(f"gnn_batch builds molecule and full_graph_sm, not {cell.shape}")
+    batch["node_feat"] = rng.normal(size=(n, info["d_feat"])).astype(np.float32)
+    batch["edge_src"], batch["edge_dst"] = src.astype(np.int32), dst.astype(np.int32)
+    if "pos" in specs:
+        batch["pos"] = (rng.normal(size=(n, 3)) * pos_scale).astype(np.float32)
+    if "t_kj" in specs:
+        t_len = e * TRIPLET_CAP[cell.shape]
+        batch["t_kj"], batch["t_ji"], note["triplets"] = triplet_lists(
+            src, dst, n, TRIPLET_CAP[cell.shape], t_len)
+    out = {k: torch.from_numpy(batch[k]).to(dev) for k in specs}
+    if n_mol is None:
+        for k, s in specs.items():
+            check(tuple(out[k].shape) == s.shape and out[k].dtype == s.dtype,
+                  f"{cell.arch} {cell.shape} {k}: {tuple(out[k].shape)} {out[k].dtype}, the "
+                  f"cell's {s.shape} {s.dtype}")
+    note.update(nodes=n, edges=e)
+    return out, note
+
+
+def depth_field(cfg) -> str:
+    return "n_blocks" if hasattr(cfg, "n_blocks") else "n_layers"
+
+
+def gnn_grads_vs_cpu(dev, m, cell):
+    """Phase 18(b), first part: ``cell``'s model at full width cut to
+    ``GNN_CHECK`` layers on that many molecules, one loss and gradient on
+    the card and on the CPU route from the same parameters."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.launch import value_and_grad
+    from repro_torch.optim import tree_leaves, tree_map
+
+    mols, layers = GNN_CHECK
+    cfg = dc.replace(cell.model_cfg, n_graphs=mols, **{depth_field(cell.model_cfg): layers})
+    batch, _ = gnn_batch(cell, dev, SEED + 1, n_mol=mols)
+    params = m.MODULE.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    l_card, g_card = value_and_grad(lambda p: m.MODULE.loss_fn(p, batch, cfg), params)
+    host = tree_map(lambda t: t.cpu(), params)
+    hb = {k: v.cpu() for k, v in batch.items()}
+    l_cpu, g_cpu = value_and_grad(lambda p: m.MODULE.loss_fn(p, hb, cfg), host)
+    gc, gh = tree_leaves(g_card), tree_leaves(g_cpu)
+    total = math.sqrt(sum(float(g.double().norm()) ** 2 for g in gh))
+    worst = 0.0
+    for a, b in zip(gc, gh):
+        check(bool(torch.isfinite(a).all()), f"18(b) {cell.arch}: a gradient leaf not finite")
+        err = float((a.cpu().double() - b.double()).norm())
+        worst = max(worst, err / (float(b.double().norm()) + GNN_FLOOR / GNN_REL_TOL * total))
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    check(math.isfinite(float(l_card)) and loss_rel <= GNN_REL_TOL and worst <= GNN_REL_TOL,
+          f"18(b) {cell.arch} cut to {layers} layers: loss {loss_rel}, gradients {worst} from "
+          "the CPU route")
+    return loss_rel, worst, len(gc)
+
+
+def train_gnn(dev, mod, cfg, make_batch, *, profile=False):
+    """``GNN_STEPS`` Trainer steps of ``mod`` at ``cfg`` on the card: ms a
+    step (median of steps 2-4), losses and grad norms (all finite), peak
+    device memory, and with ``profile`` one more step under
+    ``torch.profiler``."""
+    import torch
+
+    from repro_torch.launch import TrainConfig, Trainer
+
+    trainer = Trainer(mod, cfg, train_cfg=TrainConfig(steps=GNN_STEPS, warmup=1, log_every=1),
+                      device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt, hist = trainer.fit(make_batch, generator=torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    check(len(hist) == GNN_STEPS and all(math.isfinite(x) for x in losses + norms),
+          f"{cfg.name}: losses {losses}, grad norms {norms}")
+    out = {"ms": statistics.median(h["sec_per_step"] for h in hist[1:]) * 1e3,
+           "each": [h["sec_per_step"] * 1e3 for h in hist], "losses": losses, "norms": norms,
+           "peak": peak}
+    if profile:
+        batch = make_batch(GNN_STEPS)
+        out["prof"] = profile_run(lambda: trainer.train_step(params, opt, batch), top=12)
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_gnn_step(tag, cell, cfg, t, items, unit):
+    """One line for a cell's training steps."""
+    log(f"[18] ({tag}) {cell.arch} {cell.shape} ({depth_field(cfg)} "
+        f"{getattr(cfg, depth_field(cfg))}, d {cfg.d_hidden}, d_in {cfg.d_in}) on {CARD}: "
+        f"{t['ms']:.3f} ms a step (median of steps 2-{GNN_STEPS}; each "
+        f"{', '.join(f'{x:.3f}' for x in t['each'])}) = {items / (t['ms'] / 1e3):.1f} {unit}/s, "
+        f"model flops {cell.model_flops / (t['ms'] / 1e3) / 1e12:.3f} TFLOP/s; peak device "
+        f"memory {t['peak']} B; losses {[round(x, 5) for x in t['losses']]}, grad norms "
+        f"{[round(x, 4) for x in t['norms']]}")
+
+
+def products_batch(cell, dev):
+    """ogb_products, full batch, made on the card from a seeded generator:
+    2,449,029 real nodes x 100 features and 61,859,140 uniform edges, the
+    padding edges self-loops on the padded tail nodes (labels -1), 47
+    classes."""
+    import torch
+
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.configs.gnn_common import SHAPE_TASK
+
+    info = GNN_SHAPES[cell.shape]
+    n_real, e_real = info["n_nodes"], info["n_edges"]
+    n, e = cell.batch_specs["node_feat"].shape[0], cell.batch_specs["edge_src"].shape[0]
+    g = torch.Generator(dev).manual_seed(SEED + 2)
+    tail = n_real + torch.arange(e - e_real, device=dev, dtype=torch.int32) % (n - n_real)
+    labels = torch.randint(0, SHAPE_TASK[cell.shape][1], (n,), generator=g, device=dev,
+                           dtype=torch.int32)
+    labels[n_real:] = -1
+    return {
+        "node_feat": torch.randn(n, info["d_feat"], generator=g, device=dev),
+        "edge_src": torch.cat([torch.randint(0, n_real, (e_real,), generator=g, device=dev,
+                                             dtype=torch.int32), tail]),
+        "edge_dst": torch.cat([torch.randint(0, n_real, (e_real,), generator=g, device=dev,
+                                             dtype=torch.int32), tail]),
+        "labels": labels,
+    }
+
+
+def reddit_csr(seed):
+    """minibatch_lg's graph on the host, built directly as a CSR: 232,965
+    vertices, 114,615,892 edges, degrees a multinomial draw over log-normal
+    weights (skewed, as a social graph's), targets uniform."""
+    import numpy as np
+
+    from repro_torch.configs.common import GNN_SHAPES
+
+    info = GNN_SHAPES["minibatch_lg"]
+    n, m = info["n_nodes"], info["n_edges"]
+    rng = np.random.default_rng(seed)
+    w = rng.lognormal(0.0, 1.0, n)
+    deg = rng.multinomial(m, w / w.sum())
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=offsets[1:])
+    return offsets, rng.integers(0, n, m, dtype=np.int32)
+
+
+def sampled_batch(cell, dev, offsets, targets, feat, labels, seed):
+    """One minibatch_lg batch through the port's sampler: 1,024 seeds, fanout
+    (15, 10), the features of the sampled nodes gathered on the card (the
+    padded nodes, -1, filled with zeros, not wrapped), the seeds' labels
+    (every other node -1).  Returns the batch and the sampler's host s."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import sample_fanout
+    from repro_torch.models.gnn.aggregate import gather_src
+
+    n_seeds, fanouts = SAMPLER
+    n_graph = len(offsets) - 1
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(n_graph, n_seeds, replace=False)
+    ts = time.perf_counter()
+    nodes, es, ed, n_real, _ = sample_fanout(offsets, targets, seeds, fanouts, rng=rng)
+    secs = time.perf_counter() - ts
+    # the cell pads nodes to x32 and edges to x512 past the sampler's sizes
+    # (at minibatch_lg's real sizes it adds nothing); its sentinel is its n
+    n, e = cell.batch_specs["node_feat"].shape[0], cell.batch_specs["edge_src"].shape[0]
+    nodes = np.concatenate([nodes, np.full(n - len(nodes), -1, nodes.dtype)])
+    es, ed = (np.concatenate([np.where(a < n_real, a, n), np.full(e - len(a), n)]).astype(
+        np.int32) for a in (es, ed))
+    nodes_t = torch.from_numpy(nodes).to(dev)
+    ids = torch.where(nodes_t >= 0, nodes_t, n_graph)      # padding: the fill row
+    lab = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    at = torch.from_numpy(np.searchsorted(nodes[:n_real], seeds)).to(dev)
+    lab[at] = labels[torch.from_numpy(seeds).to(dev)]
+    batch = {"node_feat": gather_src(feat, ids), "edge_src": torch.from_numpy(es).to(dev),
+             "edge_dst": torch.from_numpy(ed).to(dev), "labels": lab}
+    for k, s in cell.batch_specs.items():
+        check(tuple(batch[k].shape) == s.shape and batch[k].dtype == s.dtype,
+              f"minibatch_lg {k}: {tuple(batch[k].shape)} {batch[k].dtype}, the cell's {s}")
+    return batch, secs
+
+
+def drive_gnn(dev):
+    """Phase 18: the GNN family trained on the card, float32 products full
+    (TF32 off): (a) the aggregation primitives against the CPU route; (b)
+    all four models at full width on the molecule cell (2 layers on 16
+    molecules against the CPU route, then ``GNN_STEPS`` Trainer steps at full
+    depth); (c) the same four at full_graph_sm; (d) GIN at ogb_products,
+    full batch, one step profiled; (e) PNA at minibatch_lg through the
+    sampler.  No hand kernel lies on this path."""
+    import torch
+
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs.gnn_common import SHAPE_TASK
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.get_float32_matmul_precision() == "highest", "float32 products must be full")
+    wall = {}
+    t0 = time.perf_counter()
+    cases = compare_aggregation(dev)
+    log(f"[18] (a) aggregation on the card against the CPU route, {AGG_SHAPE[1]} edges (+10 % "
+        f"duplicates) into {AGG_SHAPE[0]} nodes x {AGG_SHAPE[2]}, the last 1,000 receiving "
+        f"nothing, sentinel and out-of-range ids: {cases} cases; scatter_max / scatter_min "
+        f"value and gradient bit for bit, sums, means, std and segment_softmax within "
+        f"{AGG_REL_TOL} of the largest value, gather_src exact")
+    wall["(a)"] = time.perf_counter() - t0
+    order = ("gin-tu", "pna", "dimenet", "equiformer-v2")
+    for shape, tag in (("molecule", "b"), ("full_graph_sm", "c")):
+        t0 = time.perf_counter()
+        for arch in order:
+            m = GNN_ARCHS[arch]
+            cell = m.cells()[shape]
+            if shape == "molecule":
+                loss_rel, worst, leaves = gnn_grads_vs_cpu(dev, m, cell)
+                log(f"[18] (b) {arch} at full width cut to {GNN_CHECK[1]} layers on "
+                    f"{GNN_CHECK[0]} molecules, card against the CPU route: loss {loss_rel:.3g} "
+                    f"relative, {leaves} gradient leaves at most {worst:.3g} (relative L2 "
+                    f"beside {GNN_FLOOR} of the whole norm; limit {GNN_REL_TOL})")
+            batch, note = gnn_batch(cell, dev, SEED)
+            t = train_gnn(dev, m.MODULE, cell.model_cfg, lambda s, b=batch: b)
+            items = cell.model_cfg.n_graphs if shape == "molecule" else note["nodes"]
+            log_gnn_step(tag, cell, cell.model_cfg, t, items,
+                         "graphs" if shape == "molecule" else "nodes")
+            if "triplets" in note:
+                log(f"[18] ({tag}) {arch} {shape}: {note['triplets']} real triplets of "
+                    f"{cell.batch_specs['t_kj'].shape[0]}")
+            del batch
+        wall[f"({tag})"] = time.perf_counter() - t0
+    # (d) GIN at ogb_products, full batch
+    t0 = time.perf_counter()
+    m = GNN_ARCHS["gin-tu"]
+    cell = m.cells()["ogb_products"]
+    batch = products_batch(cell, dev)
+    t = train_gnn(dev, m.MODULE, cell.model_cfg, lambda s: batch, profile=True)
+    log_gnn_step("d", cell, cell.model_cfg, t, batch["node_feat"].shape[0], "nodes")
+    wall_s, busy_ms, n_kernels, top = t["prof"]
+    # index_add's kernel (indexFuncLargeIndex: the scatter, forward and the
+    # gather's backward) and index_select's (vectorized_gather_kernel)
+    scatter_ms = sum(ms for name, ms, _ in top if "indexFunc" in name)
+    gather_ms = sum(ms for name, ms, _ in top if "gather" in name)
+    log(f"[18] (d) one step under torch.profiler: wall {wall_s * 1e3:.3f} ms, {n_kernels} "
+        f"kernels, {busy_ms:.3f} ms of device time (busy {busy_ms / t['ms']:.3f} of the "
+        f"unprofiled step); over the ({cell.batch_specs['edge_src'].shape[0]}, "
+        f"{cell.model_cfg.d_hidden}) messages the scatter (index_add, atomic) {scatter_ms:.3f} "
+        f"ms = {scatter_ms / busy_ms:.3f} and the gathers (index_select) {gather_ms:.3f} ms = "
+        f"{gather_ms / busy_ms:.3f} of the device time")
+    for name, kms, count in top:
+        log(f"[18] (d)   {kms:10.3f} ms  {count:5d} calls  {name[:110]}")
+    del batch
+    torch.cuda.empty_cache()
+    wall["(d)"] = time.perf_counter() - t0
+    # (e) PNA at minibatch_lg through the sampler
+    t0 = time.perf_counter()
+    m = GNN_ARCHS["pna"]
+    cell = m.cells()["minibatch_lg"]
+    offsets, targets = reddit_csr(SEED + 3)
+    csr_s = time.perf_counter() - t0
+    g = torch.Generator(dev).manual_seed(SEED + 4)
+    n_graph = len(offsets) - 1
+    feat = torch.randn(n_graph, cell.model_cfg.d_in, generator=g, device=dev)
+    labels = torch.randint(0, SHAPE_TASK[cell.shape][1], (n_graph,), generator=g, device=dev,
+                           dtype=torch.int32)
+    sampled = [sampled_batch(cell, dev, offsets, targets, feat, labels, SEED + 10 + s)
+               for s in range(GNN_STEPS)]
+    t = train_gnn(dev, m.MODULE, cell.model_cfg, lambda s: sampled[s][0])
+    sampler_s = [s for _, s in sampled]
+    real_e = [int((b["edge_dst"] < b["node_feat"].shape[0]).sum()) for b, _ in sampled]
+    log(f"[18] (e) the graph on the host: {n_graph} vertices, {len(targets)} edges as a CSR in "
+        f"{csr_s:.1f} s; the sampler ({SAMPLER[0]} seeds, fanout {SAMPLER[1]}) "
+        f"{', '.join(f'{s:.3f}' for s in sampler_s)} s a batch on the host, "
+        f"{real_e} real edges of {cell.batch_specs['edge_src'].shape[0]}")
+    log_gnn_step("e", cell, cell.model_cfg, t, SAMPLER[0], "seeds")
+    del sampled, feat, labels, offsets, targets
+    torch.cuda.empty_cache()
+    wall["(e)"] = time.perf_counter() - t0
+    log("[18] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+
+
 def log_profile(tag, prof, ms):
     """One line for a ``profile_run`` reading beside the unprofiled call's ms."""
     wall, busy_ms, n_kernels, top = prof
@@ -4420,6 +4966,9 @@ def main(argv=None) -> int:
     only.add_argument("--train-only", action="store_true",
                       help="build the kernels and run phase 17 alone (kernel 5', the trainer, "
                            "SASRec, qwen2-1.5B and deepseek-v2-lite training)")
+    only.add_argument("--gnn-only", action="store_true",
+                      help="build the kernels and run phase 18 alone (the GNN family trained "
+                           "on the card; no hand kernel lies on its path)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}: run it from a "
@@ -4477,6 +5026,11 @@ def main(argv=None) -> int:
         _, record = drive_train(dev)
         kernels = [record]
         log(f"wall seconds: training {time.perf_counter() - t0:.1f}")
+    elif args.gnn_only:
+        t0 = time.perf_counter()
+        drive_gnn(dev)
+        kernels = []  # no hand kernel lies on the GNN path
+        log(f"wall seconds: GNN training {time.perf_counter() - t0:.1f}")
     else:
         kernels = drive(dev)  # phases 2-16 and 8; their device memory is freed on return
         torch.cuda.empty_cache()
@@ -4485,6 +5039,10 @@ def main(argv=None) -> int:
         log(f"wall seconds: training {time.perf_counter() - t0:.1f}")
         next(k for k in kernels if k["name"] == "embedding_bag")["launches"] += fwd
         kernels.append(record)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        drive_gnn(dev)                   # 18. the GNN family trained on the card
+        log(f"wall seconds: GNN training {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
@@ -4524,6 +5082,7 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     from repro_torch.tuning import HBM_BYTES_PER_S, TuningTable, calibrate, default_table
 
     wall = {}
+    cpu_route = start_filter_cpu_route(graph_e)  # phase 9(d)'s CPU route, beside the card
     # graphs: built on the host, moved to the card ---------------------
     t0 = time.perf_counter()
     B_ = build_graph(*graph_b, dev)
@@ -4839,27 +5398,28 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         f"{busy_ms:.1f} ms of device time (busy share {busy_ms / 1e3 / prof_s:.3f})")
     for name, ms, calls in top:
         log(f"[9]   {ms:10.3f} ms  {calls:5d} calls  {name[:110]}")
-    # (d) the card against the CPU route, exactly, on graph E
-    pri = torch.randperm(gE.n, generator=torch.Generator().manual_seed(SEED))
-    sets_e = torch.arange(gE.n) < gE.n // 3
-    for kind, gd, gh in (("compressed", E_.dev, E_.host), ("CSR", E_.csr, E_.host_csr)):
+    # (d) the card against the CPU route (run by the child started above), exactly, on graph E
+    pri, sets_e = filter_inputs(gE.n)
+    cpu_route = finish_filter_cpu_route(cpu_route)
+    for kind, gd in (("compressed", E_.dev), ("CSR", E_.csr)):
         before = filter_pack_words.launches
         ts = time.perf_counter()
         on_card = filter_results(gd, pri.to(dev), sets_e.to(dev), SEED)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - ts
         card_launches = filter_pack_words.launches - before
-        ts = time.perf_counter()
-        on_cpu = filter_results(gh, pri, sets_e, SEED)
-        cpu_s = time.perf_counter() - ts
+        on_cpu, cpu_s = cpu_route[kind]
         check(card_launches > 0 and filter_pack_words.launches - before == card_launches,
               f"graph E {kind}: kernel 4 launches {card_launches} on the card")
+        check(on_cpu.keys() == on_card.keys(), f"graph E {kind}: the CPU route's results")
         for name in on_card:
             check(same_result(on_card[name], on_cpu[name]),
                   f"graph E {kind}: {name} on the card differs from the CPU route")
         log(f"[9] graph E {kind}: {', '.join(on_card)} equal the CPU route exactly "
             f"(triangles {on_card['triangle_count']}); card {card_s:.1f} s with "
-            f"{card_launches} kernel 4 launches, CPU {cpu_s:.1f} s")
+            f"{card_launches} kernel 4 launches, CPU {cpu_s:.1f} s in a child process "
+            f"({CPU_ROUTE_THREADS} threads, started before the graphs were built; this "
+            f"process waited {cpu_route['waited']:.1f} s for it)")
     ts = time.perf_counter()
     tri = triangle_count(gB)
     tri_s = time.perf_counter() - ts

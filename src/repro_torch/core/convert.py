@@ -157,6 +157,30 @@ def lm_params_from_reference(tree: dict, cfg, device=None) -> dict:
     return carry(param_specs(cfg), tree, "")
 
 
+def _carry_float32(spec, node, dev, path=""):
+    """A tree of float32 numpy arrays (nested dicts and lists) as tensors on
+    ``dev``, held to ``spec``'s leaves ``(shape, init)`` and structure."""
+    if isinstance(spec, dict):
+        if not isinstance(node, dict):
+            raise ValueError(f"{path or 'tree'}: expected a dict of leaves")
+        if set(node) != set(spec):
+            raise ValueError(f"{path or 'tree'}: leaves {sorted(node)} differ from "
+                             f"{sorted(spec)}")
+        return {k: _carry_float32(spec[k], node[k], dev, f"{path}/{k}") for k in spec}
+    if isinstance(spec, list):
+        if not isinstance(node, (list, tuple)) or len(node) != len(spec):
+            raise ValueError(f"{path}: expected a list of {len(spec)} entries")
+        return [_carry_float32(s, n, dev, f"{path}/{i}")
+                for i, (s, n) in enumerate(zip(spec, node))]
+    shape, _ = spec
+    a = np.asarray(node)
+    if a.shape != tuple(shape):
+        raise ValueError(f"{path}: shape {a.shape}, the port's is {tuple(shape)}")
+    if a.dtype != np.float32:
+        raise TypeError(f"{path}: dtype {a.dtype}, the port's is float32")
+    return torch.from_numpy(a.copy()).to(dev)
+
+
 def sasrec_params_from_reference(tree: dict, cfg, device=None) -> dict:
     """The port's SASRec parameters from the JAX package's ``init`` tree,
     given as nested dicts (``blocks`` a list) of float32 numpy arrays,
@@ -166,29 +190,21 @@ def sasrec_params_from_reference(tree: dict, cfg, device=None) -> dict:
     their shapes, and every leaf float32; anything else raises."""
     from ..models.sasrec import param_shapes  # here: models imports kernels, kernels core
 
-    dev = resolve_device(device)
+    return _carry_float32(param_shapes(cfg), tree, resolve_device(device))
 
-    def carry(spec, node, path):
-        if isinstance(spec, dict):
-            if not isinstance(node, dict):
-                raise ValueError(f"{path or 'tree'}: expected a dict of leaves")
-            if set(node) != set(spec):
-                raise ValueError(f"{path or 'tree'}: leaves {sorted(node)} differ from "
-                                 f"{sorted(spec)}")
-            return {k: carry(spec[k], node[k], f"{path}/{k}") for k in spec}
-        if isinstance(spec, list):
-            if not isinstance(node, (list, tuple)) or len(node) != len(spec):
-                raise ValueError(f"{path}: expected a list of {len(spec)} blocks")
-            return [carry(s, n, f"{path}/{i}") for i, (s, n) in enumerate(zip(spec, node))]
-        shape, _ = spec
-        a = np.asarray(node)
-        if a.shape != tuple(shape):
-            raise ValueError(f"{path}: shape {a.shape}, the port's is {tuple(shape)}")
-        if a.dtype != np.float32:
-            raise TypeError(f"{path}: dtype {a.dtype}, the port's is float32")
-        return torch.from_numpy(a.copy()).to(dev)
 
-    return carry(param_shapes(cfg), tree, "")
+def gnn_params_from_reference(tree: dict, cfg, device=None) -> dict:
+    """The port's parameters of a GNN (GIN, PNA, DimeNet, Equiformer-v2,
+    chosen by the type of ``cfg``) from the JAX package's ``init`` tree,
+    given as nested dicts and lists of float32 numpy arrays, placed on
+    ``device`` (default ``cuda``).
+
+    The tree must have exactly the leaves of the model's ``param_shapes``
+    with their shapes (GIN's ``eps`` 0-d), every leaf float32; anything
+    else raises."""
+    from ..models.gnn import module_of  # here: models imports kernels, kernels core
+
+    return _carry_float32(module_of(cfg).param_shapes(cfg), tree, resolve_device(device))
 
 
 def adamw_state_from_reference(state: dict, params_like, device=None) -> dict:

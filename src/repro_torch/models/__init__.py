@@ -1,3 +1,3 @@
-"""Models of the port: the transformer LM's serving path (dense GQA, MoE,
-MLA) and SASRec's serving path."""
-from . import sasrec, transformer_lm
+"""Models of the port: the transformer LM (dense GQA, MoE, MLA), SASRec,
+and the GNN family (GIN, PNA, DimeNet, Equiformer-v2)."""
+from . import gnn, sasrec, transformer_lm
