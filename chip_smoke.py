@@ -269,21 +269,29 @@ aggregation layer and neighbour sampler.
    backward (kernel 5', ``embedding_bag_backward``) against its plain
    version bit for bit (its record's ``max_abs_err`` the largest difference
    of (a) and (b), measured): bags of one, L > 1 with weights, ids -1, -7, V and
-   V+3, duplicates, a hot row holding half the ids, D from 1 to 200, rows of
-   exactly a chunk and one slot more, each called twice; ``take_rows`` under
-   ``backward()`` on the card against the CPU route bit for bit; (b) its
-   device ms (its stable sort included, and alone), its plain version's, and
-   two yardsticks the port never calls (``aten.embedding_dense_backward``,
-   sort-based; ``zeros.index_add_``, atomic) at train_batch's lookup
-   (3,276,800 ids into a 2^20 x 50 float32 table) with the hot padding row
-   and with uniform ids, beside the bytes bound; (c) SASRec's train_batch at
+   V+3, duplicates, a hot row holding half the ids, D from 1 to 200 (49, 51
+   and 64 among them), rows of exactly a chunk and one slot more, a row of
+   768 chunks, each called twice; its preparation (``embedding_bag_plan``,
+   the port's radix sort) against ``backward_plan`` bit for bit (``row_start``,
+   ``chunk_base``, ``order[:row_start[V]]``) at V = 1 and on each side of
+   2^10 and 2^20, all slots padding, every slot one id, planted ids, L > 1;
+   ``take_rows`` under ``backward()`` on the card against the CPU route bit
+   for bit; (b) at train_batch's lookup (3,276,800 ids into a 2^20 x 50
+   float32 table) with the hot padding row and with uniform ids, the
+   preparation held to ``backward_plan`` bit for bit and the kernel to its
+   plain version, then device ms of the preparation, of the sums alone
+   (``backward_sums``), of the whole call, of the plain versions
+   (``backward_plan``, the whole plain backward) and of two yardsticks the
+   port never calls (``aten.embedding_dense_backward``, sort-based;
+   ``zeros.index_add_``, atomic), which the whole call must beat, beside the
+   bytes bound and the share of it; (c) SASRec's train_batch at
    full size (65,536 users x 50, the 2^20-item catalog, d 50, float32,
    ``make_sasrec_batch_fn``): the first step's gradient non-zero on every
    ``item_emb`` row the batch touches and exactly 0 on every other, the loss
    and gradients at 1,024 users within 1e-5 of the CPU route; ``Trainer``, 6
    steps with a checkpoint every 3, against a run that fails at step 4 and
-   resumes: parameters and AdamW state bit for bit, kernel 5 and 5' launched
-   3 times a step; ms a step (median of the steps after the first that write
+   resumes: parameters and AdamW state bit for bit, kernel 5, 5' and its
+   preparation launched 3 times a step; ms a step (median of the steps after the first that write
    no checkpoint), users/s, peak memory; (d) qwen2-1.5B whole (28
    layers, bf16, remat full): train_4k's 4,096-token sequences, the global
    batch cut from 256 to 8, accumulated over 8 microbatches, 4 steps; the
@@ -320,7 +328,8 @@ under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
 phases 4-5, 12, 13, 14 and 15 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
 phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phases 10(c), (d) and
-16(b)-(d) for kernel 6, phase 11(c) and (d) and 17(c) for kernel 5, phase 17(c) for kernel 5'.
+16(b)-(d) for kernel 6, phase 11(c) and (d) and 17(c) for kernel 5, phase 17(c) for kernel 5'
+and its preparation.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
 or outside a checkout of the repository, the script exits with code 2 and
 prints no result.
@@ -378,6 +387,7 @@ KERNEL_SOURCES = {
     "filter": "src/repro_torch/kernels/filter_pack/csrc/filter_pack.cu",
     "attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "embedding_bag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+    "bag_plan": "src/repro_torch/kernels/embedding_bag/csrc/bag_plan.cu",
 }
 F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense: kernel 6's products at bf16
@@ -3923,7 +3933,12 @@ GRAD_CASES = [         # (V, D, B, L, hot share, weighted): kernel 5' against it
     (97, 200, 700, 3, 0.2, True),        # two column tiles
     (50, 16, 1024, 1, 1.0, False),       # a row of exactly one chunk (BACKWARD_CHUNK)
     (50, 16, 1025, 1, 1.0, True),        # one slot over
+    (700, 49, 900, 4, 0.3, True),        # odd widths on each side of SASRec's 50
+    (700, 51, 900, 4, 0.3, False),
+    (4096, 64, 5000, 2, 0.0, True),      # rows of 16-byte vectors
+    (1000, 50, 786_432, 1, 1.0, False),  # a row of 768 chunks, as train_batch's hot row
 ]
+PLAN_V = (1, 1023, 1024, 1025, (1 << 20) - 1, 1 << 20, (1 << 20) + 1)  # the sort's bits change
 GRAD_TIMED = (1 << 20, 50, 65_536 * 50)  # train_batch's lookup: catalog, width, ids
 SAS_TRAIN = (65_536, 6, 3, 4)  # train_batch users; steps, ckpt_every, fail_at_step
 SAS_CHECK_USERS = 1_024        # the first step held to the CPU route
@@ -3978,12 +3993,56 @@ def tree_rel_l2(got, want) -> list:
                   / max(float(w.detach().double().norm()), 1e-30)) for g, w in zip(la, lb)]
 
 
+def plan_ids(kind, V, dev):
+    """int32 ids (B, L) on ``dev`` for the preparation's cases, from ``V``:
+    bags of one or L > 1 with -1, -7, V and V+3 planted, every slot padding,
+    every slot one id (768 chunks and one slot), or 80 sparse ids (long gaps
+    between them at V = 2^20, which the bounds pass leaves to its fill)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + V)
+    if kind == "padding":
+        ids = rng.choice(np.array([-1, -7, V, V + 3], np.int32), (999, 2))
+    elif kind == "one id":
+        ids = np.full((768 * 1024 + 1, 1), min(5, V - 1), np.int32)
+    elif kind == "sparse":
+        ids = rng.integers(0, V, (40, 2)).astype(np.int32)
+    else:
+        ids = rng.integers(0, V, (3001, 1 if kind == "bags of one" else 7)).astype(np.int32)
+        ids.flat[rng.choice(ids.size, 4, replace=False)] = [-1, -7, V, V + 3]
+    return torch.from_numpy(ids).to(dev)
+
+
+def check_plan(ids, V, what) -> int:
+    """The preparation on ``ids`` against ``backward_plan`` on the same
+    tensor: ``row_start``, ``chunk_base`` and ``order[:row_start[V]]`` equal,
+    one launch.  Returns the largest absolute difference (0 when equal)."""
+    import torch
+
+    from repro_torch.kernels import backward_plan, embedding_bag_plan
+
+    want = backward_plan(ids, V)
+    before = embedding_bag_plan.launches
+    got = embedding_bag_plan(ids, V)
+    torch.cuda.synchronize()
+    check(embedding_bag_plan.launches == before + 1, f"{what}: not one preparation launch")
+    n = int(want[1][V])
+    pairs = [(got[1], want[1]), (got[2], want[2]), (got[0][:n], want[0][:n])]
+    check(all(torch.equal(a, b) for a, b in pairs),
+          f"{what}: the preparation differs from backward_plan")
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in pairs)
+
+
 def compare_bag_backward(dev):
     """Phase 17(a): kernel 5' against its plain version on the card, bit for
-    bit, at ``GRAD_CASES``; ``take_rows`` under ``backward()`` on the card
-    (wrapped negatives, out-of-range ids, duplicates) against the CPU route
-    on the same tensors.  Returns the count of cases and the largest
-    absolute difference of any of them (0.0 when all are bit for bit)."""
+    bit, at ``GRAD_CASES``; its preparation against ``backward_plan`` at
+    ``PLAN_V`` x four kinds of ids; ``take_rows`` under ``backward()`` on the
+    card (wrapped negatives, out-of-range ids, duplicates) against the CPU
+    route on the same tensors.  Returns the count of cases, the largest
+    absolute difference of any of them (0.0 when all are bit for bit), and
+    the preparation's device ms at V = 2^20 on one id in every slot and on
+    the sparse ids (its rows' starts left to the fill pass)."""
     import numpy as np
     import torch
 
@@ -3991,11 +4050,20 @@ def compare_bag_backward(dev):
         bag_grad_case,
         embedding_bag_backward,
         embedding_bag_backward_ref,
+        embedding_bag_plan,
         same_bits,
         take_rows,
     )
 
     cases, err = 0, 0.0
+    for V in PLAN_V:
+        for kind in ("bags of one", "L > 1", "padding", "one id", "sparse"):
+            err = max(err, check_plan(plan_ids(kind, V, dev), V, f"preparation, {kind}, V={V}"))
+            cases += 1
+    sparse_ms = {}
+    for kind in ("one id", "sparse"):
+        ids = plan_ids(kind, 1 << 20, dev)
+        sparse_ms[kind] = device_ms(lambda: embedding_bag_plan(ids, 1 << 20), runs=5, per_run=3)
     for i, (V, D, B, L, hot, weighted) in enumerate(GRAD_CASES):
         g, ids, w = bag_grad_case(V, D, B, L, SEED + i, hot=hot, weighted=weighted, device=dev)
         got = embedding_bag_backward(g, ids, V, w)
@@ -4024,7 +4092,7 @@ def compare_bag_backward(dev):
         check(same_bits(t_card.grad.cpu(), t_cpu.grad),
               f"take_rows backward on the card (V={V}) differs from the CPU route")
         cases += 1
-    return cases, err
+    return cases, err, sparse_ms
 
 
 def bag_backward_bytes(g, ids, V):
@@ -4060,14 +4128,25 @@ def sum_error_share(flat, g, V, results) -> float:
     return share
 
 
+def plan_bytes(ids, V, n_valid):
+    """Bytes the preparation must move: the ids read once, ``order``'s valid
+    slots and ``row_start`` and ``chunk_base`` written once."""
+    return ids.numel() * 4 + n_valid * 4 + 2 * (V + 1) * 4
+
+
 def time_bag_backward(dev, hot: bool):
-    """Phase 17(b): device ms of kernel 5' (its sort included), of its plain
-    version and of two yardsticks the port never calls
-    (``aten.embedding_dense_backward``, sort-based; ``zeros.index_add_``,
-    atomic) at train_batch's lookup: 3,276,800 ids into a 2^20 x 50 float32
-    table.  ``hot``: the ids of a ``make_sasrec_batch_fn`` history, padding
-    item 0 (~24 % of the slots) a hot row; else uniform ids.  Each held to
-    the plain version first (the kernel bit for bit)."""
+    """Phase 17(b): at train_batch's lookup, 3,276,800 ids into a 2^20 x 50
+    float32 table: the preparation held to ``backward_plan`` and kernel 5'
+    to its plain version, bit for bit; then device ms of the preparation
+    (``embedding_bag_plan``), of the sums alone (``backward_sums`` on its
+    plan), of the whole call, of the plain versions (``backward_plan``,
+    ``embedding_bag_backward_ref``) and of two yardsticks the port never
+    calls (``aten.embedding_dense_backward``, sort-based;
+    ``zeros.index_add_``, atomic), which the whole call must beat.
+    ``hot``: the ids of a
+    ``make_sasrec_batch_fn`` history, padding item 0 (~24 % of the slots) a
+    hot row; else uniform ids.  ``prof``: one whole call under
+    ``torch.profiler``, the device time by kernel."""
     import torch
 
     from repro_torch.data import make_sasrec_batch_fn
@@ -4075,8 +4154,10 @@ def time_bag_backward(dev, hot: bool):
         backward_plan,
         embedding_bag_backward,
         embedding_bag_backward_ref,
+        embedding_bag_plan,
         same_bits,
     )
+    from repro_torch.kernels.embedding_bag.embedding_bag import _backward_sums
     from repro_torch.tuning import HBM_BYTES_PER_S
 
     V, D, N = GRAD_TIMED
@@ -4087,6 +4168,7 @@ def time_bag_backward(dev, hot: bool):
         ids = torch.randint(0, V, (N, 1), generator=gen, device=dev, dtype=torch.int32)
     g = torch.randn((N, D), generator=gen, device=dev)
     flat = ids.reshape(-1).long()
+    plan_err = check_plan(ids, V, f"the preparation at train_batch (hot={hot})")
     want = embedding_bag_backward_ref(g, ids, V)
     got = embedding_bag_backward(g, ids, V)
     err = float((got - want).abs().max())
@@ -4108,31 +4190,46 @@ def time_bag_backward(dev, hot: bool):
                                              "index_add_": atomic()})
     hot_share = float((ids == int(torch.mode(flat).values)).float().mean())
     del want
+    plan = embedding_bag_plan(ids, V)
+    n_valid = int(plan[1][V])
     nbytes = bag_backward_bytes(g, ids, V)
+    pbytes = plan_bytes(ids, V, n_valid)
     t = dict(
         ms=device_ms(lambda: embedding_bag_backward(g, ids, V), runs=9, per_run=5),
-        sort_ms=device_ms(lambda: backward_plan(ids, V), runs=9, per_run=5),
+        plan_ms=device_ms(lambda: embedding_bag_plan(ids, V), runs=9, per_run=5),
+        sums_ms=device_ms(lambda: _backward_sums(g, *plan, 1), runs=9, per_run=5),
+        plain_plan_ms=device_ms(lambda: backward_plan(ids, V), runs=9, per_run=5),
         plain_ms=device_ms(lambda: embedding_bag_backward_ref(g, ids, V), runs=3, per_run=1),
         library_ms=device_ms(dense, runs=9, per_run=5),
         atomic_ms=device_ms(atomic, runs=9, per_run=5),
         bytes=nbytes,
         bound_ms=max(nbytes / HBM_BYTES_PER_S, N * D / F32_FLOPS) * 1e3,
-        err=err, lib_err=lib_err, lib_rel=rel, sum_share=sum_share, hot_share=hot_share,
+        plan_bytes=pbytes,
+        plan_bound_ms=pbytes / HBM_BYTES_PER_S * 1e3,
+        err=err, plan_err=plan_err, lib_err=lib_err, lib_rel=rel, sum_share=sum_share,
+        hot_share=hot_share,
+        prof=profile_run(lambda: embedding_bag_backward(g, ids, V), top=12),
     )
     check_bound(f"kernel 5' at train_batch (hot={hot})", t)
     check_bound(f"index_add_ at train_batch (hot={hot})", dict(ms=t["atomic_ms"],
                                                                 bound_ms=t["bound_ms"]))
+    check_bound(f"the preparation at train_batch (hot={hot})", dict(ms=t["plan_ms"],
+                                                                     bound_ms=t["plan_bound_ms"]))
+    for name in ("library_ms", "atomic_ms"):
+        check(t["ms"] < t[name], f"kernel 5' at train_batch (hot={hot}): {t['ms']!r} ms, not "
+                                 f"under the yardstick's {t[name]!r} ms ({name})")
     return t
 
 
 def sasrec_train(dev):
     """Phase 17(c): SASRec's train_batch at full size through ``Trainer``.
-    Returns (kernel 5' launches, kernel 5 launches) of the trainer's runs."""
+    Returns (kernel 5' launches, its preparation's, kernel 5 launches) of the
+    trainer's runs."""
     import torch
 
     from repro_torch.configs import sasrec as sasrec_config
     from repro_torch.data import make_sasrec_batch_fn
-    from repro_torch.kernels import embedding_bag_backward, embedding_bag_sums
+    from repro_torch.kernels import embedding_bag_backward, embedding_bag_plan, embedding_bag_sums
     from repro_torch.launch import TrainConfig, Trainer, value_and_grad
     from repro_torch.models import sasrec
 
@@ -4144,10 +4241,11 @@ def sasrec_train(dev):
     params, _ = trainer.init_state(torch.Generator(dev).manual_seed(SEED))
     batch = make(0)
     # the gradient reaches the table: every row the batch touches, none other
-    bwd0 = embedding_bag_backward.launches
+    bwd0, plan0 = embedding_bag_backward.launches, embedding_bag_plan.launches
     loss0, grads = value_and_grad(lambda p: sasrec.loss_fn(p, batch, cfg), params)
-    check(embedding_bag_backward.launches - bwd0 == 3,
-          "a SASRec gradient did not launch kernel 5' once a lookup (seq, pos, neg)")
+    check(embedding_bag_backward.launches - bwd0 == 3 and embedding_bag_plan.launches - plan0 == 3,
+          "a SASRec gradient did not launch kernel 5' and its preparation once a lookup "
+          "(seq, pos, neg)")
     ge = grads["item_emb"]
     touched = torch.zeros(cfg.vocab, dtype=torch.bool, device=dev)
     for k in ("seq", "pos", "neg"):
@@ -4178,6 +4276,7 @@ def sasrec_train(dev):
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
     embedding_bag_backward.launches = 0
+    embedding_bag_plan.launches = 0
     embedding_bag_sums.launches = 0
     gen = lambda: torch.Generator(dev).manual_seed(SEED)  # noqa: E731
     p_clean, o_clean, hist = trainer.fit(make, generator=gen(), ckpt_dir=str(ckpt / "clean"))
@@ -4191,10 +4290,12 @@ def sasrec_train(dev):
         check(str(exc) == f"injected failure at step {fail_at}", f"another failure: {exc}")
     p, o, hist_r = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tc), device=dev).fit(
         make, generator=gen(), ckpt_dir=str(ckpt / "crash"))
-    bwd, fwd = embedding_bag_backward.launches, embedding_bag_sums.launches
+    bwd, prep = embedding_bag_backward.launches, embedding_bag_plan.launches
+    fwd = embedding_bag_sums.launches
     runs = steps + fail_at + (steps - every)
-    check(bwd == fwd == 3 * runs, f"the trainer's {runs} steps launched kernel 5' {bwd} and "
-                                  f"kernel 5 {fwd} times, not 3 a step")
+    check(bwd == prep == fwd == 3 * runs,
+          f"the trainer's {runs} steps launched kernel 5' {bwd}, its preparation {prep} and "
+          f"kernel 5 {fwd} times, not 3 a step")
     check(same_tree_bits(p, p_clean) and same_tree_bits(o, o_clean),
           "SASRec's resumed run differs from the clean run")
     check([h["loss"] for h in hist_r] == [h["loss"] for h in hist[every:]],
@@ -4224,12 +4325,13 @@ def sasrec_train(dev):
         f"{each}) = "
         f"{users / (ms / 1e3):.1f} users/s; peak device memory {peak} B; a run failing at "
         f"step {fail_at} resumed from step {every}: parameters and AdamW state bit for bit the "
-        f"clean run's; kernel 5' launches {bwd}, kernel 5 {fwd} (3 a step, {runs} steps)")
+        f"clean run's; kernel 5' launches {bwd}, its preparation {prep}, kernel 5 {fwd} (3 a "
+        f"step, {runs} steps)")
     log_profile("17 (c) one train_batch step", prof, step_ms)
     shutil.rmtree(ckpt, ignore_errors=True)
     del p, o, p_clean, o_clean
     torch.cuda.empty_cache()
-    return bwd, fwd
+    return bwd, prep, fwd
 
 
 def lm_step_flops(cfg, batch, seq) -> float:
@@ -4455,39 +4557,47 @@ def drive_train(dev) -> dict:
     """Phase 17: kernel 5' checked and timed, SASRec's train_batch through
     the trainer with a restart, qwen2-1.5B whole and cut, deepseek-v2-lite
     cut.  Returns kernel 5's forward launches on the path and kernel 5''s
-    record."""
+    and its preparation's records."""
     import torch
-
-    from repro_torch.kernels import embedding_bag_backward
 
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
     torch.backends.cudnn.allow_tf32 = False
     check(torch.get_float32_matmul_precision() == "highest", "float32 products must be full")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cases, err = compare_bag_backward(dev)
-    log(f"[17] (a) kernel 5' == plain on the card bit for bit in {cases} cases (bags of one, "
-        f"L > 1 with weights, ids -1, -7, V, V+3, duplicates, a hot row of half the ids, D "
-        f"1 to 200, rows of a chunk and a chunk and one; each called twice, the same bits); "
-        f"take_rows under backward() on the card bit for bit the CPU route's (wrapped "
-        f"negatives, out of range, a hot row); max abs difference {err!r}")
+    cases, err, sparse_ms = compare_bag_backward(dev)
+    log(f"[17] (a) kernel 5' == plain on the card bit for bit and its preparation == "
+        f"backward_plan in {cases} cases (bags of one, L > 1 with weights, ids -1, -7, V, "
+        f"V+3, duplicates, a hot row of half the ids, D 1 to 200 with 49, 51 and 64, rows of a "
+        f"chunk, a chunk and one, 768 chunks; each called twice, the same bits; the "
+        f"preparation at V {', '.join(map(str, PLAN_V))} on bags of one, L > 1, all padding, "
+        f"one id in every slot and 80 sparse ids); take_rows under backward() on the card bit "
+        f"for bit the CPU route's (wrapped negatives, out of range, a hot row); max abs "
+        f"difference {err!r}; the preparation at V {1 << 20} on {CARD}: one id in "
+        f"{768 * 1024 + 1} slots {sparse_ms['one id']!r} ms, 80 sparse ids "
+        f"{sparse_ms['sparse']!r} ms")
     timing = {hot: time_bag_backward(dev, hot) for hot in (True, False)}
     for hot, t in timing.items():
         ids = ("history ids: the padding row holds" if hot else
                "uniform ids: the most frequent row holds")
         log(f"[17] (b) kernel 5' at train_batch ({GRAD_TIMED[2]} ids into a {GRAD_TIMED[0]} x "
             f"{GRAD_TIMED[1]} float32 table, {ids} "
-            f"{t['hot_share']:.4f} of them) on {CARD}: kernel {t['ms']!r} ms (its stable sort "
-            f"{t['sort_ms']!r}), plain {t['plain_ms']!r} ms, embedding_dense_backward "
-            f"{t['library_ms']!r} ms, zeros.index_add_ {t['atomic_ms']!r} ms, bound "
-            f"{t['bound_ms']!r} ms ({t['bytes']} B at {3.35} TB/s); kernel against plain: max "
-            f"abs {t['err']!r}; yardsticks against plain: "
+            f"{t['hot_share']:.4f} of them) on {CARD}: whole call {t['ms']!r} ms = "
+            f"{t['bound_ms'] / t['ms']!r} of its bound {t['bound_ms']!r} ms ({t['bytes']} B at "
+            f"{3.35} TB/s); the preparation {t['plan_ms']!r} ms (bound {t['plan_bound_ms']!r} "
+            f"ms, {t['plan_bytes']} B; backward_plan in torch ops {t['plain_plan_ms']!r} ms), "
+            f"the sums alone {t['sums_ms']!r} ms; "
+            f"plain {t['plain_ms']!r} ms, embedding_dense_backward {t['library_ms']!r} ms, "
+            f"zeros.index_add_ {t['atomic_ms']!r} ms; the preparation == backward_plan, the "
+            f"kernel against plain: max abs {t['err']!r}; yardsticks against plain: "
             f"max abs {t['lib_err']!r}, relative L2 {t['lib_rel']!r}; plain and yardsticks "
             f"against the float64 sum: at most {t['sum_share']!r} of float32's summation "
             f"error bound")
+        log_profile(f"17 (b) kernel 5' on {'history' if hot else 'uniform'} ids", t["prof"],
+                    t["ms"])
     wall = {"kernel 5'": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    bwd, fwd = sasrec_train(dev)
+    bwd, prep, fwd = sasrec_train(dev)
     wall["SASRec train_batch"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     qwen2_train(dev)
@@ -4496,9 +4606,9 @@ def drive_train(dev) -> dict:
     deepseek_train(dev)
     wall["deepseek-v2-lite cut"] = time.perf_counter() - t0
     log("[17] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
-    check(bwd > 0, "the training path did not launch kernel 5'")
+    check(bwd > 0 and prep > 0, "the training path did not launch kernel 5' and its preparation")
     t = timing[True]
-    return fwd, {
+    return fwd, [{
         "name": "embedding_bag_backward",
         "route": "cuda",
         "source": KERNEL_SOURCES["embedding_bag"],
@@ -4510,7 +4620,20 @@ def drive_train(dev) -> dict:
         "bound_ms": t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
-    }
+    }, {
+        "name": "embedding_bag_plan",   # kernel 5''s preparation: the radix sort
+        "route": "cuda",
+        "source": KERNEL_SOURCES["bag_plan"],
+        # JAX differentiates jnp.take: no TPU kernel sorts the slots by id
+        "replaces": "none: the preparation of kernel 5' (the gradient of row 5's function)",
+        "launches": prep,
+        "max_abs_err": float(max(err, *(x["plan_err"] for x in timing.values()))),
+        "ms": t["plan_ms"],
+        "plain_ms": t["plain_plan_ms"],
+        "bound_ms": t["plan_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no one PyTorch call sorts, bounds and numbers the chunks
+    }]
 
 
 # ----------------------------------------------------------------------
@@ -5023,8 +5146,7 @@ def main(argv=None) -> int:
         log(f"wall seconds: SASRec serving {time.perf_counter() - t0:.1f}")
     elif args.train_only:
         t0 = time.perf_counter()
-        _, record = drive_train(dev)
-        kernels = [record]
+        _, kernels = drive_train(dev)
         log(f"wall seconds: training {time.perf_counter() - t0:.1f}")
     elif args.gnn_only:
         t0 = time.perf_counter()
@@ -5035,10 +5157,10 @@ def main(argv=None) -> int:
         kernels = drive(dev)  # phases 2-16 and 8; their device memory is freed on return
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        fwd, record = drive_train(dev)   # 17. training on the card (kernel 5')
+        fwd, records = drive_train(dev)  # 17. training on the card (kernel 5')
         log(f"wall seconds: training {time.perf_counter() - t0:.1f}")
         next(k for k in kernels if k["name"] == "embedding_bag")["launches"] += fwd
-        kernels.append(record)
+        kernels.extend(records)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         drive_gnn(dev)                   # 18. the GNN family trained on the card

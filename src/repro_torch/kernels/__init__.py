@@ -30,6 +30,7 @@ from .filter_pack import filter_pack, filter_pack_ref, filter_pack_words
 from .embedding_bag import (
     BACKWARD_CHUNK,
     backward_plan,
+    backward_sums_ref,
     bag_case,
     bag_grad_case,
     bag_of_one_case,
@@ -37,6 +38,7 @@ from .embedding_bag import (
     embedding_bag,
     embedding_bag_backward,
     embedding_bag_backward_ref,
+    embedding_bag_plan,
     embedding_bag_ref,
     embedding_bag_sums,
     same_bits,

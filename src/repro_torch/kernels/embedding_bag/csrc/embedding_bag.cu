@@ -334,178 +334,423 @@ cudaError_t launch_vb(int vec_bytes, const void* table, const int32_t* ids,
 // ---------------------------------------------------------------------------
 // Backward (kernel 5'): the gradient of the bag sums with respect to a float32
 // table.  It replaces no TPU kernel: the JAX package differentiates jnp.take,
-// a scatter-add.  For every slot (b, s) with 0 <= id < V,
+// a scatter-add, and has no backward kernel.  For every slot (b, s) with
+// 0 <= id < V,
 //
 //   grad_table[id, :] += w[b, s] * grad_out[b, :]     (w = 1 without weights)
 //
 // in float32; padding and out-of-range ids add nothing, and a row no id
 // touches is written as exact zeros.  Every row is written once.
 //
-// Deterministic, with no float atomics: the wrapper sorts the slots by id
-// (a stable sort, so a row's slots stay in slot order) and gives each row's
-// range of the sorted slots (row_start) and the numbering of its chunks
-// (chunk_base).  A row of at most `chunk` slots is summed by one warp, slot by
-// slot from 0.  A longer row (SASRec's padding item 0 takes ~24 % of a
-// train_batch lookup's 3,276,800 slots) is cut into chunks of `chunk` slots
-// from its first: one warp a chunk sums its slots in order into a float32
-// partial (bag_grad_chunks_kernel), then the row's warp sums its partials in
-// order from 0 (bag_grad_rows_kernel).  The plain version
-// embedding_bag_backward_ref (ref.py) repeats that association, so the two
-// agree bit for bit; a short row's sum is 0 + its one partial, which is the
-// partial itself (a sum from +0.0 is never -0.0).
+// Deterministic, with no float atomics: the preparation (bag_plan.cu, the
+// port's own stable radix sort) groups the slots by id, a row's slots in slot
+// order (order, row_start), and numbers the chunks of the long rows
+// (chunk_base).  A row of at most `chunk` slots is summed slot by slot from
+// 0.  A longer row is cut into chunks of `chunk` slots from its first: each
+// chunk is summed in order into a float32 partial, and the row is the sum of
+// its partials in order from 0.  The plain version embedding_bag_backward_ref
+// (ref.py) repeats that association, so the two agree bit for bit; a short
+// row's sum is 0 + its one partial, which is the partial itself (a sum from
+// +0.0 is never -0.0).  __fmul_rn / __fadd_rn: no fused multiply-add.
 //
 // Bound on the H100: bandwidth.  A call must read the gradient rows, the
 // ids (and weights) once and write the (V, D) table once: at train_batch's
 // lookup (3,276,800 ids, a 2^20 x 50 table) 878.2 MB, 0.262 ms at 3.35 TB/s.
-// Lanes hold 32 columns of C tiles (D = 50: two floats a lane), load a
-// slot's id and weight 32 at a time and broadcast them with __shfl_sync, and
-// load kBwdAhead rows before adding them in order.  __fmul_rn / __fadd_rn:
-// no fused multiply-add, the plain version's arithmetic.
-constexpr int kBwdAhead = 8;  // gradient rows (or partials) loaded before they are added
+//
+// Design.  The first design (one warp a row, behind torch.sort) reached
+// 16 % of that bound, held back by three things; each is answered here.
+// 1. The preparation, a dozen torch launches (a stable sort over all 32
+//    bits with int64 indices, the padding sorted along, searchsorted's ~22
+//    dependent probes a row): now the port's own radix sort (bag_plan.cu),
+//    over the bits V - 1 needs, the padding dropped, row_start written by a
+//    boundary pass and chunk_base by a scan.
+// 2. The row pass, one warp a row: a chain of dependent loads (row_start,
+//    order, then ~625 B of rows) and 14 of 64 lane columns idle at D = 50.
+//    Now a block takes a tile of consecutive rows (bag_grad_rows_kernel):
+//    it loads the tile's row_start once and its rows' slot ids (and
+//    weights) coalesced into shared memory; cp.async copies all of a
+//    batch's gradient rows into a shared stage at once (no register holds
+//    them in flight); its threads take the tile's output as one flat run
+//    of vectors of VW floats (VW = 4, 2 or 1: the widest that divides D and
+//    the addresses; 8 bytes at D = 50), kTileElems a thread, so that no
+//    lane idles on a row's width, and add each vector's row from the stage
+//    in slot order.  The tile's output rows are contiguous and are stored
+//    as one coalesced run, untouched rows as zeros in the same stores.  A
+//    tile's life is three dependent round trips (row_start, slot ids,
+//    gradient rows), so the pass is quickest with the most tiles in
+//    flight: one warp a block, 32 blocks an SM, 5 rows a tile at D = 50.
+// 3. The hot row (SASRec's padding item 0, ~24 % of a lookup: 768 chunks),
+//    walked 8 rows at a time by one warp a chunk and its 768 partials by
+//    one warp.  Now one block a chunk (bag_grad_chunks_kernel) stages the
+//    chunk's slot ids in shared memory and streams its gradient rows
+//    through a two-stage shared-memory ring filled by cp.async (kStage
+//    floats a stage: 71 rows at D = 50), the next stage in flight while a
+//    thread a column adds the current one in order; one warp finds the
+//    chunk's row in 32-ary steps.  One block a long row
+//    (bag_grad_combine_kernel) streams the row's partials through a ring of
+//    96 KB stages (768 partials of 200 B in two) and adds them in order, a
+//    thread a column.  No chain of dependent global round trips is longer
+//    than a ring's count of stages.
+// Rows of 200 B are 8-byte aligned and only every other one is 16-byte
+// aligned; TMA needs inner extents of multiples of 16 B, so the stages are
+// filled by cp.async of VW * 4 bytes instead.  Any D works: a block takes
+// its columns in slices of kSliceCols floats (rings) or of at most
+// kRowThreads * kTileElems vectors (rows).
+constexpr int kCombineThreads = 256;  // threads a block of the combine
+constexpr int kRowThreads = 32;       // threads a block of the row pass: one warp
+constexpr int kTileElems = 4;         // output vectors a thread of the row pass holds
+constexpr int kMaxTileRows = kRowThreads;  // rows a tile of the row pass takes, at most: a lane's
+static_assert(kRowThreads == 32, "a tile's rows are numbered by one warp scan");
+constexpr int kRowSlots = 64;         // slots a batch of the row pass takes, at most
+constexpr int kRowStage = 1024;       // floats of gradient rows a row-pass batch stages
+constexpr int kChunkThreads = 128;    // threads a block of the chunk pass
+constexpr int kChunk = 1024;          // slots a chunk of a long row (BACKWARD_CHUNK), staged
+constexpr int kStage = 3584;          // floats a ring stage of the chunk pass holds
+constexpr int kCombineStage = 24576;  // floats a ring stage of the combine holds (96 KB)
+constexpr int kSliceCols = 1024;      // columns a ring's block sums at once
+constexpr int kChunkBlocks = 1024;    // blocks of the chunk pass, at most: they stride
+constexpr int kCombineBlocks = 132;   // blocks of the combine, at most: one an SM
 
-template <int C>
-__device__ __forceinline__ void fold_slots(const float* __restrict__ grad,
-                                           const int32_t* __restrict__ order,
-                                           const float* __restrict__ weights, int L, int D,
-                                           int col0, int64_t p0, int64_t p1, float (&acc)[C]) {
+// Exclusive prefix sum of one int a lane across the warp (lane order); the
+// warp's sum in *total.  Every lane must call it.
+__device__ __forceinline__ int warp_exclusive_sum(int x, int* total) {
   const int lane = threadIdx.x & 31;
-  for (int64_t base = p0; base < p1; base += 32) {
-    const int n = p1 - base < 32 ? static_cast<int>(p1 - base) : 32;
-    int my_slot = 0;
-    float my_w = 1.f;
-    if (lane < n) {
-      my_slot = __ldg(order + base + lane);
-      if (weights != nullptr) my_w = __ldg(weights + my_slot);
-    }
-    for (int u0 = 0; u0 < n; u0 += kBwdAhead) {  // uniform across the warp
-      float row[kBwdAhead][C];
-      float wt[kBwdAhead];
+  int incl = x;
 #pragma unroll
-      for (int u = 0; u < kBwdAhead; ++u) {
-        const int src = u0 + u;
-        const int slot = __shfl_sync(kFull, my_slot, src & 31);
-        wt[u] = __shfl_sync(kFull, my_w, src & 31);
-        const float* g = grad + static_cast<int64_t>(slot / L) * D;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int col = col0 + lane + 32 * c;
-          row[u][c] = (src < n && col < D) ? __ldg(g + col) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBwdAhead; ++u) {
-        if (u0 + u < n) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            acc[c] = __fadd_rn(acc[c], weights != nullptr ? __fmul_rn(row[u][c], wt[u])
-                                                          : row[u][c]);
-          }
-        }
-      }
-    }
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  *total = __shfl_sync(kFull, incl, 31);
+  return incl - x;
+}
+
+template <int VW>
+__device__ __forceinline__ void store_floats(float* p, const float (&x)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
   }
 }
 
-// One warp a chunk of a long row: its slots summed in order into partials.
-template <int C>
-__global__ void __launch_bounds__(32 * kBags)
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(kBytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+struct SlotRows {  // a ring's k-th row: gradient row srow[k] (shared memory)
+  const int* srow;
+  __device__ int64_t operator()(int k) const { return srow[k]; }
+};
+
+struct RunRows {   // a ring's k-th row: row first + k (the partials of a long row)
+  int64_t first;
+  __device__ int64_t operator()(int k) const { return first + k; }
+};
+
+// Rows r0 .. r0 + nr - 1 of a ring's list, columns [c0, c0 + ds), copied into
+// the stage `buf` as one commit group.
+template <int VW, int T, typename Rows>
+__device__ __forceinline__ void ring_fill(const float* __restrict__ src, int64_t D, int c0, int ds,
+                                          Rows rows, int r0, int nr, float* buf) {
+  const int nvec = ds / VW;
+  for (int f = threadIdx.x; f < nr * nvec; f += T) {
+    const int r = f / nvec, c = f - r * nvec;
+    cp_async<4 * VW>(buf + r * ds + c * VW, src + rows(r0 + r) * D + c0 + c * VW);
+  }
+  cp_async_commit();
+}
+
+// Adds rows(0), ..., rows(n - 1) of src (rows of D floats), columns [c0, c0 +
+// ds), in that order into acc, times sw[k] (shared memory) unless sw is NULL:
+// thread t of the block's T holds column c0 + t + T * j in acc[j].  The rows
+// pass through `ring`, two stages of `stage` floats, the next in flight while
+// the block adds the current one.  Every thread of the block calls it.
+template <int VW, int T, typename Rows>
+__device__ void ring_sum(const float* __restrict__ src, int64_t D, int c0, int ds, int n, Rows rows,
+                         const float* sw, float* ring, int stage, float (&acc)[kSliceCols / T]) {
+  const int per = stage / ds;  // rows a stage holds
+  const int batches = (n + per - 1) / per;
+  if (batches > 0) ring_fill<VW, T>(src, D, c0, ds, rows, 0, min(per, n), ring);
+  for (int q = 0; q < batches; ++q) {
+    const int r0 = q * per, nr = min(per, n - r0);
+    if (q + 1 < batches) {
+      ring_fill<VW, T>(src, D, c0, ds, rows, r0 + per, min(per, n - r0 - per),
+                       ring + ((q + 1) & 1) * stage);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* buf = ring + (q & 1) * stage;
+#pragma unroll
+    for (int j = 0; j < kSliceCols / T; ++j) {
+      const int c = threadIdx.x + j * T;
+      if (c < ds) {
+        float a = acc[j];
+        for (int r = 0; r < nr; ++r) {
+          const float x = buf[r * ds + c];
+          a = __fadd_rn(a, sw != nullptr ? __fmul_rn(x, sw[r0 + r]) : x);
+        }
+        acc[j] = a;
+      }
+    }
+    __syncthreads();  // the stage is free to be filled again
+  }
+}
+
+// The row that owns chunk w: chunk_base[v] <= w < chunk_base[v + 1], by one
+// warp in 32-ary steps (4 dependent loads at V = 2^20, not 20).  Every lane
+// of the warp calls it and gets the row.
+__device__ int chunk_owner(const int32_t* __restrict__ chunk_base, int V, int w) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = V;  // chunk_base[lo] <= w < chunk_base[hi]
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int probe = lo + (lane + 1) * step;  // lane 31's lies at or past hi
+    const bool le = probe < hi && __ldg(chunk_base + probe) <= w;
+    const int k = __popc(__ballot_sync(kFull, le));  // the probes <= w: a prefix of lanes
+    const int next = lo + (k + 1) * step;
+    lo += k * step;
+    hi = next < hi ? next : hi;
+  }
+  return lo;
+}
+
+// One block a chunk of a long row at a time (blocks stride over the
+// chunks): the chunk's slots' rows summed in order into partials[w];
+// chunk_row[w] is the row for a row's first chunk, -1 for the others.
+template <int VW>
+__global__ void __launch_bounds__(kChunkThreads)
 bag_grad_chunks_kernel(const float* __restrict__ grad, const int32_t* __restrict__ order,
                        const float* __restrict__ weights, const int32_t* __restrict__ row_start,
                        const int32_t* __restrict__ chunk_base, int V, int D, int L, int chunk,
-                       float* __restrict__ partials) {
-  const int lane = threadIdx.x & 31;
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * kBags + (threadIdx.x >> 5);
-  if (w >= __ldg(chunk_base + V)) return;  // uniform across the warp
-  int lo = 0, hi = V;  // chunk_base[lo] <= w < chunk_base[hi]: the row that owns chunk w
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(chunk_base + mid) <= w) {
-      lo = mid;
-    } else {
-      hi = mid;
+                       float* __restrict__ partials, int32_t* __restrict__ chunk_row) {
+  __shared__ __align__(16) float ring[2 * kStage];
+  __shared__ int srow[kChunk];
+  __shared__ float sw[kChunk];
+  __shared__ int owner;
+  const int total = __ldg(chunk_base + V);
+  for (int w = blockIdx.x; w < total; w += gridDim.x) {
+    if (threadIdx.x < 32) {
+      const int v = chunk_owner(chunk_base, V, w);
+      if (threadIdx.x == 0) owner = v;
     }
+    __syncthreads();
+    const int v = owner;
+    const int first = __ldg(chunk_base + v);
+    const int p0 = __ldg(row_start + v) + (w - first) * chunk;
+    const int left = __ldg(row_start + v + 1) - p0;
+    const int n = left < chunk ? left : chunk;
+    for (int k = threadIdx.x; k < n; k += kChunkThreads) {
+      const int slot = __ldg(order + p0 + k);
+      srow[k] = slot / L;
+      if (weights != nullptr) sw[k] = __ldg(weights + slot);
+    }
+    if (threadIdx.x == 0) chunk_row[w] = w == first ? v : -1;
+    __syncthreads();
+    for (int c0 = 0; c0 < D; c0 += kSliceCols) {
+      const int ds = D - c0 < kSliceCols ? D - c0 : kSliceCols;
+      float acc[kSliceCols / kChunkThreads];
+#pragma unroll
+      for (int j = 0; j < kSliceCols / kChunkThreads; ++j) acc[j] = 0.f;
+      ring_sum<VW, kChunkThreads>(grad, D, c0, ds, n, SlotRows{srow},
+                                weights != nullptr ? sw : nullptr, ring, kStage, acc);
+#pragma unroll
+      for (int j = 0; j < kSliceCols / kChunkThreads; ++j) {
+        const int c = threadIdx.x + j * kChunkThreads;
+        if (c < ds) partials[static_cast<int64_t>(w) * D + c0 + c] = acc[j];
+      }
+    }
+    __syncthreads();  // owner and the slot ids are free for the next chunk
   }
-  const int64_t p0 = __ldg(row_start + lo) + (w - __ldg(chunk_base + lo)) * chunk;
-  const int64_t end = __ldg(row_start + lo + 1);
-  const int64_t p1 = p0 + chunk < end ? p0 + chunk : end;
-  for (int col0 = 0; col0 < D; col0 += 32 * C) {
-    float acc[C];
+}
+
+// One block a long row, at its first chunk (blocks stride over the chunks):
+// the row's partials summed in order from 0 into its output row.
+template <int VW>
+__global__ void __launch_bounds__(kCombineThreads)
+bag_grad_combine_kernel(const float* __restrict__ partials, const int32_t* __restrict__ chunk_base,
+                        const int32_t* __restrict__ chunk_row, int V, int D,
+                        float* __restrict__ out) {
+  extern __shared__ __align__(16) float combine_ring[];  // two stages of kCombineStage floats
+  const int total = __ldg(chunk_base + V);
+  for (int w = blockIdx.x; w < total; w += gridDim.x) {
+    const int v = __ldg(chunk_row + w);
+    if (v < 0) continue;  // not a row's first chunk; uniform across the block
+    const int n = __ldg(chunk_base + v + 1) - w;
+    for (int c0 = 0; c0 < D; c0 += kSliceCols) {
+      const int ds = D - c0 < kSliceCols ? D - c0 : kSliceCols;
+      float acc[kSliceCols / kCombineThreads];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-    fold_slots<C>(grad, order, weights, L, D, col0, p0, p1, acc);
+      for (int j = 0; j < kSliceCols / kCombineThreads; ++j) acc[j] = 0.f;
+      ring_sum<VW, kCombineThreads>(partials, D, c0, ds, n, RunRows{w}, nullptr, combine_ring,
+                            kCombineStage, acc);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int col = col0 + lane + 32 * c;
-      if (col < D) partials[w * D + col] = acc[c];
+      for (int j = 0; j < kSliceCols / kCombineThreads; ++j) {
+        const int c = threadIdx.x + j * kCombineThreads;
+        if (c < ds) out[static_cast<int64_t>(v) * D + c0 + c] = acc[j];
+      }
     }
   }
 }
 
-// One warp a row of the table: its slots (a short row) or its chunks'
-// partials (a long row) summed in order from 0; zeros for an untouched row.
-template <int C>
-__global__ void __launch_bounds__(32 * kBags)
+// One block a tile of `tile_rows` consecutive rows: every row of at most
+// `chunk` slots (zeros for an untouched one), its slots in order from 0; the
+// long rows are left to the combine.  A row is taken `slice` vectors of VW
+// floats at a time; a batch of the tile's slots has its gradient rows (that
+// slice of them) copied into shared memory by cp.async, all in flight at
+// once, and then summed from there (see the note above).
+template <int VW, bool kWeighted>
+__global__ void __launch_bounds__(kRowThreads)
 bag_grad_rows_kernel(const float* __restrict__ grad, const int32_t* __restrict__ order,
                      const float* __restrict__ weights, const int32_t* __restrict__ row_start,
-                     const int32_t* __restrict__ chunk_base,
-                     const float* __restrict__ partials, int V, int D, int L,
+                     int V, int D, int L, int chunk, int tile_rows, int slice,
                      float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t v = static_cast<int64_t>(blockIdx.x) * kBags + (threadIdx.x >> 5);
-  if (v >= V) return;  // uniform across the warp
-  const int64_t p0 = __ldg(row_start + v), p1 = __ldg(row_start + v + 1);
-  const int c0 = __ldg(chunk_base + v), c1 = __ldg(chunk_base + v + 1);
-  for (int col0 = 0; col0 < D; col0 += 32 * C) {
-    float acc[C];
+  __shared__ __align__(16) float stage[kRowStage];
+  __shared__ int rs[kMaxTileRows + 1];  // the tile's row_start
+  __shared__ int vs[kMaxTileRows + 1];  // each row's first slot among the tile's short rows'
+  __shared__ int srow[kRowSlots];
+  __shared__ float sw[kRowSlots];
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * tile_rows;
+  const int nr = V - v0 < tile_rows ? static_cast<int>(V - v0) : tile_rows;
+  for (int j = threadIdx.x; j <= nr; j += kRowThreads) rs[j] = __ldg(row_start + v0 + j);
+  __syncthreads();
+  int len = 0;
+  if (threadIdx.x < nr) {
+    len = rs[threadIdx.x + 1] - rs[threadIdx.x];
+    if (len > chunk) len = 0;  // a long row: the chunk pass and the combine write it
+  }
+  int S;
+  const int start = warp_exclusive_sum(len, &S);
+  if (threadIdx.x < nr) vs[threadIdx.x] = start;
+  if (threadIdx.x == 0) vs[nr] = S;
+  __syncthreads();
+  const int nvec = D / VW;
+  for (int c0 = 0; c0 < nvec; c0 += slice) {
+    const int ns = nvec - c0 < slice ? nvec - c0 : slice;  // vectors of this slice
+    const int ds = ns * VW;                                 // its floats
+    const int per = kRowStage / ds < kRowSlots ? kRowStage / ds : kRowSlots;  // slots a batch
+    const int ne = nr * ns;
+    int row[kTileElems], col[kTileElems];
+    bool mine[kTileElems];  // a vector of a row of at most `chunk` slots
+    float acc[kTileElems][VW];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-    if (c1 > c0) {
-      for (int j0 = c0; j0 < c1; j0 += kBwdAhead) {  // uniform across the warp
-        float part[kBwdAhead][C];
+    for (int i = 0; i < kTileElems; ++i) {
+      const int e = threadIdx.x + i * kRowThreads;
+      row[i] = e < ne ? e / ns : 0;
+      col[i] = e < ne ? e - row[i] * ns : 0;  // within the slice
+      mine[i] = e < ne && rs[row[i] + 1] - rs[row[i]] <= chunk;
 #pragma unroll
-        for (int u = 0; u < kBwdAhead; ++u) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const int col = col0 + lane + 32 * c;
-            part[u][c] = (j0 + u < c1 && col < D)
-                             ? __ldg(partials + static_cast<int64_t>(j0 + u) * D + col) : 0.f;
+      for (int k = 0; k < VW; ++k) acc[i][k] = 0.f;
+    }
+    for (int b0 = 0; b0 < S; b0 += per) {  // the short rows' slots, `per` at a time
+      const int nb = S - b0 < per ? S - b0 : per;
+      for (int u = threadIdx.x; u < nb; u += kRowThreads) {
+        const int at = b0 + u;
+        int lo = 0, hi = nr;  // vs[lo] <= at < vs[hi]: row lo holds slot `at`
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (vs[mid] <= at) {
+            lo = mid;
+          } else {
+            hi = mid;
           }
         }
+        const int slot = __ldg(order + rs[lo] + (at - vs[lo]));
+        srow[u] = slot / L;
+        if (kWeighted) sw[u] = __ldg(weights + slot);
+      }
+      __syncthreads();
+      for (int f = threadIdx.x; f < nb * ns; f += kRowThreads) {
+        const int u = f / ns, c = f - u * ns;
+        cp_async<4 * VW>(stage + u * ds + c * VW,
+                         grad + static_cast<int64_t>(srow[u]) * D + (c0 + c) * VW);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
 #pragma unroll
-        for (int u = 0; u < kBwdAhead; ++u) {
-          if (j0 + u < c1) {
+      for (int i = 0; i < kTileElems; ++i) {
+        if (!mine[i]) continue;
+        const int a = max(vs[row[i]], b0), z = min(vs[row[i] + 1], b0 + nb);
+        for (int u = a - b0; u < z - b0; ++u) {  // the row's slots in this batch, in order
+          float x[VW];
+          if constexpr (VW == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(stage + u * ds + col[i] * VW);
+            x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+          } else if constexpr (VW == 2) {
+            const float2 v = *reinterpret_cast<const float2*>(stage + u * ds + col[i] * VW);
+            x[0] = v.x; x[1] = v.y;
+          } else {
+            x[0] = stage[u * ds + col[i]];
+          }
+          const float wt = kWeighted ? sw[u] : 1.f;
 #pragma unroll
-            for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], part[u][c]);
+          for (int k = 0; k < VW; ++k) {
+            acc[i][k] = __fadd_rn(acc[i][k], kWeighted ? __fmul_rn(x[k], wt) : x[k]);
           }
         }
       }
-    } else {
-      fold_slots<C>(grad, order, weights, L, D, col0, p0, p1, acc);
+      __syncthreads();  // srow and the stage are free for the next batch
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int col = col0 + lane + 32 * c;
-      if (col < D) out[v * D + col] = acc[c];
+    for (int i = 0; i < kTileElems; ++i) {
+      if (mine[i]) {
+        store_floats<VW>(out + (v0 + row[i]) * D + static_cast<int64_t>(c0 + col[i]) * VW,
+                         acc[i]);
+      }
     }
   }
 }
 
-template <int C>
+template <int VW>
 cudaError_t launch_backward(const float* grad, const int32_t* order, const float* weights,
-                            const int32_t* row_start, const int32_t* chunk_base,
-                            float* partials, int max_chunks, int V, int D, int L, int chunk,
+                            const int32_t* row_start, const int32_t* chunk_base, float* partials,
+                            int32_t* chunk_row, int max_chunks, int V, int D, int L, int chunk,
                             float* out, cudaStream_t stream) {
-  const dim3 block(32 * kBags);
-  if (max_chunks > 0) {
-    const dim3 grid((max_chunks + kBags - 1) / kBags);
-    bag_grad_chunks_kernel<C><<<grid, block, 0, stream>>>(grad, order, weights, row_start,
-                                                         chunk_base, V, D, L, chunk, partials);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  const int chunk_blocks = max_chunks < kChunkBlocks ? max_chunks : kChunkBlocks;
+  bag_grad_chunks_kernel<VW><<<chunk_blocks, kChunkThreads, 0, stream>>>(
+      grad, order, weights, row_start, chunk_base, V, D, L, chunk, partials, chunk_row);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int kCombineBytes = 2 * kCombineStage * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(bag_grad_combine_kernel<VW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kCombineBytes);
+  if (err != cudaSuccess) return err;
+  const int combine_grid = max_chunks < kCombineBlocks ? max_chunks : kCombineBlocks;
+  bag_grad_combine_kernel<VW><<<combine_grid, kCombineThreads, kCombineBytes, stream>>>(
+      partials, chunk_base, chunk_row, V, D, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int nvec = D / VW;
+  // vectors a slice: the block's threads hold them all, and a slot's slice fits the stage
+  constexpr int most = kRowThreads * kTileElems < kSliceCols / VW ? kRowThreads * kTileElems
+                                                                   : kSliceCols / VW;
+  const int slice = nvec < most ? nvec : most;
+  int tile_rows = kRowThreads * kTileElems / slice;
+  tile_rows = tile_rows > kMaxTileRows ? kMaxTileRows : tile_rows;
+  const dim3 grid(static_cast<unsigned>((static_cast<int64_t>(V) + tile_rows - 1) / tile_rows));
+  if (weights != nullptr) {
+    bag_grad_rows_kernel<VW, true><<<grid, kRowThreads, 0, stream>>>(
+        grad, order, weights, row_start, V, D, L, chunk, tile_rows, slice, out);
+  } else {
+    bag_grad_rows_kernel<VW, false><<<grid, kRowThreads, 0, stream>>>(
+        grad, order, weights, row_start, V, D, L, chunk, tile_rows, slice, out);
   }
-  const dim3 grid((V + kBags - 1) / kBags);
-  bag_grad_rows_kernel<C><<<grid, block, 0, stream>>>(grad, order, weights, row_start,
-                                                     chunk_base, partials, V, D, L, out);
   return cudaGetLastError();
 }
 
@@ -537,32 +782,32 @@ extern "C" int embedding_bag_launch(const void* table, const int32_t* ids, const
   }
 }
 
-// Kernel 5': grad (B, D) float32, order (B * L) int32 and row_start,
-// chunk_base (V + 1) int32 from the wrapper's stable sort of the ids (see
-// above), weights (B * L) float32 or NULL; partials is scratch of at least
-// max_chunks x D floats, max_chunks >= chunk_base[V].  Writes out (V, D)
-// float32, every row.  Launches the chunk pass, then the row pass, on
-// `stream`; returns the first cudaError_t (0 on success).
+// Kernel 5': grad (B, D) float32; order, row_start and chunk_base (V + 1)
+// int32 from the preparation (bag_plan.cu, or backward_plan); weights
+// (B * L) float32 or NULL; partials (max_chunks x D floats) and chunk_row
+// (max_chunks int32) are scratch, with 1 <= max_chunks and chunk_base[V] <=
+// max_chunks; the plan's chunks are kChunk slots.  Writes out (V, D)
+// float32, every row.
+// Launches the chunk pass, the combine and the row pass on `stream`; returns
+// the first cudaError_t (0 on success).
 extern "C" int embedding_bag_backward_launch(const float* grad, const int32_t* order,
                                              const float* weights, const int32_t* row_start,
                                              const int32_t* chunk_base, float* partials,
-                                             int max_chunks, int V, int D, int L, int chunk,
-                                             float* out, void* stream) {
+                                             int32_t* chunk_row, int max_chunks, int V, int D,
+                                             int L, float* out, void* stream) {
   if (V <= 0 || D <= 0) return 0;
-  if (L <= 0 || chunk <= 0 || max_chunks < 0) return cudaErrorInvalidValue;
+  if (L <= 0 || max_chunks < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 31) / 32) {  // column tiles of 32 a lane holds: 4 at most, then tiles again
-    case 1:
-      return launch_backward<1>(grad, order, weights, row_start, chunk_base, partials,
-                                max_chunks, V, D, L, chunk, out, s);
-    case 2:
-      return launch_backward<2>(grad, order, weights, row_start, chunk_base, partials,
-                                max_chunks, V, D, L, chunk, out, s);
-    case 3:
-      return launch_backward<3>(grad, order, weights, row_start, chunk_base, partials,
-                                max_chunks, V, D, L, chunk, out, s);
-    default:
-      return launch_backward<4>(grad, order, weights, row_start, chunk_base, partials,
-                                max_chunks, V, D, L, chunk, out, s);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(grad) | reinterpret_cast<uintptr_t>(out) |
+                       reinterpret_cast<uintptr_t>(partials);
+  if (D % 4 == 0 && at % 16 == 0) {
+    return launch_backward<4>(grad, order, weights, row_start, chunk_base, partials, chunk_row,
+                              max_chunks, V, D, L, kChunk, out, s);
   }
+  if (D % 2 == 0 && at % 8 == 0) {
+    return launch_backward<2>(grad, order, weights, row_start, chunk_base, partials, chunk_row,
+                              max_chunks, V, D, L, kChunk, out, s);
+  }
+  return launch_backward<1>(grad, order, weights, row_start, chunk_base, partials, chunk_row,
+                            max_chunks, V, D, L, kChunk, out, s);
 }

@@ -13,7 +13,8 @@ slot in order, and the sum is rounded once to the table's dtype.
 (kernel 5'): the gradient of the bag sums with respect to a float32 table,
 each row's contributions summed in the association the kernel uses
 (``backward_plan``, ``BACKWARD_CHUNK``), so the card holds the kernel to it
-bit for bit.
+bit for bit.  It is ``backward_plan`` (the plain version of the kernel's
+preparation) and then ``backward_sums_ref`` (of its sums, given the plan).
 
 ``bag_case``, ``bag_of_one_case``, ``bag_grad_case``, ``bf16_ulps`` and
 ``same_bits`` are what the card tests and ``chip_smoke.py`` share to hold
@@ -100,10 +101,19 @@ def embedding_bag_backward_ref(grad_out, indices, V: int, weights=None, *,
     of at most ``chunk`` slots is one chunk, so its sum is the plain slot
     order's (0 + a partial sum is that sum: a sum that starts at +0.0 is
     never -0.0)."""
-    B, L = indices.shape
-    D = grad_out.shape[1]
-    dev = grad_out.device
     order, row_start, _ = backward_plan(indices, V, chunk)
+    return backward_sums_ref(grad_out, order, row_start, indices.shape[1], weights, chunk=chunk)
+
+
+def backward_sums_ref(grad_out, order, row_start, L: int, weights=None, *,
+                      chunk: int = BACKWARD_CHUNK):
+    """The sums of ``embedding_bag_backward_ref`` given its grouping
+    (``order``, ``row_start`` of ``backward_plan`` for a (B, L) lookup of a
+    table of ``row_start.numel() - 1`` rows): (V, D) float32, in the
+    association documented there."""
+    D = grad_out.shape[1]
+    V = row_start.numel() - 1
+    dev = grad_out.device
     count = (row_start[1:] - row_start[:-1]).long()
     slots = order[:int(row_start[V])].long()
     contrib = grad_out.float()[slots // L]

@@ -81,11 +81,14 @@ from repro_torch.kernels import (
     spmv_vertex,
     take_rows,
     BACKWARD_CHUNK,
+    backward_plan,
     bag_grad_case,
     embedding_bag_backward,
     embedding_bag_backward_ref,
+    embedding_bag_plan,
 )
 from repro_torch.kernels.decode_attention.decode_attention import split_rows
+from repro_torch.kernels.embedding_bag.embedding_bag import _backward_sums
 from repro_torch.data import make_candidates
 from repro_torch.launch import assert_topk_agrees, sasrec_retrieval_step, sasrec_serve_step
 from repro_torch.models import sasrec
@@ -994,11 +997,66 @@ def test_embedding_bag_rejects_bad_operands(cuda):
 
 # (V, D, B, L, hot share, weighted): bags of one, weighted bags, a row over
 # BACKWARD_CHUNK slots, two column tiles (D = 200), one column, a row of exactly
-# one chunk and one of a chunk and one slot
+# one chunk and one of a chunk and one slot; odd widths on each side of
+# SASRec's 50 and a width of 16-byte rows; a row of 768 chunks (train_batch's
+# hot row)
 GRAD_CASES = [(1000, 50, 4099, 1, 0.0, False), (500, 33, 300, 9, 0.0, True),
               (2000, 50, 20000, 1, 0.5, False), (3000, 50, 1000, 50, 0.5, True),
               (97, 200, 700, 3, 0.2, True), (64, 1, 333, 2, 0.0, False),
-              (50, 16, BACKWARD_CHUNK, 1, 1.0, False), (50, 16, BACKWARD_CHUNK + 1, 1, 1.0, True)]
+              (50, 16, BACKWARD_CHUNK, 1, 1.0, False), (50, 16, BACKWARD_CHUNK + 1, 1, 1.0, True),
+              (700, 49, 900, 4, 0.3, True), (700, 51, 900, 4, 0.3, False),
+              (4096, 64, 5000, 2, 0.0, True), (1000, 50, 768 * BACKWARD_CHUNK, 1, 1.0, False)]
+
+
+def _plan_case(kind, V):
+    """int32 ids (B, L) for the preparation's card tests, drawn from ``V``."""
+    rng = np.random.default_rng(V)
+    if kind == "padding":
+        return torch.from_numpy(rng.choice(np.array([-1, -7, V, V + 3], np.int32), (999, 2)))
+    if kind == "one id":
+        return torch.full((768 * BACKWARD_CHUNK + 1, 1), min(5, V - 1), dtype=torch.int32)
+    if kind == "sparse":  # 80 ids: long gaps between them at V = 2^20, short ones at 2^10
+        return torch.from_numpy(rng.integers(0, V, (40, 2)).astype(np.int32))
+    ids = rng.integers(0, V, (3001, 1 if kind == "bags of one" else 7)).astype(np.int32)
+    ids.flat[rng.choice(ids.size, 4, replace=False)] = [-1, -7, V, V + 3]
+    return torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("kind", ["bags of one", "L > 1", "padding", "one id", "sparse"])
+@pytest.mark.parametrize("V", [1, 1023, 1024, 1025, 2 ** 20 - 1, 2 ** 20, 2 ** 20 + 1])
+def test_embedding_bag_plan_matches_backward_plan(cuda, kind, V):
+    """The preparation on the card (the port's radix sort) against
+    ``backward_plan``: ``row_start``, ``chunk_base`` and
+    ``order[:row_start[V]]`` bit for bit, one launch a call; the radix sort's
+    bit count changes with V - 1 at V = 2^k + 1."""
+    ids = _plan_case(kind, V)
+    want = backward_plan(ids, V)
+    before = embedding_bag_plan.launches
+    order, row_start, chunk_base = embedding_bag_plan(ids.to(cuda), V)
+    assert embedding_bag_plan.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(row_start.cpu(), want[1])
+    assert torch.equal(chunk_base.cpu(), want[2])
+    n = int(want[1][V])
+    assert order.shape == want[0].shape and torch.equal(order[:n].cpu(), want[0][:n])
+
+
+def test_backward_sums_refuses_a_plan_off_the_card(cuda):
+    """The sums alone raise on a plan that lies on the CPU while the gradient
+    lies on the card, and on a plan of another lookup; nothing launches."""
+    V, D, B, L = 300, 50, 64, 3
+    g, ids, w = bag_grad_case(V, D, B, L, seed=5, hot=0.2, weighted=True)
+    plan = backward_plan(ids, V)
+    before = embedding_bag_backward.launches
+    with pytest.raises(ValueError):
+        _backward_sums(g.to(cuda), *plan, L, w.to(cuda))
+    card_plan = embedding_bag_plan(ids.to(cuda), V)
+    with pytest.raises(ValueError):
+        _backward_sums(g.to(cuda), *card_plan, L + 1, None)
+    assert embedding_bag_backward.launches == before
+    got = _backward_sums(g.to(cuda), *card_plan, L, w.to(cuda))
+    assert embedding_bag_backward.launches == before + 1
+    assert same_bits(got.cpu(), embedding_bag_backward_ref(g, ids, V, w))
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)

@@ -27,14 +27,17 @@ import numpy as np
 from repro_torch.kernels import (
     BACKWARD_CHUNK,
     backward_plan,
+    backward_sums_ref,
     embedding_bag,
     embedding_bag_backward,
     embedding_bag_backward_ref,
+    embedding_bag_plan,
     embedding_bag_ref,
     embedding_bag_sums,
     same_bits,
     take_rows,
 )
+from repro_torch.kernels.embedding_bag.embedding_bag import _backward_sums
 
 REL = 1e-6
 CHUNKED_TOL = 1e-5
@@ -149,6 +152,110 @@ def test_backward_plan_groups_slots_by_row():
     assert {int(x) for x in order[10:]} == {1, 3}          # the padding slots last
 
 
+def _plan_cases():
+    """(name, V, ids) the preparation's contract is pinned on: V at 1 and on
+    each side of a power of two (the radix sort's bit count is that of
+    V - 1), every slot padding, every slot one id (a row of 768 chunks and
+    one slot), ids -1, -7, V, V+3 planted, bags of several ids."""
+    rng = np.random.default_rng(11)
+    cases = [(f"V={V}", V, rng.integers(-3, V + 4, (257, 3)).astype(np.int32))
+             for V in (1, 2, 1023, 1024, 1025, 2 ** 20 - 1, 2 ** 20, 2 ** 20 + 1)]
+    cases.append(("all padding", 50, np.array([[-1, -7], [50, 53]], np.int32)))
+    cases.append(("one id", 50, np.full((768 * BACKWARD_CHUNK + 1, 1), 7, np.int32)))
+    cases.append(("sparse", 2 ** 20, rng.choice(2 ** 20, (40, 2)).astype(np.int32)))
+    ids = rng.integers(0, 300, (40, 50)).astype(np.int32)
+    ids.flat[rng.choice(ids.size, 4, replace=False)] = [-1, -7, 300, 303]
+    cases.append(("planted, L=50", 300, ids))
+    return cases
+
+
+@pytest.mark.parametrize("name,V,ids", _plan_cases(), ids=[c[0] for c in _plan_cases()])
+def test_backward_plan_is_numpys_stable_sort_and_searchsorted(name, V, ids):
+    """``backward_plan`` against numpy: ``order`` is ``np.argsort(kind=
+    "stable")`` of the ids with the padding as V, ``row_start`` is
+    ``np.searchsorted`` of 0..V in the sorted keys, ``chunk_base`` the
+    exclusive prefix of the rows' chunk counts.  The card's preparation is
+    held to ``backward_plan`` bit for bit (on ``order[:row_start[V]]``)."""
+    flat = ids.reshape(-1).astype(np.int64)
+    key = np.where((flat >= 0) & (flat < V), flat, V)
+    want_order = np.argsort(key, kind="stable")
+    want_start = np.searchsorted(key[want_order], np.arange(V + 1), side="left")
+    count = np.diff(want_start)
+    chunks = np.where(count > BACKWARD_CHUNK, -(-count // BACKWARD_CHUNK), 0)
+    want_base = np.concatenate([[0], np.cumsum(chunks)])
+    order, row_start, chunk_base = backward_plan(torch.from_numpy(ids), V)
+    assert order.dtype == row_start.dtype == chunk_base.dtype == torch.int32
+    assert np.array_equal(order.numpy(), want_order)
+    assert np.array_equal(row_start.numpy(), want_start)
+    assert np.array_equal(chunk_base.numpy(), want_base)
+
+
+def test_plan_wrapper_on_the_cpu_is_backward_plan():
+    """``embedding_bag_plan`` on a CPU tensor runs ``backward_plan`` (every
+    entry of ``order`` too) and launches nothing."""
+    ids = torch.from_numpy(_ids(13, (9, 4), 3, hot=20))
+    before = embedding_bag_plan.launches
+    got = embedding_bag_plan(ids, 13)
+    want = backward_plan(ids, 13)
+    assert embedding_bag_plan.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sums_wrapper_on_the_cpu_is_the_plain_sums(weighted):
+    """``_backward_sums`` on CPU tensors runs ``backward_sums_ref`` on the
+    plan's grouping and launches nothing; plan then sums is
+    ``embedding_bag_backward_ref`` bit for bit, long rows included."""
+    V, D, B, L = 23, 5, 40, 9
+    rng = np.random.default_rng(4 + weighted)
+    ids = torch.from_numpy(_ids(V, (B, L), 6, hot=300))
+    g = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((B, L)).astype(np.float32)) if weighted else None
+    want = embedding_bag_backward_ref(g, ids, V, w)
+    plan = backward_plan(ids, V)
+    before = embedding_bag_backward.launches
+    got = _backward_sums(g, *plan, L, w)
+    assert embedding_bag_backward.launches == before
+    assert same_bits(got, want)
+    assert same_bits(backward_sums_ref(g, plan[0], plan[1], L, w), want)
+    chunked = backward_sums_ref(g, *backward_plan(ids, V, chunk=7)[:2], L, w, chunk=7)
+    assert same_bits(chunked, embedding_bag_backward_ref(g, ids, V, w, chunk=7))
+
+
+def _mismatched(name, g, plan, L, w):
+    """``_backward_sums``'s operands with the one called ``name`` off."""
+    order, row_start, chunk_base = plan
+    if name == "order short":
+        order = order[:-1]
+    elif name == "order int64":
+        order = order.long()
+    elif name == "chunk_base short":
+        chunk_base = chunk_base[:-1]
+    elif name == "row_start 2-D":
+        row_start = row_start[None]
+    elif name == "weights (B, L - 1)":
+        w = w[:, 1:]
+    elif name == "grad_out float64":
+        g = g.double()
+    return g, order, row_start, chunk_base, L, w
+
+
+@pytest.mark.parametrize("name", ["order short", "order int64", "chunk_base short",
+                                  "row_start 2-D", "weights (B, L - 1)", "grad_out float64"])
+def test_sums_wrapper_refuses_a_plan_that_does_not_fit(name):
+    """``_backward_sums`` raises on a plan, gradient or weights that do not
+    belong to one (B, L) lookup of a table of V rows, and launches nothing."""
+    V, D, B, L = 23, 5, 40, 9
+    rng = np.random.default_rng(12)
+    ids = torch.from_numpy(_ids(V, (B, L), 7, hot=30))
+    g = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((B, L)).astype(np.float32))
+    before = embedding_bag_backward.launches
+    with pytest.raises(ValueError):
+        _backward_sums(*_mismatched(name, g, backward_plan(ids, V), L, w))
+    assert embedding_bag_backward.launches == before
+
+
 def test_backward_refuses_more_slots_than_int32_numbers():
     """The slots are numbered in int32: 2**31 of them raise ValueError (an
     expanded view, so nothing that large is allocated)."""
@@ -156,6 +263,8 @@ def test_backward_refuses_more_slots_than_int32_numbers():
     g = torch.zeros(1, 2).expand(2 ** 16, 2)
     with pytest.raises(ValueError, match="int32"):
         backward_plan(ids, 4)
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_plan(ids, 4)
     with pytest.raises(ValueError, match="int32"):
         embedding_bag_backward(g, ids, 4)
 
