@@ -6,6 +6,7 @@
     python3 chip_smoke.py --moe-only     # phase 10(a)-(b) and 16 (MoE, MLA, the other LMs)
     python3 chip_smoke.py --recsys-only  # phase 11 alone (kernel 5, SASRec serving)
     python3 chip_smoke.py --train-only   # phase 17 alone (kernel 5', training)
+    python3 chip_smoke.py --dist-only    # phase 14(g) alone (two ranks on the card, gloo)
     python3 chip_smoke.py --gnn-only     # phase 18 alone (the GNN family trained)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
@@ -30,7 +31,10 @@ the other LM configurations through the single-token attention kernel;
 training (AdamW, the fault-tolerant trainer with checkpoint and restart, the
 LM and SASRec losses, the EmbeddingBag backward kernel); the GNN family
 (GIN, PNA, DimeNet, Equiformer-v2) trained on its cells, with its
-aggregation layer and neighbour sampler.
+aggregation layer and neighbour sampler; batched edgeMap over feature-dim
+vertex state; the graph engine across processes (two ranks on the one card,
+one shard each, the combine on ``torch.distributed`` under gloo); the cell
+registry (every cell's batch made on the card).
 
 1. Device: the card (``nvidia-smi``), the torch and CUDA versions, and the
    kernels' build time.
@@ -75,6 +79,19 @@ aggregation layer and neighbour sampler.
    ``sparse_streamed`` plan, whose int32 sums the fused round does not
    take: the chunk loop over kernel 1's decode (and the exception patch),
    equal to the CPU route.
+4(b). Batched edgeMap over feature-dim vertex state: ``edgemap_reduce_batched``
+   on (8, n, 16) state over graphs B and E, float32 under ``sum`` (a
+   weighted map) and int32 under ``min`` (a weight added), in every mode,
+   ``map_lanes`` on the even lanes, ``auto``'s sparse lanes streamed; lane
+   0's frontier ~8 % of the vertices (``auto`` dense there), the others ~1 %.  Each lane
+   equals its own single-query run on the card and the CPU route (graph E
+   in every mode but ``dense``, whose body ``auto``'s lane 0 runs there;
+   graph B's sparse lanes under ``sparse_streamed``): min and touched
+   bit for bit, sums within twice float32's any-order bound (atomic adds on
+   the card).  The
+   streamed lanes decode through kernel 1 (the fused round takes no feature
+   dims): decode launches > 0 under ``sparse_streamed`` and ``auto``, 0
+   under ``dense`` and ``sparse``, no fused launch.
 5. Serving: a ``QueryEngine`` on graph B answers 12 BFS and 4 wBFS queries,
    each equal to its single-query run, with at most one fused launch a
    round of each drained batch; one more drain runs under ``torch.profiler``
@@ -128,7 +145,8 @@ aggregation layer and neighbour sampler.
    of 32 x 32k tokens would take minutes), 16 decode steps (28 x 16
    launches), the first held to the plain route (and the faults' read), and
    one more step under ``torch.profiler``.
-11. SASRec serving (kernel 5, ``embedding_bag_sums``): (a) the kernel
+11. SASRec serving (kernel 5, ``embedding_bag_sums``; (c) and (d) at the
+   registry's ``sasrec`` cells, uncut): (a) the kernel
    against its plain version on the card at the JAX sweep's (V, D, B, L),
    kernels_micro's (4096, 64, 512, 16), D=50 and D=33, float32 and
    bfloat16, sum and mean, weighted and not, with ids -1, -7, V and V+3
@@ -214,12 +232,29 @@ aggregation layer and neighbour sampler.
    plan (the JAX package's skewed schedule, which the eager loop runs
    sequentially) gives BFS and wBFS on graph B (4,) bit for bit, 4 fused
    launches a round; graph A's shards join the SHA-256 check; the phase's
-   peak device memory.
+   peak device memory; (g) the engine across processes: the parent saves
+   graphs B and E (``save_compacted`` under ``build/phase14g``) and spawns
+   two ranks (``torch.multiprocessing``, gloo from a ``file://`` path there,
+   both on the card); each loads them on the host and prepares a (2,)
+   ``make_process_mesh`` plan, so only its own shard reaches the card (its
+   bytes printed beside the graph's), then runs BFS and wBFS on graph B
+   from phase 14(b)'s source and the next (exactly one fused launch a
+   round a rank, no decode launch), k-core on graph E (decode launches, no
+   fused one), PageRank on B (10 iterations, ``eps=0``, flat) and one
+   ``distributed_pagerank_step``; a 2-rank NCCL group on the one card must
+   raise the duplicate-device error (the store check, before any
+   collective).  Every rank's results identical; BFS, wBFS and k-core bit
+   for bit the parent's single-device card run, PageRank and the step within
+   1e-5.  Printed: the wall per BFS round per rank and the combine's share
+   (gloo stages CUDA tensors through the host: not an NCCL number), the
+   bytes a rank sends a round, the in-process (2,) plan's round.  A rank
+   that fails, or runs past 150 s, fails the run.
 15. Mutable graphs and observability: (a) graph A (the full configuration)
    under a ``DeltaOverlay``: a 4,096-edit script from the seed (inserts of
    absent edges, deletes of present ones, re-inserts at the old and at a new
    weight, self-loops, deletes of absent edges), ``live_edges()`` equal to an
-   independent numpy reference, 4 BFS and 4 wBFS through the engine over the
+   independent numpy reference, 2 BFS and 2 wBFS (cut from 4 and 4 to make
+   room for phases 4(b), 14(g) and 19) through the engine over the
    ``DeltaGraph`` and over ``compact(overlay)`` bit for bit equal (no kernel
    launch), PageRank (10 iterations) within atol 1e-6, the compaction's words
    the only large-memory write, the base unchanged (SHA-256); (b) a mutable
@@ -285,7 +320,7 @@ aggregation layer and neighbour sampler.
    port never calls (``aten.embedding_dense_backward``, sort-based;
    ``zeros.index_add_``, atomic), which the whole call must beat, beside the
    bytes bound and the share of it; (c) SASRec's train_batch at
-   full size (65,536 users x 50, the 2^20-item catalog, d 50, float32,
+   its registry cell's full size (65,536 users x 50, the 2^20-item catalog, d 50, float32,
    ``make_sasrec_batch_fn``): the first step's gradient non-zero on every
    ``item_emb`` row the batch touches and exactly 0 on every other, the loss
    and gradients at 1,024 users within 1e-5 of the CPU route; ``Trainer``, 6
@@ -293,8 +328,9 @@ aggregation layer and neighbour sampler.
    resumes: parameters and AdamW state bit for bit, kernel 5, 5' and its
    preparation launched 3 times a step; ms a step (median of the steps after the first that write
    no checkpoint), users/s, peak memory; (d) qwen2-1.5B whole (28
-   layers, bf16, remat full): train_4k's 4,096-token sequences, the global
-   batch cut from 256 to 8, accumulated over 8 microbatches, 4 steps; the
+   layers, bf16, remat full): the registry's train_4k cell's 4,096-token
+   sequences, its global batch cut from 256 to 8 (printed against the
+   cell's), accumulated over 8 microbatches, 4 steps; the
    first loss within 0.05 of ln V + sigma^2 / 2 (``first_loss_reckoned``),
    every loss finite; ms a step, tokens/s, model flops over the dense bf16
    peak, peak memory beside the reckoning; cut to 2 layers at full width,
@@ -321,12 +357,20 @@ aggregation layer and neighbour sampler.
    ``torch.profiler`` (the scatter's and the gathers' share of the device
    time); (e) PNA at minibatch_lg: a 232,965-vertex, 114,615,892-edge CSR
    built on the host, 1,024 seeds a step through ``sample_fanout`` (15, 10),
-   the sampler's host seconds beside the step's ms.
+   the sampler's host seconds beside the step's ms.  Every cell comes from
+   the registry (``configs.get_arch(arch).cells()[shape]``).
+19. The cell registry: ``configs.all_cells()``, the 40 (arch, shape) cells,
+   each cell's ``batch_specs`` made on the card from a seeded generator, one
+   cell at a time and freed: shapes and dtypes checked, ids in range
+   (tokens and items below the vocabulary, positions below the sequence,
+   node ids below the nodes, edge ids below the edges, labels below the
+   classes); each cell's kind, family, batch bytes and model flops printed.
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
 Each path resets the launch counts just before it and reads them just after:
-phases 4-5, 12, 13, 14 and 15 for kernel 1's two entries, graph A's ``spmv_vertex`` for kernel 3,
+phases 4-5 (4(b) among them), 12, 13, 14 and 15 for kernel 1's two entries (14(g)'s
+ranks count their own launches and report them), graph A's ``spmv_vertex`` for kernel 3,
 phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phases 10(c), (d) and
 16(b)-(d) for kernel 6, phase 11(c) and (d) and 17(c) for kernel 5, phase 17(c) for kernel 5'
 and its preparation.
@@ -1991,7 +2035,7 @@ def drive_recsys(dev, stats):
     parameters; the item table is never written.  Returns kernel 5's record."""
     import torch
 
-    from repro_torch.configs import sasrec as sasrec_config
+    from repro_torch.configs import get_arch
     from repro_torch.data import make_candidates, make_sasrec_batch_fn
     from repro_torch.kernels import embedding_bag_sums
     from repro_torch.launch import (
@@ -2021,9 +2065,13 @@ def drive_recsys(dev, stats):
             f"{t['valid']} valid slots); against plain max abs err {t['err']!r} (bit for bit "
             f"{t['exact']}), yardstick {t['lib_err']!r}")
 
-    # (c) serve_p99 at full width
-    cfg = sasrec_config.full_config()
-    users = sasrec_config.SHAPES["serve_p99"]["batch"]
+    # (c) serve_p99 at full width, the registry's cell
+    cells = get_arch("sasrec").cells()
+    cfg = cells["serve_p99"].model_cfg
+    users = cells["serve_p99"].batch_specs["seq"].shape[0]
+    log(f"[11] from the registry: serve_p99 {users} users (the cell's "
+        f"{cells['serve_p99'].batch_specs['seq'].shape}, no cut), retrieval_cand "
+        f"{cells['retrieval_cand'].batch_specs['candidates'].shape} candidates (no cut)")
     params = sasrec.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
     digest = tensor_digest(params["item_emb"])
     batch = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)(SEED)
@@ -2062,7 +2110,7 @@ def drive_recsys(dev, stats):
     del top
 
     # (d) retrieval_cand at full width: user 0 of (c) against 1,000,448 candidates
-    n_cand = sasrec_config.SHAPES["retrieval_cand"]["n_candidates"]
+    n_cand = cells["retrieval_cand"].batch_specs["candidates"].shape[1]
     query = {"seq": batch["seq"][:1],
              "candidates": make_candidates(torch.Generator(dev).manual_seed(SEED + 1), 1, n_cand,
                                            cfg.vocab, device=dev)}
@@ -3040,7 +3088,8 @@ def drive_sharding(dev, A_, B_, E_, srcs, reqs, phase5_qps):
 EDITS_A = 4096            # phase 15(a): the edit script over graph A
 MUT_EDITS = 512           # phase 15(b): edits in graph B's mutable service stream
 MUT_E = (24, 128)         # phase 15(c): requests and edits of graph E's stream
-MUT_SOURCES = 4           # BFS / wBFS sources over a DeltaGraph and its compaction
+MUT_SOURCES = 2           # BFS / wBFS sources over a DeltaGraph and its compaction (cut
+                          # from 4 to make room for phases 4(b), 14(g) and 19)
 MUT_CHUNK = 16384         # a mutable plan's chunk: a DeltaGraph streams no block, so a
                           # sparse_streamed round is the plain chunk loop, lane by lane
 MUT_SWEEPS = 30           # the service trigger's hysteresis: compact after ~30 sweeps
@@ -3940,13 +3989,13 @@ GRAD_CASES = [         # (V, D, B, L, hot share, weighted): kernel 5' against it
 ]
 PLAN_V = (1, 1023, 1024, 1025, (1 << 20) - 1, 1 << 20, (1 << 20) + 1)  # the sort's bits change
 GRAD_TIMED = (1 << 20, 50, 65_536 * 50)  # train_batch's lookup: catalog, width, ids
-SAS_TRAIN = (65_536, 6, 3, 4)  # train_batch users; steps, ckpt_every, fail_at_step
+SAS_TRAIN = (6, 3, 4)          # train_batch (users from its cell): steps, ckpt_every, fail_at
 SAS_CHECK_USERS = 1_024        # the first step held to the CPU route
 GRAD_REL_TOL = 1e-5            # float32 gradients, card against CPU: other sum orders
-LM_TRAIN = (8, 4096, 8, 4)     # train_4k cut: global batch (of 256), seq, accum, steps
+LM_TRAIN = (8, 8, 4)           # train_4k cut: global batch (the cell's 256), accum, steps
 LM_CHECK = (2, 2, 128)         # qwen2 cut to 2 layers: layers; the CPU-held step's batch, seq
 LM_RESTART = (2, 512, 3, 2)    # the 2-layer bf16 restart: batch, seq; steps, fail_at = ckpt_every
-MOE_TRAIN = (2, 2, 4096, 4)    # deepseek cut: layers; global batch, seq (accum 2), steps
+MOE_TRAIN = (2, 2, 4)          # deepseek train_4k cut: layers; global batch (accum 2), steps
 # A random LM's first loss: the tied embedding (std INIT_STD) against a
 # hidden state of unit RMS gives logits of spread sigma = INIT_STD sqrt(d),
 # so logsumexp ~ ln(vocab) + sigma^2 / 2 and the target's logit ~ 0 (qwen2:
@@ -4227,14 +4276,17 @@ def sasrec_train(dev):
     trainer's runs."""
     import torch
 
-    from repro_torch.configs import sasrec as sasrec_config
+    from repro_torch.configs import get_arch
     from repro_torch.data import make_sasrec_batch_fn
     from repro_torch.kernels import embedding_bag_backward, embedding_bag_plan, embedding_bag_sums
     from repro_torch.launch import TrainConfig, Trainer, value_and_grad
     from repro_torch.models import sasrec
 
-    users, steps, every, fail_at = SAS_TRAIN
-    cfg = sasrec_config.full_config()
+    steps, every, fail_at = SAS_TRAIN
+    cell = get_arch("sasrec").cells()["train_batch"]
+    cfg, users = cell.model_cfg, cell.batch_specs["seq"].shape[0]
+    log(f"[17] (c) from the registry: sasrec/train_batch, {users} users x {cfg.seq_len} "
+        f"(the cell's {cell.batch_specs['seq'].shape}, no cut)")
     make = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)
     tc = dict(steps=steps, ckpt_every=every, log_every=1)
     trainer = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tc), device=dev)
@@ -4380,14 +4432,17 @@ def qwen2_train(dev):
 
     import torch
 
-    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.configs import get_arch
     from repro_torch.data import make_lm_batch_fn
     from repro_torch.launch import TrainConfig, Trainer, train_step, value_and_grad
     from repro_torch.models import transformer_lm as lm
     from repro_torch.optim import adamw_init, tree_leaves, tree_map
 
-    gb, seq, accum, steps = LM_TRAIN
-    cfg = qwen2_1_5b.full_config()
+    gb, accum, steps = LM_TRAIN
+    cell = get_arch("qwen2-1.5b").cells()["train_4k"]
+    cfg, (cell_gb, seq) = cell.model_cfg, cell.batch_specs["tokens"].shape
+    log(f"[17] (d) from the registry: qwen2-1.5b/train_4k, {cell_gb} x {seq} tokens a step; cut "
+        f"to a global batch of {gb} (of {cell_gb}), sequences at the cell's {seq}")
     check(cfg.remat_policy == "full", "qwen2 trains with remat_policy full")
     trainer = Trainer(lm, cfg, train_cfg=TrainConfig(steps=steps, accum=accum, warmup=1,
                                                      log_every=1), device=dev)
@@ -4516,14 +4571,18 @@ def deepseek_train(dev):
 
     import torch
 
-    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.configs import get_arch
     from repro_torch.data import make_lm_batch_fn
     from repro_torch.launch import TrainConfig, Trainer
     from repro_torch.models import transformer_lm as lm
     from repro_torch.optim import tree_leaves
 
-    layers, gb, seq, steps = MOE_TRAIN
-    cfg = dc.replace(deepseek_v2_lite_16b.full_config(), n_layers=layers)
+    layers, gb, steps = MOE_TRAIN
+    cell = get_arch("deepseek-v2-lite-16b").cells()["train_4k"]
+    (cell_gb, seq), full = cell.batch_specs["tokens"].shape, cell.model_cfg
+    cfg = dc.replace(full, n_layers=layers)
+    log(f"[17] (e) from the registry: deepseek-v2-lite-16b/train_4k, {cell_gb} x {seq} tokens a "
+        f"step, {full.n_layers} layers; cut to {layers} layers and a global batch of {gb}")
     trainer = Trainer(lm, cfg, train_cfg=TrainConfig(steps=steps, accum=gb, warmup=1,
                                                      log_every=1), device=dev)
     torch.cuda.empty_cache()
@@ -4976,7 +5035,7 @@ def drive_gnn(dev):
     sampler.  No hand kernel lies on this path."""
     import torch
 
-    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import get_arch
     from repro_torch.configs.gnn_common import SHAPE_TASK
 
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
@@ -4995,7 +5054,7 @@ def drive_gnn(dev):
     for shape, tag in (("molecule", "b"), ("full_graph_sm", "c")):
         t0 = time.perf_counter()
         for arch in order:
-            m = GNN_ARCHS[arch]
+            m = get_arch(arch)
             cell = m.cells()[shape]
             if shape == "molecule":
                 loss_rel, worst, leaves = gnn_grads_vs_cpu(dev, m, cell)
@@ -5015,7 +5074,7 @@ def drive_gnn(dev):
         wall[f"({tag})"] = time.perf_counter() - t0
     # (d) GIN at ogb_products, full batch
     t0 = time.perf_counter()
-    m = GNN_ARCHS["gin-tu"]
+    m = get_arch("gin-tu")
     cell = m.cells()["ogb_products"]
     batch = products_batch(cell, dev)
     t = train_gnn(dev, m.MODULE, cell.model_cfg, lambda s: batch, profile=True)
@@ -5038,7 +5097,7 @@ def drive_gnn(dev):
     wall["(d)"] = time.perf_counter() - t0
     # (e) PNA at minibatch_lg through the sampler
     t0 = time.perf_counter()
-    m = GNN_ARCHS["pna"]
+    m = get_arch("pna")
     cell = m.cells()["minibatch_lg"]
     offsets, targets = reddit_csr(SEED + 3)
     csr_s = time.perf_counter() - t0
@@ -5073,6 +5132,451 @@ def log_profile(tag, prof, ms):
         log(f"[{tag}]   {kms:10.3f} ms  {count:5d} calls  {name[:110]}")
 
 
+# ----------------------------------------------------------------------
+# phase 4(b): batched edgeMap over feature-dim vertex state
+# ----------------------------------------------------------------------
+FEAT = (8, 16)   # (B, d): lanes and features of the (B, n, d) vertex state
+
+
+def _weighted(xs, w):
+    return xs * w
+
+
+def _relax_i32(xs, w):
+    return xs + w.to(xs.dtype)
+
+
+def _passthrough(xs, w):
+    return xs
+
+
+def drive_features(dev, B_, E_):
+    """Phase 4(b): ``edgemap_reduce_batched`` on (8, n, 16) state over graphs
+    B and E, float32 under ``sum`` and int32 under ``min``, every mode,
+    ``map_lanes`` on the even lanes (``auto_sparse="sparse_streamed"``, so
+    ``auto``'s sparse lanes decode through kernel 1 too).  Lane 0's frontier
+    holds ~8 % of the vertices (``auto`` takes the dense branch there), the
+    rest ~1 %.  Each lane against its own single-query run on the card
+    and against the CPU route: min and touched bit for bit; sums, which the
+    card's scatter adds atomically in an order of its own, within twice
+    float32's any-order bound, 2 (k-1)u / (1 - (k-1)u) · Σ|term| an element
+    (k the graph's largest degree, Σ|term| the same edgeMap over |x|).  The
+    CPU route covers graph E in ``sparse``, ``sparse_streamed`` and ``auto``
+    (whose lane 0 runs the dense body; a dense batch of all 8 lanes on the
+    host reads every slot of graph E's blocks 8 times, the bulk of the CPU
+    route's time) and
+    graph B's sparse lanes under ``sparse_streamed``.  Returns kernel 1's
+    decode launches, the comparisons, the largest sum error's share of its
+    bound and the seconds of each part."""
+    import torch
+
+    from repro_torch.core import edgemap_reduce, edgemap_reduce_batched
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
+
+    nb, d = FEAT
+    lanes = torch.arange(nb) % 2 == 0
+    spent = {"card, batched": 0.0, "card, single lanes": 0.0, "CPU route": 0.0}
+
+    def timed(part, fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        spent[part] += time.perf_counter() - t
+        return out
+
+    modes = ("dense", "sparse", "sparse_streamed", "auto")
+    knobs = dict(auto_sparse="sparse_streamed")
+    on_card = dev.type == "cuda"
+    decode = cases = 0
+    worst = 0.0
+
+    def same(got, want, monoid, what, bound=None):
+        nonlocal worst, cases
+        check(torch.equal(got[1].cpu(), want[1].cpu()), f"{what}: touched differs")
+        if monoid == "min":
+            check(torch.equal(got[0].cpu(), want[0].cpu()), f"{what}: min differs")
+        else:
+            err = (got[0].cpu().double() - want[0].cpu().double()).abs()
+            share = float((err / bound.clamp(min=1e-30)).max())
+            worst = max(worst, share)
+            check(share <= 1.0, f"{what}: a sum differs by {share} of its any-order bound")
+        cases += 1
+
+    for G, tag in ((B_, "B"), (E_, "E")):
+        g = G.dev
+        gen = torch.Generator().manual_seed(SEED + 40)
+        # lane 0 over auto's dense threshold (m / 20 of the edges), the rest under it
+        fr = torch.rand(nb, g.n, generator=gen) < torch.tensor([0.08] + [0.01] * (nb - 1))[:, None]
+        states = {"sum": (torch.randn(nb, g.n, d, generator=gen), _weighted),
+                  "min": (torch.randint(0, 1 << 20, (nb, g.n, d), generator=gen,
+                                        dtype=torch.int32), _relax_i32)}
+        k = int(g.degrees.max())
+        gamma = 2 * k * 2.0**-24 / (1 - k * 2.0**-24)
+        for monoid, (x, fn) in states.items():
+            fr_d, x_d, lanes_d = fr.to(dev), x.to(dev), lanes.to(dev)
+            bound = None
+            if monoid == "sum":   # every lane's Σ|term| (weights are positive)
+                bound = gamma * edgemap_reduce_batched(
+                    g, fr_d, x_d.abs(), monoid="sum", map_fn=fn, mode="dense",
+                    map_lanes=lanes_d)[0].double().cpu()
+            for mode in modes:
+                b0 = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
+                got = timed("card, batched", lambda: edgemap_reduce_batched(
+                    g, fr_d, x_d, monoid=monoid, map_fn=fn, mode=mode, map_lanes=lanes_d,
+                    **knobs))
+                n_dec = compressed_chunked_spmv.launches - b0[0]
+                n_fused = compressed_stream_round.launches - b0[1]
+                check(got[0].shape == x.shape and got[1].shape == fr.shape,
+                      f"graph {tag} {monoid} {mode}: shapes {got[0].shape}, {got[1].shape}")
+                streams = mode in ("sparse_streamed", "auto")  # auto: lanes 1-7 sparse
+                check(not on_card or (n_fused == 0 and (n_dec > 0) == streams),
+                      f"graph {tag} {monoid} {mode}: kernel 1 launches (decode, fused) "
+                      f"({n_dec}, {n_fused})")
+                decode += n_dec
+                for q in range(nb):
+                    one = timed("card, single lanes", lambda: edgemap_reduce(
+                        g, fr_d[q], x_d[q], monoid=monoid, mode=mode,
+                        map_fn=fn if bool(lanes[q]) else _passthrough, **knobs))
+                    same((got[0][q], got[1][q]), one, monoid,
+                         f"graph {tag} {monoid} {mode} lane {q} against its single run",
+                         None if bound is None else bound[q])
+                if tag == "E" and mode != "dense":
+                    want = timed("CPU route", lambda: edgemap_reduce_batched(
+                        G.host, fr, x, monoid=monoid, map_fn=fn, mode=mode, map_lanes=lanes,
+                        **knobs))
+                    same(got, want, monoid, f"graph E {monoid} {mode} against the CPU route",
+                         bound)
+                elif mode == "sparse_streamed":
+                    want = timed("CPU route", lambda: edgemap_reduce_batched(
+                        G.host, fr[1:], x[1:], monoid=monoid, map_fn=fn, mode=mode,
+                        map_lanes=lanes[1:]))
+                    same((got[0][1:], got[1][1:]), want, monoid,
+                         f"graph B {monoid} sparse lanes against the CPU route",
+                         None if bound is None else bound[1:])
+    return decode, cases, worst, spent
+
+
+# ----------------------------------------------------------------------
+# phase 14(g): two ranks on the one card, one shard each, gloo
+# ----------------------------------------------------------------------
+DIST_DIR = ROOT / "build" / "phase14g"
+DIST_LIMIT_S = 150   # the ranks' limit, start included: a rank still running is killed
+DIST_SOURCES = 2     # phase 14(b)'s sources of graph B, and the next
+
+
+def _tensors_of(g) -> list:
+    """Every tensor field of a graph."""
+    import torch
+
+    return [getattr(g, f.name) for f in dataclasses.fields(g)
+            if isinstance(getattr(g, f.name), torch.Tensor)]
+
+
+def dist_rank(rank, world, device, srcs):
+    """One rank of phase 14(g): gloo from a ``file://`` path under ``build/``,
+    the graphs from the parent's ``save_compacted`` files, a (2,) process
+    mesh on ``device``; results to ``rank<r>.pt``, an exception to
+    ``rank<r>.err`` (and exit code 1)."""
+    import traceback
+
+    try:
+        import torch
+
+        torch.save(_dist_rank(rank, world, device, srcs), DIST_DIR / f"rank{rank}.pt")
+    except BaseException:
+        (DIST_DIR / f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)
+
+
+def _dist_rank(rank, world, device, srcs):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.core.plan as plan_mod
+    from repro_torch.algorithms import bfs, kcore, pagerank, wbfs
+    from repro_torch.core import make_plan, make_process_mesh
+    from repro_torch.delta import load_compacted
+    from repro_torch.distributed import distributed_pagerank_step
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{DIST_DIR / 'init'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=90))
+    mesh = make_process_mesh((world,), ("data",), device=dev)
+    out = {"rank": rank}
+    gB, _ = load_compacted(str(DIST_DIR / "B"), device="cpu")
+    gE, _ = load_compacted(str(DIST_DIR / "E"), device="cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    before = torch.cuda.memory_allocated(dev) if on_card else 0
+    plan_b = make_plan(gB, mesh=mesh, strategy="sparse_streamed")
+    gsB = plan_b.prepare(gB)
+    local = gsB.shards[0]
+    out["shard"] = {
+        "index": gsB.shard_index, "held": len(gsB.shards),
+        "bytes": sum(t.numel() * t.element_size() for t in _tensors_of(local)),
+        "graph_bytes": sum(t.numel() * t.element_size() for t in _tensors_of(gB)),
+        "allocated": (torch.cuda.memory_allocated(dev) - before) if on_card else 0,
+        "devices": sorted({str(t.device) for t in _tensors_of(local)}),
+        "blocks": local.num_blocks, "graph_blocks": gB.num_blocks,
+    }
+
+    def k1():
+        return compressed_chunked_spmv.launches, compressed_stream_round.launches
+
+    bfs_out, launches = [], []
+    for s in srcs:
+        b0 = k1()
+        p, lv = bfs(gsB, s, plan=plan_b)
+        sync()
+        b1 = k1()
+        dd = wbfs(gsB, s, plan=plan_b)
+        sync()
+        b2 = k1()
+        bfs_out.append((p.cpu(), lv.cpu(), dd.cpu()))
+        launches.append(((b1[0] - b0[0], b1[1] - b0[1]), (b2[0] - b1[0], b2[1] - b1[1]),
+                         int(lv.max()) + 1))
+    out["bfs"], out["launches"] = bfs_out, launches
+    # the round's wall, and the combine's share of it (each side synchronised)
+    real, spent = plan_mod._combine_process, []
+
+    def timed_combine(*a, **kw):
+        sync()
+        t = time.perf_counter()
+        res = real(*a, **kw)
+        sync()
+        spent.append(time.perf_counter() - t)
+        return res
+
+    walls = []
+    plan_mod._combine_process = timed_combine
+    try:
+        for s in srcs:
+            sync()
+            t = time.perf_counter()
+            lv = bfs(gsB, s, plan=plan_b)[1]
+            sync()
+            walls.append((time.perf_counter() - t, int(lv.max()) + 1))
+    finally:
+        plan_mod._combine_process = real
+    out["timing"] = {"walls": walls, "combine": spent}
+    # k-core on graph E: int32 sums, the chunk loop over kernel 1's decode
+    plan_e = make_plan(gE, mesh=mesh, strategy="sparse_streamed")
+    b0 = k1()
+    core = kcore(plan_e.prepare(gE), plan=plan_e)
+    sync()
+    out["kcore"], out["kcore_launches"] = core.cpu(), (k1()[0] - b0[0], k1()[1] - b0[1])
+    pr, iters = pagerank(gsB, eps=0.0, max_iters=PR_ITERS, plan=plan_b)
+    out["pagerank"], out["pagerank_iters"] = pr.cpu(), iters
+    inv = 1.0 / gsB.degrees.clamp(min=1).to(torch.float32)
+    step = distributed_pagerank_step(mesh, n=gB.n)(gsB, pr, inv)
+    out["step"] = step.cpu()
+    if on_card:
+        nccl = dist.new_group(backend="nccl")
+        try:
+            make_process_mesh((world,), ("data",), group=nccl, device=dev)
+            out["nccl"] = ""
+        except ValueError as e:
+            out["nccl"] = str(e)
+    dist.destroy_process_group()
+    return out
+
+
+def drive_process_mesh(dev, B_, E_, srcs):
+    """Phase 14(g): two ranks on the one card (``torch.multiprocessing``,
+    gloo, both on ``dev``), each holding one shard of graphs B and E on a
+    (2,) process mesh: BFS and wBFS on B, k-core on E, PageRank on B (10
+    iterations, ``eps=0``, flat) and one ``distributed_pagerank_step``,
+    against this process's single-device runs on the card; a 2-rank NCCL
+    group on the one card must raise the duplicate-device error.  Returns
+    the ranks' (kernel 1 decode, fused) launches."""
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.algorithms import bfs, kcore, pagerank, wbfs
+    from repro_torch.core import edgemap_reduce, make_mesh, make_plan
+    from repro_torch.delta import save_compacted
+
+    on_card = dev.type == "cuda"
+    t_all = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    save_compacted(str(DIST_DIR / "B"), 0, B_.host)
+    save_compacted(str(DIST_DIR / "E"), 0, E_.host)
+    srcs = list(srcs[:DIST_SOURCES])
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(r, 2, str(dev), srcs)) for r in range(2)]
+    for p in procs:
+        p.start()
+    # meanwhile, one device on the card, and the in-process (2,) plan
+    gB, gE = B_.dev, E_.dev
+    single = make_plan(gB, strategy="sparse_streamed")
+    want = [(*bfs(gB, s, plan=single), wbfs(gB, s, plan=single)) for s in srcs]
+    core1 = kcore(gE, plan=make_plan(gE, strategy="sparse_streamed"))
+    pr1 = pagerank(gB, eps=0.0, max_iters=PR_ITERS, plan=single)[0]
+    inv = 1.0 / gB.degrees.clamp(min=1).to(torch.float32)
+    s1, _ = edgemap_reduce(gB, torch.ones(gB.n, dtype=torch.bool, device=dev), pr1 * inv,
+                           monoid="sum", map_fn=_weighted, mode="dense")
+    in_proc = make_plan(gB, mesh=make_mesh((2,), ("data",), devices=[dev] * 2),
+                        strategy="sparse_streamed")
+    gs2 = in_proc.prepare(gB)
+    walls2 = []
+    for s in srcs:
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        lv = bfs(gs2, s, plan=in_proc)[1]
+        if on_card:
+            torch.cuda.synchronize()
+        walls2.append((time.perf_counter() - t) / (int(lv.max()) + 1))
+    deadline = time.monotonic() + DIST_LIMIT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    for r in range(2):
+        err = DIST_DIR / f"rank{r}.err"
+        check(not err.exists(), f"phase 14(g) rank {r} failed:\n"
+              + (err.read_text() if err.exists() else ""))
+    check(not hung, f"phase 14(g): ranks {hung} still running after {DIST_LIMIT_S} s, killed")
+    check(all(p.exitcode == 0 for p in procs), f"phase 14(g) exit codes "
+          f"{[p.exitcode for p in procs]}")
+    res = [torch.load(DIST_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    decode = fused = 0
+    for r, rr in enumerate(res):
+        for (p, lv, dd), (wp, wl, wd), (nb, nw, rounds) in zip(rr["bfs"], want, rr["launches"]):
+            check(torch.equal(p, wp.cpu()) and torch.equal(lv, wl.cpu())
+                  and torch.equal(dd, wd.cpu()),
+                  f"phase 14(g) rank {r}: BFS/wBFS differ from one device")
+            check(not on_card or (nb == (0, rounds) and nw[0] == 0 and nw[1] > 0),
+                  f"phase 14(g) rank {r}: kernel 1 launches (decode, fused) BFS {nb} in "
+                  f"{rounds} rounds, wBFS {nw}")
+            fused += nb[1] + nw[1]
+        check(torch.equal(rr["kcore"], core1.cpu()), f"phase 14(g) rank {r}: k-core differs")
+        kd = rr["kcore_launches"]
+        check(not on_card or (kd[0] > 0 and kd[1] == 0),
+              f"phase 14(g) rank {r}: k-core kernel 1 launches (decode, fused) {kd}")
+        decode += kd[0]
+        err_pr = rel_max(rr["pagerank"], pr1.cpu())
+        check(rr["pagerank_iters"] == PR_ITERS and err_pr <= PR_SHARD_REL_TOL,
+              f"phase 14(g) rank {r}: PageRank max rel diff {err_pr} over {PR_SHARD_REL_TOL}")
+        err_step = rel_max(rr["step"], ((1.0 - 0.85) / gB.n + 0.85 * s1).cpu())
+        check(err_step <= PR_SHARD_REL_TOL,
+              f"phase 14(g) rank {r}: distributed_pagerank_step max rel diff {err_step}")
+        sh = rr["shard"]
+        check(sh["index"] == r and sh["held"] == 1 and sh["devices"] == [str(dev)]
+              and sh["blocks"] == -(-sh["graph_blocks"] // 2)
+              and sh["bytes"] < 0.6 * sh["graph_bytes"],
+              f"phase 14(g) rank {r}: holds {sh}, not its own shard alone")
+        check(not on_card or "share the device" in rr.get("nccl", ""),
+              f"phase 14(g) rank {r}: a 2-rank NCCL group on one card was not refused: "
+              f"{rr.get('nccl')!r}")
+        for key in ("kcore", "pagerank", "step"):
+            check(torch.equal(rr[key], res[0][key]), f"phase 14(g): rank {r}'s {key} differs "
+                  "from rank 0's")
+        w = rr["timing"]["walls"]
+        rounds = sum(k for _, k in w)
+        wall_round = sum(t for t, _ in w) / rounds
+        comb = sum(rr["timing"]["combine"]) / rounds
+        log(f"[14] (g) rank {r}: graph B shard {sh['index']} of 2 on {sh['devices'][0]}, "
+            f"{sh['blocks']} of {sh['graph_blocks']} blocks, {sh['bytes']} B of the graph's "
+            f"{sh['graph_bytes']} B (device allocation grew {sh['allocated']} B); BFS from "
+            f"{srcs}: {rounds} rounds, wall {wall_round * 1e3:.3f} ms a round, of which the "
+            f"combine (gloo, CUDA tensors staged through the host: not an NCCL number) "
+            f"{comb * 1e3:.3f} ms = {comb / wall_round:.3f}")
+    n = gB.n
+    log(f"[14] (g) two ranks on {CARD}, gloo: BFS and wBFS on graph B from {srcs}, k-core on "
+        f"graph E and PageRank ({PR_ITERS} iterations, eps=0, flat) equal one device (BFS, "
+        f"wBFS, k-core bit for bit; PageRank and distributed_pagerank_step within "
+        f"{PR_SHARD_REL_TOL}); every rank identical; one fused launch a rank a BFS round, no "
+        f"decode launch; k-core {decode} decode launches; the NCCL group on one card refused "
+        f"({res[0].get('nccl', 'not run: no card')[:90]!r}); each rank sends a round's out and "
+        f"touched as int32[{n}] each: {8 * n} B in all-reduce inputs, ring traffic "
+        f"2(k-1)/k = 1x that, {8 * n} B a rank a round; in-process (2,) plan "
+        f"{statistics.median(walls2) * 1e3:.3f} ms a BFS round; "
+        f"phase wall {time.perf_counter() - t_all:.1f} s (spawn included)")
+    return decode, fused
+
+
+# ----------------------------------------------------------------------
+# phase 19: the cell registry
+# ----------------------------------------------------------------------
+def cell_batch(cell, gen, dev) -> dict:
+    """One cell's batch on ``dev``, every ``batch_specs`` entry drawn from
+    ``gen``: floats normal, ids in range (tokens and items below the vocab,
+    positions below the sequence, nodes below the node count, edge ids below
+    the edge count, labels below the classes, graph ids below the graphs)."""
+    import torch
+
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.configs.gnn_common import SHAPE_TASK
+
+    specs, cfg = cell.batch_specs, cell.model_cfg
+    if cell.family == "gnn":
+        _, n_classes, n_graphs = SHAPE_TASK[cell.shape]
+        n, e = specs["node_feat"].shape[0], specs["edge_src"].shape[0]
+        highs = {"edge_src": n, "edge_dst": n, "t_kj": e, "t_ji": e, "labels": n_classes,
+                 "node_graph": n_graphs, "graph_labels": n_classes}
+    elif cell.family == "lm":
+        highs = {"tokens": cfg.vocab, "targets": cfg.vocab,
+                 "pos": LM_SHAPES[cell.shape]["seq_len"]}
+    else:
+        highs = dict.fromkeys(specs, cfg.vocab)
+    out = {}
+    for k, spec in specs.items():
+        if spec.dtype.is_floating_point:
+            out[k] = torch.randn(spec.shape, generator=gen, device=dev, dtype=spec.dtype)
+        else:
+            out[k] = torch.randint(0, highs[k], spec.shape, generator=gen, device=dev,
+                                   dtype=spec.dtype)
+        check(tuple(out[k].shape) == tuple(spec.shape) and out[k].dtype == spec.dtype,
+              f"{cell.arch}/{cell.shape} {k}: {tuple(out[k].shape)} {out[k].dtype}")
+        if not spec.dtype.is_floating_point and out[k].numel():
+            check(0 <= int(out[k].min()) and int(out[k].max()) < highs[k],
+                  f"{cell.arch}/{cell.shape} {k}: ids out of [0, {highs[k]})")
+    return out
+
+
+def drive_registry(dev):
+    """Phase 19: every cell of ``all_cells()`` (40), its batch made on the
+    card from a seeded generator, one cell at a time and freed; shapes,
+    dtypes and id ranges checked; each cell's kind, family, batch bytes and
+    model flops printed."""
+    import torch
+
+    from repro_torch.configs import all_cells
+
+    cells = all_cells()
+    check(len(cells) == 40, f"the registry has {len(cells)} cells, not 40")
+    gen = torch.Generator(dev).manual_seed(SEED + 19)
+    peak = 0
+    for (arch, shape), cell in cells.items():
+        batch = cell_batch(cell, gen, dev)
+        nbytes = sum(t.numel() * t.element_size() for t in batch.values())
+        peak = max(peak, nbytes)
+        log(f"[19] {arch}/{shape}: {cell.kind}, {cell.family}, batch "
+            f"{ {k: tuple(t.shape) for k, t in batch.items()} } = {nbytes} B, model flops "
+            f"{cell.model_flops!r}")
+        del batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[19] all {len(cells)} cells' batches made on {dev} from a seeded generator, one at a "
+        f"time; shapes, dtypes and id ranges checked; the largest batch {peak} B")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     only = ap.add_mutually_exclusive_group()
@@ -5089,6 +5593,9 @@ def main(argv=None) -> int:
     only.add_argument("--train-only", action="store_true",
                       help="build the kernels and run phase 17 alone (kernel 5', the trainer, "
                            "SASRec, qwen2-1.5B and deepseek-v2-lite training)")
+    only.add_argument("--dist-only", action="store_true",
+                      help="build the kernels and graphs B and E and run phase 14(g) alone (two "
+                           "ranks on the card, one shard each, the combine on gloo)")
     only.add_argument("--gnn-only", action="store_true",
                       help="build the kernels and run phase 18 alone (the GNN family trained "
                            "on the card; no hand kernel lies on its path)")
@@ -5148,6 +5655,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         _, kernels = drive_train(dev)
         log(f"wall seconds: training {time.perf_counter() - t0:.1f}")
+    elif args.dist_only:
+        t0 = time.perf_counter()
+        B_, E_ = build_graph(*GRAPH_B, dev), build_graph(*GRAPH_E, dev)
+        drive_process_mesh(dev, B_, E_, sources(B_.dev, 2, SEED + 1))
+        kernels = []  # its launch counts are the ranks'; the full run lists every kernel
+        log(f"wall seconds: process mesh {time.perf_counter() - t0:.1f}")
     elif args.gnn_only:
         t0 = time.perf_counter()
         drive_gnn(dev)
@@ -5165,6 +5678,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         drive_gnn(dev)                   # 18. the GNN family trained on the card
         log(f"wall seconds: GNN training {time.perf_counter() - t0:.1f}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        drive_registry(dev)              # 19. the cell registry
+        log(f"wall seconds: registry {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
@@ -5366,6 +5883,19 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
         f"{int(core.max())}: kernel 1 launches: decode {kcore_launches[0]}, fused "
         f"{kcore_launches[1]}; equal to the CPU route")
     wall["graph B"] = time.perf_counter() - t0
+
+    # 4(b). batched edgeMap over feature-dim vertex state ----------------
+    t0 = time.perf_counter()
+    decode4b, cases4b, err4b, spent4b = drive_features(dev, B_, E_)
+    log(f"[4] (b) edgemap_reduce_batched on (B, n, d) = ({FEAT[0]}, n, {FEAT[1]}) state, graphs "
+        f"B and E, float32 sums and int32 min, modes dense / sparse / sparse_streamed / auto, "
+        f"map_lanes on half the lanes: {cases4b} comparisons, each lane equal to its own "
+        f"single-query run on the card and to the CPU route (min and touched bit for bit, sums "
+        f"within float32's any-order bound: the largest error {err4b!r} of it); kernel 1 decode "
+        f"launches {decode4b}, "
+        f"fused 0; wall {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent4b.items()) + ")")
+    wall["features"] = time.perf_counter() - t0
 
     # 5. serving -------------------------------------------------------
     t0 = time.perf_counter()
@@ -5586,6 +6116,13 @@ def drive(dev, graph_a=GRAPH_A, graph_b=GRAPH_B, graph_e=GRAPH_E) -> list[dict]:
     launches4 += packs14
     digests.update({("A shards", k): v for k, v in graph_digest(*gsA.shards).items()})
     wall["sharding"] = time.perf_counter() - t0
+
+    # 14(g). the graph engine across processes: two ranks on the card ----
+    t0 = time.perf_counter()
+    decode14g, fused14g = drive_process_mesh(dev, B_, E_, srcs_b)
+    main_launches += decode14g
+    main_round_launches += fused14g
+    wall["process mesh"] = time.perf_counter() - t0
 
     # 15. mutable graphs and the observability layer ---------------------
     t0 = time.perf_counter()

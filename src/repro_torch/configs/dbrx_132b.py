@@ -3,6 +3,7 @@ vocab=100352, MoE 16e top-4 fine-grained  [hf:databricks/dbrx-base; unverified]"
 from __future__ import annotations
 
 from ..models import transformer_lm as lm
+from .lm_common import lm_cells, lm_smoke_batch
 
 ARCH_ID = "dbrx-132b"
 FAMILY = "lm"
@@ -46,3 +47,10 @@ def smoke_config() -> lm.LMConfig:
         kv_block=16,
     )
 
+
+def cells():
+    return lm_cells(full_config())
+
+
+def smoke_batch(generator, *, device=None):
+    return lm_smoke_batch(smoke_config(), generator, device=device)

@@ -4,6 +4,7 @@ first layer dense (d_ff 10944)  [arXiv:2405.04434; hf]"""
 from __future__ import annotations
 
 from ..models import transformer_lm as lm
+from .lm_common import lm_cells, lm_smoke_batch
 
 ARCH_ID = "deepseek-v2-lite-16b"
 FAMILY = "lm"
@@ -61,3 +62,10 @@ def smoke_config() -> lm.LMConfig:
         kv_block=16,
     )
 
+
+def cells():
+    return lm_cells(full_config())
+
+
+def smoke_batch(generator, *, device=None):
+    return lm_smoke_batch(smoke_config(), generator, device=device)

@@ -3,6 +3,7 @@ vocab=32768  [hf:mistralai/Mistral-Large-Instruct-2407; unverified]"""
 from __future__ import annotations
 
 from ..models import transformer_lm as lm
+from .lm_common import lm_cells, lm_smoke_batch
 
 ARCH_ID = "mistral-large-123b"
 FAMILY = "lm"
@@ -38,3 +39,10 @@ def smoke_config() -> lm.LMConfig:
         kv_block=16,
     )
 
+
+def cells():
+    return lm_cells(full_config())
+
+
+def smoke_batch(generator, *, device=None):
+    return lm_smoke_batch(smoke_config(), generator, device=device)

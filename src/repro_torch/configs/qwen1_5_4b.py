@@ -3,6 +3,7 @@ vocab=151936 — QKV bias  [hf:Qwen/Qwen1.5-4B; hf]"""
 from __future__ import annotations
 
 from ..models import transformer_lm as lm
+from .lm_common import lm_cells, lm_smoke_batch
 
 ARCH_ID = "qwen1.5-4b"
 FAMILY = "lm"
@@ -39,3 +40,10 @@ def smoke_config() -> lm.LMConfig:
         kv_block=16,
     )
 
+
+def cells():
+    return lm_cells(full_config())
+
+
+def smoke_batch(generator, *, device=None):
+    return lm_smoke_batch(smoke_config(), generator, device=device)

@@ -1,5 +1,6 @@
 """The Sage engine in PyTorch: graph formats, filters, edgeMap, the planner
-(single-device or sharded over a ``ShardMesh``) and the PSAM cost model."""
+(single-device, sharded over a ``ShardMesh`` in one process, or one shard
+a process over a ``ProcessMesh``) and the PSAM cost model."""
 from .backend import GraphBackend, GraphLike, dense_block_view, tile_block_view
 from .bucketing import NULL_BUCKET, Buckets, make_buckets
 from .compressed import (
@@ -43,7 +44,7 @@ from .graph_filter import (
     unpack_bits,
     unpack_word_bits,
 )
-from .mesh import ShardMesh, make_mesh
+from .mesh import ProcessMesh, ShardMesh, make_mesh, make_process_mesh
 from .plan import (
     ExecutionPlan,
     ShardedEdgeActive,

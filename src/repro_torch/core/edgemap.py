@@ -428,6 +428,29 @@ def edgemap_chunked_batched_streamed(
     return out[:n].T, (hits[:n] > 0).T
 
 
+def _feature_lanes(g, frontier_masks, xb, *, monoid, map_fn, edge_active, mode, dense_frac,
+                   chunk_blocks, auto_sparse, map_lanes):
+    """Batched edgeMap over feature-dim vertex state (``xb`` of shape
+    (B, n, d...)): each lane through the single-query body, as the JAX
+    package vmaps ``edgemap_reduce`` over lanes.  ``auto`` takes each lane's
+    own Beamer decision (a vmapped ``lax.cond``); a lane outside
+    ``map_lanes`` runs the identity map.  ``sparse_streamed`` is not
+    demoted: on a streaming backend each lane's chunk loop decodes through
+    kernel 1 (the fused round takes no feature dims), whose tile is bit for
+    bit the un-streamed one, so every lane equals its plain ``sparse`` run."""
+    outs, touched = [], []
+    for q in range(xb.shape[0]):
+        fn = map_fn if map_lanes is None or bool(map_lanes[q]) else _identity_map
+        o, t = _edgemap_reduce_local(
+            g, frontier_masks[q], xb[q], monoid=monoid, map_fn=fn, mode=mode,
+            dense_frac=dense_frac, chunk_blocks=chunk_blocks, auto_sparse=auto_sparse,
+            edge_active=edge_active,
+        )
+        outs.append(o)
+        touched.append(t)
+    return torch.stack(outs), torch.stack(touched)
+
+
 def edgemap_reduce_batched(
     g: GraphLike,
     frontier_masks: torch.Tensor,
@@ -446,9 +469,9 @@ def edgemap_reduce_batched(
 ):
     """Batched edgeMap: B concurrent queries share ONE edge sweep.
 
-    ``frontier_masks`` is bool[B, n], ``xb`` is [B, n]; returns
-    ``(out[B, n], touched[B, n])``, each lane bit-identical to its own
-    ``edgemap_reduce`` run.  ``map_lanes`` (bool[B]) applies ``map_fn`` only
+    ``frontier_masks`` is bool[B, n], ``xb`` is [B, n] or [B, n, d...];
+    returns ``(out[B, n, ...], touched[B, n])``, each lane bit-identical to
+    its own ``edgemap_reduce`` run (feature dims: ``_feature_lanes``).  ``map_lanes`` (bool[B]) applies ``map_fn`` only
     on the selected lanes.  The dense strategy runs one shared sweep; the
     sparse strategy runs each lane's chunk loop (the JAX package vmaps it);
     ``sparse_streamed`` runs one union live-block loop through the kernel;
@@ -474,9 +497,12 @@ def edgemap_reduce_batched(
     )
     if flavor_crossover is None and plan is not None:
         flavor_crossover = plan.batched_flavor_crossover
-    if xb.dim() != 2:
-        raise NotImplementedError("batched vertex state with feature dims is not ported")
     B = xb.shape[0]
+    if xb.dim() > 2:
+        return _feature_lanes(g, frontier_masks, xb, monoid=monoid, map_fn=map_fn,
+                              edge_active=edge_active, mode=mode, dense_frac=dense_frac,
+                              chunk_blocks=chunk_blocks, auto_sparse=auto_sparse,
+                              map_lanes=map_lanes)
     common = dict(monoid=monoid, map_fn=map_fn, edge_active=edge_active)
 
     def dense_all():

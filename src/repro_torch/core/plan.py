@@ -14,9 +14,12 @@ own exception lists) is a valid backend over the global vertex space, on
 its mesh device (``repro_torch.core.mesh``).  The executor runs the local
 ``edgemap_reduce`` / ``edgemap_reduce_batched`` on every shard with the
 frontier and vertex state replicated, then combines the O(n) outputs by the
-monoid on ``mesh.devices[0]`` — never O(m) words, the PSAM small-memory
-bound as a communication bound (§5.2).  GraphFilter words partition like
-the blocks (``shard_edge_active``).
+monoid — never O(m) words, the PSAM small-memory bound as a communication
+bound (§5.2).  On a ``ShardMesh`` every shard lives in this process and the
+combine folds on ``mesh.devices[0]``; on a ``ProcessMesh`` this process
+holds one shard, runs one local sweep, and the combine is a set of
+``torch.distributed`` collectives (``_combine_process``).  GraphFilter
+words partition like the blocks (``shard_edge_active``).
 
 ``round_loop`` owns the frontier recurrence every traversal shares::
 
@@ -26,10 +29,10 @@ the blocks (``shard_edge_active``).
         state = epilogue(state, out, touched)
 
 as a Python loop on the host-read predicate, on every plan.  A sharded
-plan's ``pipeline_rounds`` is kept for parity with the JAX package, whose
-skewed schedule lets XLA overlap round r's combine with round r+1's local
-sweeps inside one program; run eagerly on the host the skew issues the same
-calls in the same order, so the flag runs the sequential loop.
+plan's ``pipeline_rounds`` is kept for parity with the JAX package and runs
+the same loop: round r+1's frontier and ``x`` come from round r's combined
+``out`` and ``touched``, so no schedule can start round r+1's sweep before
+round r's combine ends.
 
 Each round's edgeMap runs inside a ``sage.round`` span, each shard's local
 sweep inside ``sage.round.sweep`` and the combine inside
@@ -51,6 +54,7 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..device import kernel_route, resolve_device
@@ -60,7 +64,7 @@ from ..tuning.table import TuningTable, constants_decision, default_table
 from .compressed import CompressedCSR, exception_dense
 from .csr import CSRGraph, graph_spec, sharded_block_counts
 from .graph_filter import edge_active_words
-from .mesh import ShardMesh
+from .mesh import ProcessMesh, ShardMesh
 from .psam import is_overlay
 
 REDUCE_MODES = ("flat", "hierarchical")
@@ -74,13 +78,15 @@ class ShardedGraph:
     its mesh device; each describes one shard (``num_blocks`` is the
     per-shard block count; ``n``, ``m`` and ``degrees`` stay global).
     ``orig_num_blocks`` is the block count before the split, against which
-    filter words are validated exactly.  Made by
-    :meth:`ExecutionPlan.prepare`, run by the sharded executor.
+    filter words are validated exactly.  On a process mesh ``shards`` holds
+    this rank's shard alone, shard ``shard_index`` of ``num_shards``.  Made
+    by :meth:`ExecutionPlan.prepare`, run by the sharded executor.
     """
 
     shards: list
     num_shards: int
     orig_num_blocks: int | None = None
+    shard_index: int | None = None
 
     @property
     def n(self) -> int:
@@ -119,12 +125,14 @@ class ShardedEdgeActive:
     live-block compaction (``prepare(..., compact_live=True)``):
     int32[num_shards, blocks_per_shard] *original* block ids, padded with
     the pre-compaction block count — an audit trail, never read by the
-    executor.
+    executor.  On a process mesh ``words`` holds one row, shard
+    ``shard_index``'s.
     """
 
     words: torch.Tensor
     num_shards: int
     live_ids: torch.Tensor | None = None
+    shard_index: int | None = None
 
     @property
     def blocks_per_shard(self) -> int:
@@ -228,6 +236,18 @@ def shard_edge_active(
     )
 
 
+def _local_active(ea: ShardedEdgeActive, idx: int, device) -> ShardedEdgeActive:
+    """Shard ``idx``'s row of ``ea`` on ``device``: what one rank keeps."""
+    if ea.shard_index is not None:
+        if ea.shard_index != idx:
+            raise ValueError(f"edge_active holds shard {ea.shard_index}, this rank's is {idx}")
+        return ea
+    return ShardedEdgeActive(
+        words=ea.words[idx:idx + 1].to(device), num_shards=ea.num_shards,
+        live_ids=None if ea.live_ids is None else ea.live_ids[idx:idx + 1].to(device),
+        shard_index=idx)
+
+
 def _place(g, device):
     """``g`` with every tensor field on ``device`` (no copy where it is),
     nested graphs and tuples of tensors too (a ``DeltaGraph``'s ``base``
@@ -263,14 +283,17 @@ class ExecutionPlan:
     route       — 'cuda' (hand kernels) or 'torch' (plain versions), from the
                   graph's device; part of ``tuning_key`` so a cache keyed on
                   it never mixes the two routes
-    mesh        — a ``ShardMesh``, or None for single-device execution
+    mesh        — a ``ShardMesh`` (every shard in this process), a
+                  ``ProcessMesh`` (one shard a rank, the combine on
+                  ``torch.distributed``), or None for one device
     shard_axes  — mesh axes the edge blocks shard over (() → all axes)
     reduce_mode — the sum combine: 'flat' sums over every shard axis in
                   turn; 'hierarchical' sums along the fastest axis first,
                   then the slow ones (1-D or (B, n) outputs)
     state_dtype — a sum is cast to it before the combine (e.g. bfloat16)
     pipeline_rounds — the JAX package's skewed round schedule; kept for
-                  parity and in ``tuning_key``, the eager loop is the same
+                  parity and in ``tuning_key``; it runs the same loop (round
+                  r+1's sweep needs round r's combined output)
     decisions   — the TuningDecision behind the knobs (source 'measured' |
                   'constants', the crossover density, the table's host)
     """
@@ -329,6 +352,16 @@ class ExecutionPlan:
         return self.mesh.shard_devices(self.axes)
 
     @property
+    def is_process(self) -> bool:
+        """One shard a process, combined by collectives."""
+        return isinstance(self.mesh, ProcessMesh)
+
+    @property
+    def shard_index(self) -> int:
+        """The shard this rank holds (a process mesh only)."""
+        return self.mesh.shard_index(self.axes)
+
+    @property
     def is_sharded(self) -> bool:
         return self.mesh is not None
 
@@ -362,6 +395,11 @@ class ExecutionPlan:
         (:func:`compact_live_blocks`), *before* the split, and records each
         shard row's original block in ``ShardedEdgeActive.live_ids``; every
         edgeMap result under that filter is unchanged.
+
+        On a process mesh only this rank's shard (and filter row) is placed,
+        on the rank's device; start from ``g`` on the host (or a
+        ``load_compacted`` checkpoint there) so that the other shards' words
+        never reach it.
         """
         if compact_live:
             if edge_active is None:
@@ -381,7 +419,16 @@ class ExecutionPlan:
                     f"graph prepared for {g.num_shards} shards, plan has "
                     f"{self.num_shards}"
                 )
+            if self.is_process and g.shard_index != self.shard_index:
+                raise ValueError(
+                    f"graph holds shard {g.shard_index}, this rank's is {self.shard_index}"
+                )
             gs = g
+        elif self.is_process:
+            idx = self.shard_index
+            gs = ShardedGraph(shards=[_place(g.shard(self.num_shards)[idx], self.mesh.device)],
+                              num_shards=self.num_shards, orig_num_blocks=g.num_blocks,
+                              shard_index=idx)
         else:
             shards = [_place(s, d) for s, d in zip(g.shard(self.num_shards),
                                                    self.shard_devices)]
@@ -404,12 +451,16 @@ class ExecutionPlan:
                 live_ids, (0, per * self.num_shards - live_ids.shape[0]), value=orig_nb
             ).reshape(self.num_shards, per)
             edge_active = dataclasses.replace(edge_active, live_ids=lid)
+        if self.is_process:
+            edge_active = _local_active(edge_active, self.shard_index, self.mesh.device)
         return gs, edge_active
 
     def describe(self) -> str:
         if self.is_sharded:
             where = (f"mesh{tuple(self.mesh.axis_size(a) for a in self.axes)} "
                      f"reduce={self.reduce_mode}")
+            if self.is_process:
+                where += f" rank={self.mesh.rank} {self.mesh.backend}"
         else:
             where = "single-device"
         return (
@@ -471,12 +522,16 @@ def make_plan(
     mesh's first device, else from ``device`` (default ``cuda``) — never
     from a table.
 
-    ``mesh`` (a :class:`~repro_torch.core.mesh.ShardMesh`) makes the plan
-    sharded over ``shard_axes`` (default: every axis); ``reduce_mode`` and
-    ``state_dtype`` shape its combine (see :class:`ExecutionPlan`).
+    ``mesh`` (a :class:`~repro_torch.core.mesh.ShardMesh` or
+    :class:`~repro_torch.core.mesh.ProcessMesh`) makes the plan sharded
+    over ``shard_axes`` (default: every axis); ``reduce_mode`` and
+    ``state_dtype`` shape its combine (see :class:`ExecutionPlan`).  On a
+    process mesh the route comes from the rank's device unless ``g`` is
+    already prepared.
     """
-    if mesh is not None and not isinstance(mesh, ShardMesh):
-        raise TypeError(f"mesh must be a ShardMesh (core.mesh.make_mesh), got {mesh!r}")
+    if mesh is not None and not isinstance(mesh, (ShardMesh, ProcessMesh)):
+        raise TypeError("mesh must be a ShardMesh (core.mesh.make_mesh) or a ProcessMesh "
+                        f"(core.mesh.make_process_mesh), got {mesh!r}")
     if reduce_mode not in REDUCE_MODES:
         raise ValueError(f"reduce_mode must be one of {REDUCE_MODES}, got {reduce_mode!r}")
     if mesh is not None:
@@ -493,7 +548,9 @@ def make_plan(
         # the decision falls back to the constants; the recorded backend
         # keeps cost models honest about what ran
         backend = "delta"
-    if g is not None:
+    if isinstance(mesh, ProcessMesh) and not isinstance(g, ShardedGraph):
+        where = mesh.device   # prepare places the rank's shard there
+    elif g is not None:
         where = g.device
     elif mesh is not None and device is None:
         where = mesh.devices[0]
@@ -587,10 +644,94 @@ def _combine_shards(plan: ExecutionPlan, parts: list, monoid: str, out_dtype):
     ``sum`` folds along every shard axis in turn (``flat``) or along the
     fastest axis first, then the slow ones (``hierarchical``, 1-D or (B, n)
     outputs only), in ``state_dtype`` when the plan sets one; ``min`` /
-    ``max`` fold exactly; ``or`` and ``touched`` are a count > 0.  Runs in
-    a ``sage.shard_combine`` span."""
+    ``max`` fold exactly; ``or`` and ``touched`` are a count > 0.  On a
+    process mesh ``parts`` is this rank's one pair and the same combine runs
+    as collectives (``_combine_process``).  Runs in a ``sage.shard_combine``
+    span."""
     with record_function("sage.shard_combine"):
+        if plan.is_process:
+            (out, touched), = parts
+            return _combine_process(plan, out, touched, monoid, out_dtype)
         return _combine_shards_body(plan, parts, monoid, out_dtype)
+
+
+def _collective(name):
+    """``torch.distributed``'s single-tensor collective, by its current name
+    where this torch has it (``reduce_scatter_single``), else the older one."""
+    new = {"reduce_scatter": "reduce_scatter_single", "all_gather": "all_gather_single"}
+    old = {"reduce_scatter": "reduce_scatter_tensor", "all_gather": "all_gather_into_tensor"}
+    return getattr(dist, new[name], None) or getattr(dist, old[name])
+
+
+def _all_reduce_axes(plan: ExecutionPlan, pairs: list, axes=None) -> None:
+    """All-reduce each ``(tensor, op)`` of ``pairs`` in place over each of
+    ``axes`` (default: the plan's shard axes) in turn, as JAX's combine runs
+    ``psum`` / ``pmin`` / ``pmax`` over each axis; the tensors of one axis
+    are issued together and waited on together."""
+    for ax in plan.axes if axes is None else axes:
+        grp = plan.mesh.axis_groups[ax]
+        works = [dist.all_reduce(t, op=op, group=grp, async_op=True) for t, op in pairs]
+        for w in works:
+            w.wait()
+
+
+def _hierarchical_sum(plan: ExecutionPlan, out: torch.Tensor) -> torch.Tensor:
+    """The sum as a reduce-scatter over the fastest shard axis (the vertex
+    dim padded to its size), an all-reduce of the scattered part over the
+    slow axes, and an all-gather back over the fast one: JAX's
+    ``psum_scatter`` / ``psum`` / ``all_gather`` (1-D or (B, n))."""
+    n = out.shape[-1]
+    fast = plan.axes[-1]
+    k = plan.mesh.axis_size(fast)
+    grp = plan.mesh.axis_groups[fast]
+    rows = out.reshape(-1, n).T                               # (n, B): vertices first
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, (-n) % k)).contiguous()
+    part = torch.empty((rows.shape[0] // k,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                       device=rows.device)
+    _collective("reduce_scatter")(part, rows, op=dist.ReduceOp.SUM, group=grp)
+    _all_reduce_axes(plan, [(part, dist.ReduceOp.SUM)], plan.axes[:-1])
+    _collective("all_gather")(rows, part, group=grp)
+    return rows[:n].T.reshape(out.shape)
+
+
+def _combine_process(plan: ExecutionPlan, out, touched, monoid: str, out_dtype):
+    """The combine of one rank's ``(out, touched)`` by collectives over the
+    plan's shard axes, in place of the in-process fold: ``sum`` an
+    all-reduce (``flat``) or ``_hierarchical_sum``, cast to ``state_dtype``
+    first; ``min`` / ``max`` an all-reduce MIN / MAX; ``or`` and
+    ``touched`` an int32 sum > 0.  ``out`` and ``touched`` go out together
+    and both are waited on before the epilogue.  Every rank reaches here in
+    the same order (the decisions before it read replicated state only).  A
+    backend that refuses a dtype or a device raises; nothing is staged round
+    it here (gloo itself stages CUDA tensors through the host)."""
+    SUM = dist.ReduceOp.SUM
+    hits = touched.to(torch.int32).contiguous()
+    if monoid == "sum":
+        if plan.state_dtype is not None:
+            out = out.to(plan.state_dtype)
+        if plan.reduce_mode == "hierarchical" and len(plan.axes) > 1:
+            if out.dim() > 2:
+                raise NotImplementedError("hierarchical reduce: 1-D or (B, n) only")
+            grp = plan.mesh.axis_groups[plan.axes[0]]
+            first = dist.all_reduce(hits, op=SUM, group=grp, async_op=True)
+            out = _hierarchical_sum(plan, out)
+            first.wait()
+            _all_reduce_axes(plan, [(hits, SUM)], plan.axes[1:])
+            return out.to(out_dtype), hits > 0
+        op = SUM
+    elif monoid == "min":
+        op = dist.ReduceOp.MIN
+    elif monoid == "max":
+        op = dist.ReduceOp.MAX
+    elif monoid == "or":
+        out, op = out.to(torch.int32), SUM
+    else:
+        raise ValueError(monoid)
+    out = out.contiguous()
+    _all_reduce_axes(plan, [(out, op), (hits, SUM)])
+    if monoid == "or":
+        return out > 0, hits > 0
+    return out.to(out_dtype), hits > 0
 
 
 def _combine_shards_body(plan: ExecutionPlan, parts: list, monoid: str, out_dtype):
@@ -621,7 +762,7 @@ def _combine_shards_body(plan: ExecutionPlan, parts: list, monoid: str, out_dtyp
 
 
 def _shard_active(plan: ExecutionPlan, g: ShardedGraph, edge_active):
-    """The filter words of each shard, or None."""
+    """The filter words of each shard in this process, or None."""
     if edge_active is None:
         return None
     if isinstance(edge_active, ShardedEdgeActive):
@@ -630,14 +771,17 @@ def _shard_active(plan: ExecutionPlan, g: ShardedGraph, edge_active):
                 f"edge_active prepared for {edge_active.num_shards} "
                 f"shards, plan has {plan.num_shards}"
             )
-        return edge_active
-    return shard_edge_active(
-        edge_active,
-        block_size=g.block_size,
-        blocks_per_shard=g.blocks_per_shard,
-        num_shards=plan.num_shards,
-        num_blocks=g.orig_num_blocks,
-    )
+    else:
+        edge_active = shard_edge_active(
+            edge_active,
+            block_size=g.block_size,
+            blocks_per_shard=g.blocks_per_shard,
+            num_shards=plan.num_shards,
+            num_blocks=g.orig_num_blocks,
+        )
+    if plan.is_process:
+        return _local_active(edge_active, plan.shard_index, plan.mesh.device)
+    return edge_active
 
 
 def _local_sweeps(g: ShardedGraph, frontier, x, active, local, kwargs, map_lanes=None):
@@ -838,9 +982,12 @@ def round_loop(
 
     Every plan runs the recurrence as written, one ``edgemap_reduce`` (or
     the batched one) a round; a sharded plan's call runs the local sweeps
-    and their combine.  ``plan.pipeline_rounds`` changes nothing here: the
-    skew only pays where a compiler or an async collective can overlap the
-    combine with the next sweeps, and the eager loop has neither.  Each
+    and their combine (collectives on a process mesh, where every rank runs
+    this loop in step: ``cond_fn`` reads replicated state).
+    ``plan.pipeline_rounds`` runs the same loop and changes no result:
+    round r+1's sweep reads round r's combined ``out`` and ``touched``, so
+    the only overlap the data allows is issuing a round's ``out`` and
+    ``touched`` all-reduces together, which every process plan does.  Each
     round's edgeMap runs in a ``sage.round`` span; a live registry times the
     call (``_eager_round_loop_observer``, path ``"sequential"``).
     """

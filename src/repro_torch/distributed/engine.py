@@ -1,8 +1,10 @@
 """Edge-partitioned graph engine — thin planner specializations.
 
 The immutable edge blocks are *sharded* as contiguous ranges over a
-``ShardMesh``; the O(n) vertex state is *replicated* and combined once per
-edgeMap round.  Cross-shard traffic per round is O(n) words — never O(m) —
+``ShardMesh`` (every shard in this process) or a ``ProcessMesh`` (one shard
+a rank, ``make_process_mesh``: the JAX package's ``shard_map``); the O(n)
+vertex state is *replicated* and combined once per edgeMap round, on a
+process mesh by ``torch.distributed`` collectives.  Cross-shard traffic per round is O(n) words — never O(m) —
 the PSAM small-memory bound expressed as a communication bound.
 
 This module owns no edge-iteration body: every function builds an
@@ -30,7 +32,8 @@ def _sharded_plan(mesh, **knobs) -> ExecutionPlan:
 
 
 def prepare_sharded(mesh, g, *, shard_axes: tuple = ()):
-    """Shard and place ``g`` (``CSRGraph`` | ``CompressedCSR``) on ``mesh``."""
+    """Shard and place ``g`` (``CSRGraph`` | ``CompressedCSR``) on ``mesh``;
+    on a process mesh, this rank's shard alone, on its device."""
     return make_plan(g, mesh=mesh, shard_axes=shard_axes, tuning=None).prepare(g)
 
 

@@ -74,6 +74,26 @@ def param_shapes(cfg: SASRecConfig) -> dict:
     }
 
 
+def param_specs(cfg: SASRecConfig) -> dict:
+    """The logical axes of every parameter (the JAX package's
+    ``param_specs``): the item table's rows over ``vocab_rows``."""
+    def block_spec():
+        return {
+            "ln1_s": (None,), "ln1_b": (None,),
+            "wq": (None, None), "wk": (None, None), "wv": (None, None), "wo": (None, None),
+            "ln2_s": (None,), "ln2_b": (None,),
+            "w1": (None, None), "b1": (None,),
+            "w2": (None, None), "b2": (None,),
+        }
+
+    return {
+        "item_emb": ("vocab_rows", "embed"),
+        "pos_emb": (None, None),
+        "final_ln_s": (None,), "final_ln_b": (None,),
+        "blocks": [block_spec() for _ in range(cfg.n_blocks)],
+    }
+
+
 def init(cfg: SASRecConfig, *, generator: torch.Generator, device=None) -> dict:
     """Random float32 parameters drawn from ``generator`` (which must live
     on ``device``, default ``cuda``).  A torch generator does not give a JAX

@@ -313,12 +313,12 @@ def test_configs_match_jax():
     assert dataclasses.asdict(config.smoke_config()) == dataclasses.asdict(
         jconfig.smoke_config())
     assert (config.VOCAB, config.N_CAND) == (jconfig.VOCAB, jconfig.N_CAND)
-    cells = jconfig.cells()
-    for name, shape in config.SHAPES.items():
-        assert cells[name].kind == shape["kind"]
-        assert cells[name].batch_specs["seq"].shape[0] == shape["batch"]
-        if "n_candidates" in shape:
-            assert cells[name].batch_specs["candidates"].shape == (1, shape["n_candidates"])
+    cells, mine = jconfig.cells(), config.cells()
+    assert list(mine) == list(cells)
+    for name, cell in mine.items():
+        assert cells[name].kind == cell.kind
+        assert {k: s.shape for k, s in cell.batch_specs.items()} == {
+            k: s.shape for k, s in cells[name].batch_specs.items()}
 
 
 def test_smoke_batch_matches_jax():

@@ -21,8 +21,10 @@ def to_np(t):
     return np.asarray(t)
 
 
-def port_graph(g):
-    """The port's copy (on the CPU) of a JAX ``CSRGraph`` / ``CompressedCSR``."""
+def reference_arrays(g):
+    """``(kind, arrays, meta)`` of a JAX ``CSRGraph`` / ``CompressedCSR``:
+    what ``from_reference_arrays`` takes, as numpy (picklable: a spawned
+    process can carry it)."""
     kind = "compressed" if hasattr(g, "deltas") else "csr"
     arrays, meta = {}, {}
     for f in dataclasses.fields(g):
@@ -31,7 +33,12 @@ def port_graph(g):
             meta[f.name] = v
         else:
             arrays[f.name] = None if v is None else np.asarray(v)
-    return from_reference_arrays(kind, arrays, meta, CPU)
+    return kind, arrays, meta
+
+
+def port_graph(g):
+    """The port's copy (on the CPU) of a JAX ``CSRGraph`` / ``CompressedCSR``."""
+    return from_reference_arrays(*reference_arrays(g), CPU)
 
 
 def words_u32(t):
