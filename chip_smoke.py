@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train-only   # phase 17 alone (kernel 5', training)
     python3 chip_smoke.py --dist-only    # phase 14(g) alone (two ranks on the card, gloo)
     python3 chip_smoke.py --gnn-only     # phase 18 alone (the GNN family trained)
+    python3 chip_smoke.py --shard-train-only  # phase 20 alone (sharded training, two ranks)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version on the
@@ -5577,6 +5578,411 @@ def drive_registry(dev):
         f"time; shapes, dtypes and id ranges checked; the largest batch {peak} B")
 
 
+# ----------------------------------------------------------------------
+# phase 20: sharded training on a process mesh (two gloo ranks on the card)
+# ----------------------------------------------------------------------
+SHARD_DIR = ROOT / "build" / "phase20"
+SHARD_LIMIT_S = 300       # the ranks' limit, start included: a rank still running is killed
+SHARD_SAS = (4, 2, 3)     # SASRec train_batch: steps, ckpt_every and fail_at of (c)
+SHARD_LM = (2, 4, 1024, 3)   # qwen2-1.5B: layers, global batch, seq, steps
+# (b): float32 parameters after 4 steps, (2, 1) against one device, held as
+# tests/test_torch_trainer.py holds the port to JAX: the gradients are summed in
+# another order, and AdamW's step m / (sqrt(v) + eps) is ~ +-1 wherever |g| >> eps,
+# so an element whose gradient is near 0 may move by up to lr x lr_scale a step in
+# opposite ways on the two runs.  Every element within 2 lr sum(lr_scale) + rtol
+# SHARD_RTOL, all but SHARD_FLIP_SHARE of them within SHARD_RTOL (+ 1e-7).
+SHARD_RTOL = 1e-5
+SHARD_FLIP_SHARE = 0.01
+SHARD_LOSS_RTOL = 1e-5    # (b): SASRec's losses: the sums in another order
+SHARD_LM_RTOL = 1e-3      # (d): qwen2's bf16 losses, (2, 1) against one device: bf16
+#                           products at other row counts, float32 gradient sums for bf16 ones
+SHARD_PSUM = 1 << 20      # (e): float32 elements a rank of compressed_psum
+
+
+def shard_rank(rank, world, device, ref_losses):
+    """One rank of phase 20; results to ``rank<r>.pt``, an exception to
+    ``rank<r>.err`` (and exit code 1)."""
+    import traceback
+
+    try:
+        import torch
+
+        torch.save(_shard_rank(rank, world, device, ref_losses), SHARD_DIR / f"rank{rank}.pt")
+    except BaseException:
+        (SHARD_DIR / f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)
+
+
+def _timed(fn, spent, sync):
+    """``fn`` whose every call's seconds (synchronised on both sides) are
+    appended to ``spent``."""
+    def wrapped(*a, **kw):
+        sync()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    return wrapped
+
+
+def step_bytes(layout) -> dict:
+    """The bytes a rank sends a sharded step, reckoned from the shapes: the
+    gather of a leaf split in K parts sends (K - 1) blocks (a ring over each
+    axis); the gradient all-reduce over D ranks 2 (D - 1) / D of the float32
+    gradient (a ring)."""
+    import math as m
+
+    from repro_torch.distributed.shardings import block_shape, spec_leaves
+
+    gather = reduce = 0
+    D = layout.data_parallel
+    for _, shape, spec in spec_leaves(layout.shapes, layout.params):
+        size = shape.dtype.itemsize
+        full = m.prod(shape.shape)
+        block = m.prod(block_shape(shape.shape, spec, layout.mesh))
+        gather += (full // block - 1) * block * size
+        reduce += 2 * (D - 1) * full * 4 // D
+    return {"gather": gather, "reduce": reduce}
+
+
+def _shard_rank(rank, world, device, ref_losses):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.core import make_process_mesh
+    from repro_torch.data import make_lm_batch_fn, make_sasrec_batch_fn
+    from repro_torch.distributed import LM_RULES, RECSYS_RULES, elastic_restore, shard_tree
+    from repro_torch.kernels import (
+        embedding_bag_backward,
+        embedding_bag_plan,
+        embedding_bag_sums,
+        same_bits,
+    )
+    from repro_torch.launch import TrainConfig, Trainer
+    from repro_torch.models import sasrec
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.optim import (
+        compressed_psum,
+        state_logical_specs,
+        tree_leaves,
+        tree_map,
+        warmup_cosine,
+    )
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{SHARD_DIR / 'init'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    meshes = {"(1, 2)": make_process_mesh((1, 2), ("data", "model"), device=dev),
+              "(2, 1)": make_process_mesh((2, 1), ("data", "model"), device=dev)}
+    sync = torch.cuda.synchronize
+    gathers, reduces = [], []
+    real_gather, real_reduce = steps_mod.gather_tree, steps_mod.reduce_gradients
+    steps_mod.gather_tree = _timed(real_gather, gathers, sync)
+    steps_mod.reduce_gradients = _timed(real_reduce, reduces, sync)
+    kernels = (embedding_bag_sums, embedding_bag_backward, embedding_bag_plan)
+    out = {"rank": rank, "runs": {}}
+    ref = torch.load(SHARD_DIR / "sasrec_ref.pt", mmap=True, weights_only=False)
+    ref_dev = tree_map(lambda t: t.to(dev), {"params": ref["params"], "opt": ref["opt"]})
+
+    def same_tree(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(same_bits(x, y) if x.is_floating_point()
+                                          else torch.equal(x, y) for x, y in zip(la, lb))
+
+    def held(a, b, lr_sum):
+        """(worst share of the flip bound, elements past rtol, elements, max abs
+        difference) of ``a`` against ``b``."""
+        worst, far, total, big = 0.0, 0, 0, 0.0
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            d, w = (x.float() - y.float()).abs(), y.float().abs()
+            worst = max(worst, float((d / (2 * lr * lr_sum + SHARD_RTOL * w)).max()))
+            far += int((d > SHARD_RTOL * w + 1e-7).sum())
+            total += d.numel()
+            big = max(big, float(d.max()))
+        return worst, far, total, big
+
+    def run(tag, trainer, make, **kw):
+        """A fit with its timings, launches and peak memory."""
+        gathers.clear()
+        reduces.clear()
+        for k in kernels:
+            k.launches = 0
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p, o, hist = trainer.fit(make, **kw)
+        sync()
+        every = trainer.cfg.ckpt_every if kw.get("ckpt_dir") else None
+        timed = [i for i, h in enumerate(hist)
+                 if i > 0 and (every is None or h["step"] % every)]
+        n = len(hist)
+
+        def med(xs):  # one call a step: the median over the timed steps, in ms
+            return statistics.median(xs[i] for i in timed) * 1e3 if xs and timed else 0.0
+
+        out["runs"][tag] = {
+            "losses": [h["loss"] for h in hist], "steps": [h["step"] for h in hist],
+            "ms": med([h["sec_per_step"] for h in hist]) if timed else None,
+            "each_ms": [h["sec_per_step"] * 1e3 for h in hist],
+            "gather_ms": med(gathers), "reduce_ms": med(reduces),
+            "calls": (len(gathers), len(reduces)),
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": [k.launches for k in kernels], "n_steps": n,
+            "bytes": step_bytes(trainer.layout),
+        }
+        return p, o
+
+    # (a) and (b): SASRec's train_batch on (1, 2) and on (2, 1)
+    steps, every, fail_at = SHARD_SAS
+    cell = get_arch("sasrec").cells()["train_batch"]
+    cfg, users = cell.model_cfg, cell.batch_specs["seq"].shape[0]
+    make = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)
+    gen = lambda: torch.Generator(dev).manual_seed(SEED)  # noqa: E731
+    tc = dict(steps=steps, log_every=1)
+    tcfg = TrainConfig(**tc)
+    lr = tcfg.adamw.lr
+    lr_sum = sum(float(warmup_cosine(torch.tensor(i), warmup=tcfg.warmup, total=steps))
+                 for i in range(steps))
+    for tag in ("(1, 2)", "(2, 1)"):
+        tr = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tc), mesh=meshes[tag],
+                     rules=RECSYS_RULES)
+        p, o = run(f"sasrec {tag}", tr, make, generator=gen())
+        r = out["runs"][f"sasrec {tag}"]
+        r["bits"] = same_tree(p, ref_dev["params"]) and same_tree(o, ref_dev["opt"])
+        r["held"] = held(p, ref_dev["params"], lr_sum)
+        r["block_rows"] = tuple(tr.init_state(gen())[0]["item_emb"].shape)
+        if tag == "(2, 1)":
+            clean = (p, o)
+        del p, o
+    # (c): a failure at step 3 with a checkpoint every 2 on (2, 1), resumed
+    ckpt = SHARD_DIR / "ckpt"
+    tcc = dict(tc, ckpt_every=every)
+    failing = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tcc, fail_at_step=fail_at),
+                      mesh=meshes["(2, 1)"], rules=RECSYS_RULES)
+    try:
+        failing.fit(make, generator=gen(), ckpt_dir=str(ckpt))
+        out["crash"] = "did not raise"
+    except RuntimeError as exc:
+        out["crash"] = str(exc)
+    resumer = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tcc), mesh=meshes["(2, 1)"],
+                      rules=RECSYS_RULES)
+    p, o = run("sasrec (2, 1) resumed", resumer, make, generator=gen(), ckpt_dir=str(ckpt))
+    out["resumed_bits"] = same_tree(p, clean[0]) and same_tree(o, clean[1])
+    out["resumed_losses"] = (out["runs"]["sasrec (2, 1) resumed"]["losses"]
+                             == out["runs"]["sasrec (2, 1)"]["losses"][every:])
+    # elastic: that checkpoint (step 4) as blocks on (1, 2), then one more step
+    lay = Trainer(sasrec, cfg, mesh=meshes["(1, 2)"], rules=RECSYS_RULES).layout
+    example = lay.meta_state()
+    logical = {"params": sasrec.param_specs(cfg),
+               "opt": state_logical_specs(sasrec.param_specs(cfg))}
+    t = time.perf_counter()
+    blocks, step = elastic_restore(str(ckpt), example, logical, RECSYS_RULES, meshes["(1, 2)"])
+    out["elastic_s"] = time.perf_counter() - t
+    want = shard_tree({"params": p, "opt": o}, {"params": lay.params, "opt": lay.opt},
+                      meshes["(1, 2)"])
+    out["elastic"] = {"step": step, "bits": same_tree(blocks, want),
+                      "rows": tuple(blocks["params"]["item_emb"].shape)}
+    del p, o, clean, want, ref_dev
+    tr12 = Trainer(sasrec, cfg, train_cfg=TrainConfig(**tc), mesh=meshes["(1, 2)"],
+                   rules=RECSYS_RULES)
+    _, _, m = tr12.train_step(blocks["params"], blocks["opt"], make(steps))
+    out["elastic"]["loss"] = float(m["loss"])
+    del blocks
+    torch.cuda.empty_cache()
+    # (d): qwen2-1.5B at full width, 2 layers, bf16, on (2, 1) under LM_RULES
+    layers, gb, seq, lm_steps = SHARD_LM
+    full = get_arch("qwen2-1.5b").cells()["train_4k"].model_cfg
+    lcfg = dataclasses.replace(full, n_layers=layers)
+    tr = Trainer(lm, lcfg, train_cfg=TrainConfig(steps=lm_steps, warmup=1, log_every=1),
+                 mesh=meshes["(2, 1)"], rules=LM_RULES)
+    p, _ = run("qwen2 (2, 1)", tr, make_lm_batch_fn(lcfg.vocab, gb, seq, device=dev),
+               generator=torch.Generator(dev).manual_seed(SEED + 20))
+    out["runs"]["qwen2 (2, 1)"]["ref_losses"] = ref_losses
+    out["runs"]["qwen2 (2, 1)"]["dtype"] = str(tree_leaves(p)[0].dtype)
+    del p
+    torch.cuda.empty_cache()
+    # (e): compressed_psum of CUDA tensors over the two ranks
+    xs = torch.randn(world, SHARD_PSUM, generator=torch.Generator().manual_seed(SEED + 21))
+    flat = make_process_mesh((world,), ("pod",), device=dev)
+    got = compressed_psum(xs[rank].to(dev), "pod", flat)
+    out["psum"] = got.cpu()
+    steps_mod.gather_tree, steps_mod.reduce_gradients = real_gather, real_reduce
+    dist.destroy_process_group()
+    return out
+
+
+def psum_formula(xs):
+    """``compressed_psum``'s arithmetic over the rows of ``xs`` in one
+    process on the CPU: the scale's max, int8 rounding half to even, an
+    int32 sum, the mean."""
+    import torch
+
+    scale = max(torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0 for x in xs)
+    total = sum(torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8).to(torch.int32)
+                for x in xs)
+    return total.float() * scale / torch.tensor(float(len(xs)))
+
+
+def log_shard_run(tag, r, one_ms, rank):
+    b = r["bytes"]
+    ms = r["ms"]
+    log(f"[20] {tag} rank {rank}: {ms:.3f} ms a step (median of the steps after the first "
+        f"that write no checkpoint; each {', '.join(f'{x:.1f}' for x in r['each_ms'])}), the "
+        f"one-device step {one_ms:.3f} ms; the gather {r['gather_ms']:.3f} ms a step = "
+        f"{r['gather_ms'] / ms:.3f}, the gradient all-reduce {r['reduce_ms']:.3f} ms = "
+        f"{r['reduce_ms'] / ms:.3f} (each side synchronised; gloo on CUDA tensors, not an "
+        f"NCCL number); sent a step {b['gather'] + b['reduce']} B (gather {b['gather']}, "
+        f"all-reduce {b['reduce']}); peak device memory {r['peak']} B; kernel 5 / 5' / its "
+        f"preparation launches {r['launches']} in {r['n_steps']} steps")
+
+
+def drive_sharded_train(dev) -> list:
+    """Phase 20: two gloo ranks on the one card train SASRec's train_batch
+    on (1, 2) and (2, 1) ``("data", "model")`` meshes under ``RECSYS_RULES``,
+    restart and elastically restore it, train qwen2-1.5B cut to 2 layers on
+    (2, 1) under ``LM_RULES``, and run ``compressed_psum`` on CUDA tensors;
+    held to this process's one-device runs.  Returns the ranks' launches of
+    kernel 5, 5' and its preparation on the path."""
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_lm_batch_fn, make_sasrec_batch_fn
+    from repro_torch.launch import TrainConfig, Trainer
+    from repro_torch.models import sasrec
+    from repro_torch.models import transformer_lm as lm
+
+    t_all = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    # the one-device references, first, so that the ranks run alone on the card
+    steps, every, fail_at = SHARD_SAS
+    cell = get_arch("sasrec").cells()["train_batch"]
+    cfg, users = cell.model_cfg, cell.batch_specs["seq"].shape[0]
+    make = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)
+    p, o, hist = Trainer(sasrec, cfg, train_cfg=TrainConfig(steps=steps, log_every=1),
+                         device=dev).fit(make, generator=torch.Generator(dev).manual_seed(SEED))
+    sas_ms = statistics.median(h["sec_per_step"] for h in hist[1:]) * 1e3
+    sas_losses = [h["loss"] for h in hist]
+    torch.save({"params": sasrec.params_to(p, "cpu"),
+                "opt": {k: (v.cpu() if k == "step" else sasrec.params_to(v, "cpu"))
+                        for k, v in o.items()}}, SHARD_DIR / "sasrec_ref.pt")
+    del p, o
+    layers, gb, seq, lm_steps = SHARD_LM
+    full = get_arch("qwen2-1.5b").cells()["train_4k"].model_cfg
+    lcfg = dataclasses.replace(full, n_layers=layers)
+    _, _, lhist = Trainer(lm, lcfg, train_cfg=TrainConfig(steps=lm_steps, warmup=1, log_every=1),
+                          device=dev).fit(make_lm_batch_fn(lcfg.vocab, gb, seq, device=dev),
+                                          generator=torch.Generator(dev).manual_seed(SEED + 20))
+    lm_ms = statistics.median(h["sec_per_step"] for h in lhist[1:]) * 1e3
+    lm_losses = [h["loss"] for h in lhist]
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_all
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, 2, str(dev), lm_losses)) for r in range(2)]
+    for p_ in procs:
+        p_.start()
+    deadline = time.monotonic() + SHARD_LIMIT_S
+    try:
+        for p_ in procs:
+            p_.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p_ in enumerate(procs) if p_.is_alive()]
+    finally:
+        for p_ in procs:
+            if p_.is_alive():
+                p_.kill()
+                p_.join(10)
+    for r in range(2):
+        err = SHARD_DIR / f"rank{r}.err"
+        check(not err.exists(), f"phase 20 rank {r} failed:\n"
+              + (err.read_text() if err.exists() else ""))
+    check(not hung, f"phase 20: ranks {hung} still running after {SHARD_LIMIT_S} s, killed")
+    check(all(p_.exitcode == 0 for p_ in procs),
+          f"phase 20 exit codes {[p_.exitcode for p_ in procs]}")
+    res = [torch.load(SHARD_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    xs = torch.randn(2, SHARD_PSUM, generator=torch.Generator().manual_seed(SEED + 21))
+    want_psum = psum_formula(list(xs))
+    log(f"[20] from the registry: sasrec/train_batch, {users} users x {cfg.seq_len}, "
+        f"{cfg.vocab} items (no cut), {steps} steps; qwen2-1.5b/train_4k cut to {layers} of "
+        f"{full.n_layers} layers and a global batch of {gb} x {seq} (the cell's 256 x 4096), "
+        f"{lm_steps} steps, {lcfg.dtype}; two gloo ranks on {CARD}; one-device references "
+        f"{t_ref:.1f} s")
+    launches = [0, 0, 0]
+    reckon = first_loss_reckoned(lcfg)
+    for r, rr in enumerate(res):
+        runs = rr["runs"]
+        a, b = runs["sasrec (1, 2)"], runs["sasrec (2, 1)"]
+        check(a["bits"] and a["losses"] == sas_losses,
+              f"phase 20(a) rank {r}: (1, 2) differs from the one-device Trainer")
+        check(a["block_rows"] == (cfg.vocab // 2, cfg.embed_dim) and b["block_rows"] == (
+            cfg.vocab, cfg.embed_dim), f"phase 20 rank {r}: item_emb blocks {a['block_rows']}, "
+              f"{b['block_rows']}")
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], sas_losses))
+        worst, far, total, big = b["held"]
+        check(worst <= 1.0 and far <= SHARD_FLIP_SHARE * total and loss_rel <= SHARD_LOSS_RTOL,
+              f"phase 20(b) rank {r}: parameters at {worst} of their bound from one device, "
+              f"{far} of {total} past rtol {SHARD_RTOL}; losses {loss_rel} (at most "
+              f"{SHARD_LOSS_RTOL})")
+        check(b["launches"][:2] == [3 * steps, 3 * steps] and a["launches"][:2] == [
+            3 * steps, 3 * steps], f"phase 20 rank {r}: kernel 5 / 5' launches (1, 2) "
+              f"{a['launches']}, (2, 1) {b['launches']}, not 3 a step")
+        check(rr["crash"] == f"injected failure at step {fail_at}" and rr["resumed_bits"]
+              and rr["resumed_losses"], f"phase 20(c) rank {r}: the resumed run differs from "
+              f"the clean (2, 1) run ({rr['crash']!r})")
+        el = rr["elastic"]
+        check(el["step"] == steps and el["bits"] and el["rows"] == (cfg.vocab // 2, cfg.embed_dim)
+              and math.isfinite(el["loss"]), f"phase 20(c) rank {r}: elastic restore {el}")
+        q = runs["qwen2 (2, 1)"]
+        q_rel = max(abs(x - y) / abs(y) for x, y in zip(q["losses"], lm_losses))
+        check(abs(q["losses"][0] - reckon) <= FIRST_LOSS_TOL and q_rel <= SHARD_LM_RTOL
+              and q["dtype"] == "torch.bfloat16",
+              f"phase 20(d) rank {r}: losses {q['losses']} against one device {lm_losses} "
+              f"(at most {SHARD_LM_RTOL} relative; the first {reckon} +- {FIRST_LOSS_TOL})")
+        psum_bits = torch.equal(rr["psum"].view(torch.int32), want_psum.view(torch.int32))
+        check(psum_bits, f"phase 20(e) rank {r}: compressed_psum differs from the formula, max "
+              f"{float((rr['psum'] - want_psum).abs().max())}")
+        for tag, one_ms in (("sasrec (1, 2)", sas_ms), ("sasrec (2, 1)", sas_ms),
+                            ("sasrec (2, 1) resumed", sas_ms), ("qwen2 (2, 1)", lm_ms)):
+            n, dp = runs[tag]["n_steps"], "(2, 1)" in tag
+            check(runs[tag]["calls"] == (n, n if dp else 0),
+                  f"phase 20 rank {r} {tag}: (gathers, gradient all-reduces) "
+                  f"{runs[tag]['calls']} in {n} steps")
+            if runs[tag]["ms"] is not None:
+                log_shard_run(tag, runs[tag], one_ms, r)
+        log(f"[20] rank {r}: (b) parameters against one device: max abs difference {big!r}, "
+            f"{worst:.4f} of the bound 2 lr sum(lr_scale) + rtol {SHARD_RTOL}, {far} of {total} "
+            f"elements past rtol {SHARD_RTOL} (at most {SHARD_FLIP_SHARE} of them); losses "
+            f"{loss_rel!r} relative ({SHARD_LOSS_RTOL}); "
+            f"(c) elastic restore of step {el['step']} onto (1, 2) {rr['elastic_s']:.2f} s, "
+            f"one more step's loss {el['loss']:.6f}; (d) losses {q['losses']} against one "
+            f"device {lm_losses}: at most {q_rel!r} relative (tolerance {SHARD_LM_RTOL}), the "
+            f"first {q['losses'][0] - reckon:+.4f} from ln V + sigma^2 / 2 = {reckon:.4f}")
+        for tag in ("sasrec (1, 2)", "sasrec (2, 1)", "sasrec (2, 1) resumed"):
+            for i in range(3):
+                launches[i] += runs[tag]["launches"][i]
+    log(f"[20] two ranks on {CARD}, gloo: (a) SASRec on (1, 2) bit for bit the one-device "
+        f"Trainer ({sas_losses}); (b) on (2, 1) within tolerance; (c) a failure at step "
+        f"{fail_at} resumed from step {every} bit for bit the clean (2, 1) run, its step-{steps} "
+        f"checkpoint restored onto (1, 2) bit for bit; (d) qwen2 {layers} layers on (2, 1); (e) "
+        f"compressed_psum of {SHARD_PSUM} float32 a rank on the card bit for bit the formula on "
+        f"the CPU; kernel 5 / 5' / preparation launches on the ranks {launches}; one-device "
+        f"steps: SASRec {sas_ms:.3f} ms, qwen2 {lm_ms:.3f} ms; phase wall "
+        f"{time.perf_counter() - t_all:.1f} s (spawn included)")
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     only = ap.add_mutually_exclusive_group()
@@ -5596,6 +6002,9 @@ def main(argv=None) -> int:
     only.add_argument("--dist-only", action="store_true",
                       help="build the kernels and graphs B and E and run phase 14(g) alone (two "
                            "ranks on the card, one shard each, the combine on gloo)")
+    only.add_argument("--shard-train-only", action="store_true",
+                      help="build the kernels and run phase 20 alone (two ranks on the card "
+                           "train SASRec and qwen2-1.5B on process meshes, gloo)")
     only.add_argument("--gnn-only", action="store_true",
                       help="build the kernels and run phase 18 alone (the GNN family trained "
                            "on the card; no hand kernel lies on its path)")
@@ -5661,6 +6070,11 @@ def main(argv=None) -> int:
         drive_process_mesh(dev, B_, E_, sources(B_.dev, 2, SEED + 1))
         kernels = []  # its launch counts are the ranks'; the full run lists every kernel
         log(f"wall seconds: process mesh {time.perf_counter() - t0:.1f}")
+    elif args.shard_train_only:
+        t0 = time.perf_counter()
+        drive_sharded_train(dev)
+        kernels = []  # its launch counts are the ranks'; the full run lists every kernel
+        log(f"wall seconds: sharded training {time.perf_counter() - t0:.1f}")
     elif args.gnn_only:
         t0 = time.perf_counter()
         drive_gnn(dev)
@@ -5682,6 +6096,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         drive_registry(dev)              # 19. the cell registry
         log(f"wall seconds: registry {time.perf_counter() - t0:.1f}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        shard = drive_sharded_train(dev)  # 20. sharded training, two ranks on the card
+        log(f"wall seconds: sharded training {time.perf_counter() - t0:.1f}")
+        for name, n in zip(("embedding_bag", "embedding_bag_backward", "embedding_bag_plan"),
+                           shard):
+            next(k for k in kernels if k["name"] == name)["launches"] += n
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

@@ -124,12 +124,12 @@ def lm_params_from_reference(tree: dict, cfg, device=None) -> dict:
     """The port's LM parameters from the JAX package's ``init`` tree, given
     as nested dicts of numpy arrays, placed on ``device`` (default ``cuda``).
 
-    The tree must have exactly the leaves of ``transformer_lm.param_specs``
+    The tree must have exactly the leaves of ``transformer_lm.param_shapes``
     with their shapes; a float32 config takes float32 arrays, a bfloat16
     config the bit patterns (uint16 or int16 views of the JAX arrays, or
     the JAX arrays' own 2-byte ``bfloat16`` dtype), which are reinterpreted,
     never rounded.  Anything else raises."""
-    from ..models.transformer_lm import param_specs  # here: models imports kernels, kernels core
+    from ..models.transformer_lm import param_shapes  # here: models imports kernels, kernels core
 
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
@@ -154,7 +154,7 @@ def lm_params_from_reference(tree: dict, cfg, device=None) -> dict:
             return bits.view(torch.bfloat16).to(dev)
         raise TypeError(f"{path}: dtype {a.dtype} does not carry the port's {dtype}")
 
-    return carry(param_specs(cfg), tree, "")
+    return carry(param_shapes(cfg), tree, "")
 
 
 def _carry_float32(spec, node, dev, path=""):

@@ -1,7 +1,10 @@
-"""repro_torch.distributed — the edge-partitioned graph engine's helpers,
-thin specializations of the sharded planner (``repro_torch.core.plan``), on
-an in-process ``ShardMesh`` or a ``ProcessMesh`` (one shard a rank,
+"""repro_torch.distributed — the logical-axis rules and their placement on
+a process mesh (``shardings``), elastic re-carving and restore
+(``elastic``), and the edge-partitioned graph engine's helpers, thin
+specializations of the sharded planner (``repro_torch.core.plan``), on an
+in-process ``ShardMesh`` or a ``ProcessMesh`` (one shard a rank,
 ``repro_torch.core.make_process_mesh``)."""
+from .elastic import carve_mesh, carve_shape, elastic_restore
 from .engine import (
     distributed_frontier_min,
     distributed_pagerank_step,
@@ -9,8 +12,53 @@ from .engine import (
     prepare_sharded,
     shard_blocks_for_mesh,
 )
+from .shardings import (
+    GNN_RULES,
+    GNN_RULES_TP,
+    GRAPH_ENGINE_RULES,
+    LM_DECODE_LONG_RULES,
+    LM_DECODE_LONG_RULES_V2,
+    LM_DECODE_RULES,
+    LM_PREFILL_RULES,
+    LM_RULES,
+    LM_RULES_SP,
+    RECSYS_RETRIEVAL_RULES,
+    RECSYS_RULES,
+    PartitionSpec,
+    axis_rules,
+    constrain,
+    gather_blocks,
+    gather_tree,
+    logical_to_spec,
+    shard_block,
+    shard_tree,
+    spec_tree,
+)
 
 __all__ = [
+    "axis_rules",
+    "constrain",
+    "logical_to_spec",
+    "spec_tree",
+    "PartitionSpec",
+    "shard_block",
+    "gather_blocks",
+    "shard_tree",
+    "gather_tree",
+    "carve_mesh",
+    "carve_shape",
+    "elastic_restore",
+    "LM_RULES",
+    "LM_RULES_SP",
+    "LM_PREFILL_RULES",
+    "LM_DECODE_RULES",
+    "LM_DECODE_LONG_RULES",
+    "LM_DECODE_LONG_RULES_V2",
+    "RECSYS_RETRIEVAL_RULES",
+    "GNN_RULES",
+    "GNN_RULES_TP",
+    "RECSYS_RULES",
+    "GRAPH_ENGINE_RULES",
     "distributed_frontier_min",
     "distributed_pagerank_step",
     "distributed_vertex_reduce",

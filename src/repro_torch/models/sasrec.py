@@ -9,7 +9,10 @@ package's tree leaf by leaf (``blocks`` a list of dicts).
   init(cfg, generator=, device=)        → params
   params_to(params, device)             → the same tree on ``device``
   encode(params, seq, cfg)              → user states (B, L, d)
+  param_shapes(cfg) / param_specs(cfg)  → each leaf's (shape, init) / logical axes
   loss_fn(params, batch, cfg)           → the paper's BCE over sampled negatives
+  loss_terms(params, batch, cfg)        → its (masked sum, count)
+  loss_mask(batch)                      → the positions that count
   serve_scores(params, batch, cfg)      → full-catalog scores (B, vocab)
   retrieval_scores(params, batch, cfg)  → candidate scores (B, NC)
 
@@ -19,8 +22,6 @@ in ``loss_fn``, the candidates in ``retrieval_scores``) is
 here: bags of one of the EmbeddingBag kernel, whose backward kernel carries
 the gradient to ``item_emb``.  The catalog product and the candidate dot
 are plain products.  No remat, as in the JAX package.
-
-Not here yet: ``param_specs`` (sharding).
 """
 from __future__ import annotations
 
@@ -147,18 +148,32 @@ def encode(params: dict, seq: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
     return layer_norm(x, params["final_ln_s"], params["final_ln_b"])
 
 
-def loss_fn(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:
-    """batch: ``seq`` (B, L), ``pos`` (B, L) next-item targets, ``neg``
-    (B, L) sampled negatives; 0 = padding.  The paper's binary
-    cross-entropy, averaged over the positions with a positive."""
+def loss_terms(params: dict, batch: dict, cfg: SASRecConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sum, count)`` of the paper's binary cross-entropy over the
+    positions with a positive.  batch: ``seq`` (B, L), ``pos`` (B, L)
+    next-item targets, ``neg`` (B, L) sampled negatives; 0 = padding.  A
+    sharded step adds both terms over the ranks before it divides."""
     h = encode(params, batch["seq"], cfg)  # (B, L, d)
     pe = take_rows(params["item_emb"], batch["pos"])
     ne = take_rows(params["item_emb"], batch["neg"])
     ps = torch.sum(h * pe, dim=-1).float()
     ns = torch.sum(h * ne, dim=-1).float()
-    mask = (batch["pos"] > 0).float()
+    mask = loss_mask(batch)
     loss = -(F.logsigmoid(ps) + F.logsigmoid(-ns)) * mask
-    return torch.sum(loss) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(loss), torch.sum(mask)
+
+
+def loss_mask(batch: dict) -> torch.Tensor:
+    """(B, L) float32: 1 at the positions with a positive (``pos > 0``).
+    It reads the batch alone, so a sharded step counts before the forward."""
+    return (batch["pos"] > 0).float()
+
+
+def loss_fn(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:
+    """The paper's binary cross-entropy, averaged over the positions with a
+    positive (at least 1): ``loss_terms``' sum over its count."""
+    total, count = loss_terms(params, batch, cfg)
+    return total / torch.clamp(count, min=1.0)
 
 
 def serve_scores(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:

@@ -12,8 +12,12 @@ the layers' parameters are stacked on a leading axis ``(L, ...)`` under
 of them (the JAX package scans them).
 
   init(cfg, generator=, device=)            → params
+  param_shapes(cfg) / param_specs(cfg)      → each leaf's (shape, init) / logical axes
+  cache_specs(cfg)                          → each cache leaf's logical axes
   forward(params, tokens, cfg, ...)         → (hidden, caches)
   loss_fn(params, batch, cfg)               → masked causal-LM cross-entropy
+  loss_terms(params, batch, cfg)            → its (masked sum, count)
+  loss_mask(batch)                          → the positions that count
   prefill(params, tokens, cfg, max_seq=)    → (last-position logits, caches)
   decode_step(params, caches, tok, pos, cfg) → (logits, caches)
 
@@ -181,7 +185,7 @@ def _stacked(spec: dict, n: int) -> dict:
             for k, v in spec.items()}
 
 
-def param_specs(cfg: LMConfig) -> dict:
+def param_shapes(cfg: LMConfig) -> dict:
     """The parameter tree of ``init`` as ``{leaf: (shape, init)}``, where
     ``init`` is a normal draw's scale, ``"zeros"`` or ``"ones"``; every leaf
     has the dtype ``cfg.activation_dtype``.  The JAX package's shapes and
@@ -210,7 +214,7 @@ def init(cfg: LMConfig, *, generator: torch.Generator, device=None) -> dict:
             return torch.ones(shape, dtype=dtype, device=dev)
         return draw_normal(shape, how, generator=generator, dtype=dtype, device=dev)
 
-    return make(param_specs(cfg))
+    return make(param_shapes(cfg))
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -360,17 +364,31 @@ def logits_from_hidden(params, x, cfg: LMConfig):
     return x @ params["embed"].T  # tied embedding
 
 
-def loss_fn(params, batch: dict, cfg: LMConfig) -> torch.Tensor:
-    """Causal-LM cross-entropy; ``batch = {"tokens", "targets"}`` (B, S)
-    integer ids.  The logits are taken in float32; a target ``< 0`` is
-    masked out; the mean is over the unmasked positions (at least 1)."""
+def loss_terms(params, batch: dict, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sum, count)`` of the causal-LM cross-entropy over the unmasked
+    positions of ``batch = {"tokens", "targets"}`` (B, S) integer ids: the
+    logits taken in float32, a target ``< 0`` masked out.  A sharded step
+    adds both terms over the ranks before it divides."""
     x, _ = forward(params, batch["tokens"], cfg)
     logits = logits_from_hidden(params, x, cfg).float()
     lse = torch.logsumexp(logits, dim=-1)
     targets = batch["targets"].long()
     tgt = torch.gather(logits, -1, targets.clamp(min=0)[..., None])[..., 0]
-    mask = (targets >= 0).float()
-    return torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    mask = loss_mask(batch)
+    return torch.sum((lse - tgt) * mask), torch.sum(mask)
+
+
+def loss_mask(batch: dict) -> torch.Tensor:
+    """(B, S) float32: 1 where the target counts (``>= 0``), else 0.  It
+    reads the batch alone, so a sharded step counts before the forward."""
+    return (batch["targets"] >= 0).float()
+
+
+def loss_fn(params, batch: dict, cfg: LMConfig) -> torch.Tensor:
+    """Causal-LM cross-entropy: the mean of ``loss_terms`` over the
+    unmasked positions (at least 1)."""
+    total, count = loss_terms(params, batch, cfg)
+    return total / torch.clamp(count, min=1.0)
 
 
 # ----------------------------------------------------------------------
@@ -416,3 +434,71 @@ def decode_step(params, caches, tokens, pos: int, cfg: LMConfig, *,
         attention = decode_attention
     x, caches = forward(params, tokens, cfg, caches=caches, pos=pos, attention=attention)
     return logits_from_hidden(params, x, cfg)[:, 0], caches
+
+
+# ----------------------------------------------------------------------
+# logical axes (the sharding rules' names) of every parameter and cache leaf
+# ----------------------------------------------------------------------
+def _attn_axes(cfg: LMConfig) -> dict:
+    if cfg.attn == "mla":
+        return {
+            "wq": ("embed", "heads"),
+            "w_dkv": ("embed", "kv_lora"),
+            "kv_norm": ("kv_lora",),
+            "w_uk": ("kv_lora", "heads"),
+            "w_uv": ("kv_lora", "heads"),
+            "wo": ("heads", "embed"),
+        }
+    axes = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "heads"),
+        "wv": ("embed", "heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        axes.update({"bq": ("heads",), "bk": ("heads",), "bv": ("heads",)})
+    return axes
+
+
+def _block_axes(cfg: LMConfig, moe_block: bool) -> dict:
+    ffn = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
+    block = {"pre_attn": ("embed",), "pre_ffn": ("embed",), "attn": _attn_axes(cfg)}
+    if not moe_block:
+        block["ffn"] = ffn
+        return block
+    block["moe"] = {
+        "router": ("embed", "experts"),
+        "w_gate": ("experts", "embed", "expert_ff"),
+        "w_up": ("experts", "embed", "expert_ff"),
+        "w_down": ("experts", "expert_ff", "embed"),
+    }
+    if cfg.n_shared:
+        block["moe"]["shared"] = ffn
+    return block
+
+
+def _layers_first(tree: dict) -> dict:
+    return {k: _layers_first(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in tree.items()}
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    """The logical axes of every parameter, a tree of ``init``'s structure
+    whose leaves are tuples of logical names (the JAX package's
+    ``param_specs``): the stacked layers lead with ``"layers"``."""
+    specs = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
+    for key, _, _, moe_block in _stacks(cfg):
+        specs[key] = _layers_first(_block_axes(cfg, moe_block))
+    return specs
+
+
+def cache_specs(cfg: LMConfig) -> dict:
+    """The logical axes of every cache leaf (the JAX package's
+    ``cache_specs``), keyed as ``make_cache``'s tree."""
+    if cfg.attn == "mla":
+        entry = {"ckv": ("layers", "batch", "cache_seq", "kv_lora"),
+                 "kr": ("layers", "batch", "cache_seq", "head_dim")}
+    else:
+        entry = {"k": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+                 "v": ("layers", "batch", "cache_seq", "kv_heads", "head_dim")}
+    return {cache_key: dict(entry) for _, cache_key, _, _ in _stacks(cfg)}

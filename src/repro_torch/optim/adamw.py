@@ -6,10 +6,9 @@ The state is ``{"step": 0-d int32, "m": tree, "v": tree}``; the moments are
 float32 whatever the parameter dtype, the update is computed in float32 and
 rounded once to the parameter's dtype.  Bias correction divides the moments
 by ``1 - b**t``; the weight decay is decoupled (added to the step
-direction, times ``lr``).
-
-Not here: ``state_logical_specs``, which waits for the sharded cells
-(``ROADMAP.md``).
+direction, times ``lr``).  The update is elementwise, so a rank that
+updates its block of every leaf gets the block of the whole update, bit
+for bit; ``state_logical_specs`` gives the moments the params' placement.
 """
 from __future__ import annotations
 
@@ -63,3 +62,9 @@ def update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
         return (p.float() - lr * delta).to(p.dtype)
 
     return tree_map(upd, params, m2, v2), {"step": step, "m": m2, "v": v2}
+
+
+def state_logical_specs(param_logical_specs) -> dict:
+    """The state's logical axes: the moments share the params' logical
+    axes; ``step`` is replicated."""
+    return {"step": (), "m": param_logical_specs, "v": param_logical_specs}

@@ -317,7 +317,7 @@ def test_init_tree_matches_jax(which):
     jcfg = getattr(jqwen, f"{which}_config")()
     cfg = getattr(qwen, f"{which}_config")()
     want = _leaves(jax.eval_shape(lambda: jlm.init(jax.random.PRNGKey(0), jcfg)))
-    specs = _leaves(lm.param_specs(cfg))
+    specs = _leaves(lm.param_shapes(cfg))
     assert set(specs) == set(want)
     for name, (shape, _) in specs.items():
         assert tuple(shape) == want[name].shape, name
