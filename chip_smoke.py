@@ -9,6 +9,7 @@
     python3 chip_smoke.py --dist-only    # phase 14(g) alone (two ranks on the card, gloo)
     python3 chip_smoke.py --gnn-only     # phase 18 alone (the GNN family trained)
     python3 chip_smoke.py --shard-train-only  # phase 20 alone (sharded training, two ranks)
+    python3 chip_smoke.py --shard-serve-only  # phase 21 alone (serving on a process mesh)
 
 Builds the hand-written CUDA kernels from this checkout (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version on the
@@ -331,7 +332,8 @@ registry (every cell's batch made on the card).
    no checkpoint), users/s, peak memory; (d) qwen2-1.5B whole (28
    layers, bf16, remat full): the registry's train_4k cell's 4,096-token
    sequences, its global batch cut from 256 to 8 (printed against the
-   cell's), accumulated over 8 microbatches, 4 steps; the
+   cell's), accumulated over 8 microbatches, 3 steps (cut from 4 to make
+   room for phase 21); the
    first loss within 0.05 of ln V + sigma^2 / 2 (``first_loss_reckoned``),
    every loss finite; ms a step, tokens/s, model flops over the dense bf16
    peak, peak memory beside the reckoning; cut to 2 layers at full width,
@@ -366,6 +368,36 @@ registry (every cell's batch made on the card).
    (tokens and items below the vocabulary, positions below the sequence,
    node ids below the nodes, edge ids below the edges, labels below the
    classes); each cell's kind, family, batch bytes and model flops printed.
+20. Sharded training on a process mesh: two gloo ranks on the card train
+   SASRec's train_batch on (1, 2) and (2, 1) meshes (restart, elastic
+   restore) and qwen2-1.5B cut to 2 layers on (2, 1), and run
+   ``compressed_psum``, held to this process's one-device runs.
+21. Serving on a process mesh: (a) in this process, every case of phase
+   10(a)'s kernel-6 sweep with its cache cut into 2 and 4 row ranges (some
+   empty at short lengths), kernel 6 with ``return_lse=True`` on each range
+   and the partials merged, within ``ATTN_REL_TOL`` of the whole-cache
+   kernel and of the plain version, each lse within 1e-5 of the plain
+   version's, empty ranges exactly 0 and -inf, the output rounded bit for
+   bit the call without lse; one rank's half of qwen2-1.5B's 32 x 32,768
+   cache timed both ways beside the bytes bound.  Then the one-device
+   references, freed, and one spawn of two gloo ranks on the card: (b)
+   qwen2-1.5B at full width and depth on (1, 2): 8 x 1,024 prompts prefilled
+   under ``LM_PREFILL_RULES`` into 32,768 positions (a rank keeps 16,384),
+   16 decode steps under ``LM_DECODE_RULES`` on the one-device run's tokens,
+   the parameters gathered once at load; (c) its long_500k cell uncut on
+   (2, 1) under ``LM_DECODE_LONG_RULES``: batch 1, 524,288 positions filled
+   from the seed by blocks of rows (a rank fills its slice alone), 8 steps
+   at the end; (d) deepseek-v2-lite-16b (MLA) cut to 2 layers on (1, 2), 8 x
+   1,024 prompts into 2,048 positions, 8 steps; (e) SASRec's serve_p99 and
+   retrieval_cand uncut on (1, 2) and (2, 1).  Held: logits within
+   ``LOGITS_REL_TOL`` of one device, (b)'s prefill slices bit for bit the
+   one-device rows, kernel 6's rows (lse, merged across the ranks) within
+   ``ATTN_REL_TOL`` of the plain version over the gathered layer, the
+   sharded lookups bit for bit ``take_rows``, scores within 1e-5, the top
+   100 through ``assert_topk_agrees``, the item table unwritten.  Printed:
+   ms a step a rank beside one device's, the collectives' ms and share
+   (each side synchronised), bytes a rank sends a step, peak memory,
+   launches of kernels 5 and 6 a rank.
 
 No timed call, kernel or library yardstick of the same function, may read
 under its bound by more than 5 % (a bound it beats is a wrong bound).
@@ -374,7 +406,7 @@ phases 4-5 (4(b) among them), 12, 13, 14 and 15 for kernel 1's two entries (14(g
 ranks count their own launches and report them), graph A's ``spmv_vertex`` for kernel 3,
 phases 6 and 13(d) for kernel 2, phases 9(c) and 14(e) for kernel 4, phases 10(c), (d) and
 16(b)-(d) for kernel 6, phase 11(c) and (d) and 17(c) for kernel 5, phase 17(c) for kernel 5'
-and its preparation.
+and its preparation; phases 20 and 21's ranks count their own and report them.
 Any failed check raises and the run exits non-zero.  Without a CUDA device,
 or outside a checkout of the repository, the script exits with code 2 and
 prints no result.
@@ -3993,7 +4025,8 @@ GRAD_TIMED = (1 << 20, 50, 65_536 * 50)  # train_batch's lookup: catalog, width,
 SAS_TRAIN = (6, 3, 4)          # train_batch (users from its cell): steps, ckpt_every, fail_at
 SAS_CHECK_USERS = 1_024        # the first step held to the CPU route
 GRAD_REL_TOL = 1e-5            # float32 gradients, card against CPU: other sum orders
-LM_TRAIN = (8, 8, 4)           # train_4k cut: global batch (the cell's 256), accum, steps
+LM_TRAIN = (8, 8, 3)           # train_4k cut: global batch (the cell's 256), accum, steps (4
+#                                until phase 21 was added: the run's wall)
 LM_CHECK = (2, 2, 128)         # qwen2 cut to 2 layers: layers; the CPU-held step's batch, seq
 LM_RESTART = (2, 512, 3, 2)    # the 2-layer bf16 restart: batch, seq; steps, fail_at = ckpt_every
 MOE_TRAIN = (2, 2, 4)          # deepseek train_4k cut: layers; global batch (accum 2), steps
@@ -4443,7 +4476,8 @@ def qwen2_train(dev):
     cell = get_arch("qwen2-1.5b").cells()["train_4k"]
     cfg, (cell_gb, seq) = cell.model_cfg, cell.batch_specs["tokens"].shape
     log(f"[17] (d) from the registry: qwen2-1.5b/train_4k, {cell_gb} x {seq} tokens a step; cut "
-        f"to a global batch of {gb} (of {cell_gb}), sequences at the cell's {seq}")
+        f"to a global batch of {gb} (of {cell_gb}), sequences at the cell's {seq}; {steps} steps "
+        f"(cut from 4 to make room for phase 21)")
     check(cfg.remat_policy == "full", "qwen2 trains with remat_policy full")
     trainer = Trainer(lm, cfg, train_cfg=TrainConfig(steps=steps, accum=accum, warmup=1,
                                                      log_every=1), device=dev)
@@ -5983,6 +6017,697 @@ def drive_sharded_train(dev) -> list:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 21: serving on a process mesh (two gloo ranks on the card)
+# ----------------------------------------------------------------------
+SERVE_DIR = ROOT / "build" / "phase21"
+SERVE_LIMIT_S = 300       # the ranks' limit, start included: a rank still running is killed
+SERVE_LM = (8, 1024, 32768, 16)   # (b): prompts, prompt tokens, cache positions, decode steps
+SERVE_LONG_STEPS = 8      # (c): decode steps at the end of long_500k's uncut cache
+FILL_ROWS = 4096          # (c): cache rows a seeded draw fills at a time
+SERVE_MLA = (2, 8, 1024, 2048, 8)  # (d): layers, prompts, prompt tokens, cache positions, steps
+LSE_TOL = 1e-5            # (a): kernel 6's lse against the plain version's, float32, absolute:
+#                           the same scores summed in another order, at lse ~ ln(rows) + O(1)
+LSE_TIMED = (32, 16384, 12, 2, 128)  # (a): one rank's half of qwen2-1.5B's 32 x 32k cache
+
+
+def lse_ranges(S, parts):
+    """``parts`` contiguous row ranges of a cache of ``S`` rows (uneven
+    where ``parts`` does not divide ``S``)."""
+    cuts = [S * r // parts for r in range(parts + 1)]
+    return list(zip(cuts, cuts[1:]))
+
+
+def check_kernel6_lse(dev):
+    """Phase 21(a): every case of phase 10(a)'s kernel-6 sweep with its cache
+    cut into 2 and 4 row ranges (at short lengths some ranges hold no row):
+    kernel 6 with ``return_lse=True`` on each range, merged, held to the
+    whole-cache kernel and to the plain version within ``ATTN_REL_TOL``;
+    each range's lse within ``LSE_TOL`` of the plain version's; ranges with
+    no row exactly 0 and -inf; the lse variant's output, rounded, bit for
+    bit the call without it.  Then one rank's half of qwen2-1.5B's cache
+    timed both ways beside the bytes bound.  Returns the timing."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.serving import merge_partials
+    from repro_torch.kernels import (
+        ATTN_REL_TOL,
+        decode_attention,
+        decode_attention_ref,
+        decode_attention_rel_err,
+    )
+    from repro_torch.kernels.decode_attention.decode_attention import split_rows
+    from repro_torch.tuning import HBM_BYTES_PER_S
+
+    rng = np.random.default_rng(SEED + 21)
+    cases, rel, lse_err, empties = 0, {}, 0.0, 0
+    for i, (B, S, Hq, Hkv, D) in enumerate(ATTN_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_case(B, S, Hq, Hkv, D, dtype, dev, SEED + i)
+            for name, lengths in attn_lengths(B, S, split_rows(q, k)[1], rng).items():
+                pos = torch.from_numpy(lengths.astype("int32")).to(dev)
+                whole = decode_attention(q, k, v, pos)
+                plain = decode_attention_ref(q, k, v, pos)
+                full, full_lse = decode_attention(q, k, v, pos, return_lse=True)
+                check(full.dtype == torch.float32 and torch.equal(full.to(dtype), whole),
+                      f"kernel 6 lse {(B, S, Hq, Hkv, D)} {dtype} pos {name}: the output "
+                      "rounded is not the lse-less call's bit for bit")
+                lse_err = max(lse_err, float((full_lse - decode_attention_ref(
+                    q, k, v, pos, return_lse=True)[1]).abs().max()))
+                for parts in (2, 4):
+                    outs, lses = [], []
+                    for lo, hi in lse_ranges(S, parts):
+                        kr, vr = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
+                        n = (pos - lo).clamp(0, hi - lo).to(torch.int32)
+                        o, lse = decode_attention(q, kr, vr, n, return_lse=True)
+                        want_lse = decode_attention_ref(q, kr, vr, n, return_lse=True)[1]
+                        empty = n == 0
+                        check(torch.equal(o[empty], torch.zeros_like(o[empty]))
+                              and bool((lse[empty] == -math.inf).all()),
+                              f"kernel 6 lse: a range with no row is not 0 and -inf "
+                              f"({(B, S, Hq, Hkv, D)} {dtype} pos {name}, rows [{lo}, {hi}))")
+                        empties += int(empty.sum())
+                        if not bool(empty.all()):
+                            lse_err = max(lse_err, float(
+                                (lse[~empty] - want_lse[~empty]).abs().max()))
+                        outs.append(o)
+                        lses.append(lse)
+                    merged = merge_partials(torch.stack(outs), torch.stack(lses)).to(dtype)
+                    r = max(decode_attention_rel_err(merged, whole),
+                            decode_attention_rel_err(merged, plain))
+                    check(r <= ATTN_REL_TOL[dtype],
+                          f"kernel 6 lse {(B, S, Hq, Hkv, D)} {dtype} pos {name} in {parts} "
+                          f"ranges: merged relative error {r} (> {ATTN_REL_TOL[dtype]})")
+                    dname = str(dtype).removeprefix("torch.")
+                    rel[dname] = max(rel.get(dname, 0.0), r)
+                    cases += 1
+    check(lse_err <= LSE_TOL, f"kernel 6 lse: {lse_err} from the plain version's (> {LSE_TOL})")
+    B, S, Hq, Hkv, D = LSE_TIMED
+    q, k, v = attn_case(B, S, Hq, Hkv, D, torch.bfloat16, dev, SEED)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    nbytes = attn_bytes(q, k, pos) + B * Hq * (D * 2 + 4)  # out in float32, and the lse
+    t = dict(ms=device_ms(lambda: decode_attention(q, k, v, pos, return_lse=True)),
+             plain_call_ms=device_ms(lambda: decode_attention(q, k, v, pos)),
+             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    check_bound("kernel 6 with its lse", t)
+    log(f"[21] (a) kernel 6 with return_lse=True, each cache of phase 10(a)'s sweep cut into 2 "
+        f"and 4 row ranges and merged: {cases} cases within ATTN_REL_TOL of the whole-cache "
+        f"kernel and of the plain version (max relative error float32 {rel['float32']!r}, "
+        f"bfloat16 {rel['bfloat16']!r}; limits {ATTN_REL_TOL[torch.float32]}, "
+        f"{ATTN_REL_TOL[torch.bfloat16]}); lse within {lse_err!r} of the plain version's "
+        f"(limit {LSE_TOL}, float32 absolute); {empties} rows of ranges with no row exactly 0 "
+        f"and -inf; the output rounded bit for bit the call without lse")
+    log(f"[21] (a) kernel 6 at (B,S,Hq,Hkv,D)={LSE_TIMED} bfloat16 (one rank's half of the "
+        f"32 x 32,768 cache), pos=S, on {CARD}: with its lse {t['ms']!r} ms, without "
+        f"{t['plain_call_ms']!r} ms, bytes bound {t['bound_ms']!r} ms ({nbytes} B at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+    del q, k, v
+    return t
+
+
+def fill_cache(caches, lo, gen_dev):
+    """Fill every leaf (L, 1, rows, ...) of ``caches``, global positions
+    from ``lo``, block by block of ``FILL_ROWS``: block j of layer l of leaf
+    ``name`` drawn from its own seed, so a rank fills its slice alone."""
+    import torch
+
+    for key, entry in caches.items():
+        for w, (name, t) in enumerate(entry.items()):
+            for layer in range(t.shape[0]):
+                for a in range(0, t.shape[2], FILL_ROWS):
+                    j = (lo + a) // FILL_ROWS
+                    seed = SEED + 7919 * (layer + 1) + 104729 * w + 31 * j + len(key)
+                    g = torch.Generator(gen_dev).manual_seed(seed)
+                    t[layer, :, a:a + FILL_ROWS].normal_(generator=g)
+
+
+def rows_digest(caches, a, b) -> dict:
+    """SHA-256 of rows [a, b) of every cache leaf (bfloat16, read as int16),
+    by path."""
+    import torch
+
+    return {f"{key}/{name}": hashlib.sha256(
+        t[:, :, a:b].contiguous().view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        for key, entry in caches.items() for name, t in entry.items()}
+
+
+def serve_ref_lm(dev, cfg, B, P, max_seq, steps, seed, splits):
+    """One device: ``cfg``'s prefill of B x P prompts into ``max_seq`` rows
+    and ``steps`` greedy decode steps (kernel 6 for GQA).  Returns the
+    tokens fed, the prefill's and every step's logits (on the host), ms a
+    step (median of the steps after the first) and the digests of the
+    prompt rows within each of ``splits`` equal slices."""
+    import torch
+
+    from repro_torch.models import transformer_lm as lm
+
+    params = lm.init(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(seed)).to(dev)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    logits, caches = lm.prefill(params, prompts, cfg, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - ts
+    size = max_seq // splits
+    digests = [rows_digest(caches, r * size, min((r + 1) * size, P)) if r * size < P else {}
+               for r in range(splits)]
+    out = {"prompts": prompts.cpu(), "logits0": logits.cpu(), "tokens": [], "logits": [],
+           "digests": digests, "prefill_s": prefill_s}
+    times = []
+    for i in range(steps):
+        tok = logits.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        logits, caches = lm.decode_step(params, caches, tok, P + i, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        out["tokens"].append(tok.cpu())
+        out["logits"].append(logits.cpu())
+    out["ms"] = statistics.median(times[1:]) * 1e3
+    del params, caches
+    return out
+
+
+def serve_ref_long(dev, cfg, seed, steps):
+    """One device: qwen2-1.5B at long_500k, uncut (batch 1, the cell's
+    positions), the cache filled by ``fill_cache``, ``steps`` greedy decode
+    steps at its end."""
+    import torch
+
+    from repro_torch.models import transformer_lm as lm
+
+    params = lm.init(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    S = cfg.kv_block
+    caches = lm.make_cache(cfg, 1, S, device=dev)
+    fill_cache(caches, 0, dev)
+    tok = torch.randint(0, cfg.vocab, (1, 1), generator=torch.Generator().manual_seed(seed))
+    tok = tok.to(dev)
+    out, times = {"tokens": [], "logits": []}, []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        logits, caches = lm.decode_step(params, caches, tok, S - steps + i, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        out["tokens"].append(tok.cpu())
+        out["logits"].append(logits.cpu())
+        tok = logits.argmax(dim=-1, keepdim=True)
+    out["ms"] = statistics.median(times[1:]) * 1e3
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    del params, caches
+    return out
+
+
+def serve_ref_sasrec(dev):
+    """One device: serve_p99's and retrieval_cand's ms a call at full width
+    (phase 11's seeds)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_candidates, make_sasrec_batch_fn
+    from repro_torch.launch import sasrec_retrieval_step, sasrec_serve_step
+    from repro_torch.models import sasrec
+
+    cells = get_arch("sasrec").cells()
+    cfg = cells["serve_p99"].model_cfg
+    users = cells["serve_p99"].batch_specs["seq"].shape[0]
+    n_cand = cells["retrieval_cand"].batch_specs["candidates"].shape[1]
+    params = sasrec.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    batch = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)(SEED)
+    query = {"seq": batch["seq"][:1],
+             "candidates": make_candidates(torch.Generator(dev).manual_seed(SEED + 1), 1, n_cand,
+                                           cfg.vocab, device=dev)}
+    sasrec_serve_step(params, batch, cfg)
+    sasrec_retrieval_step(params, query, cfg)
+    serve_s, _ = timed_calls(lambda: sasrec_serve_step(params, batch, cfg))
+    ret_s, _ = timed_calls(lambda: sasrec_retrieval_step(params, query, cfg))
+    return {"serve_ms": statistics.median(serve_s) * 1e3,
+            "retrieval_ms": statistics.median(ret_s) * 1e3}
+
+
+def serve_cells():
+    """(qwen2 prefill cfg, qwen2 long_500k cfg, deepseek cut cfg) and the
+    cells they come from."""
+    from repro_torch.configs import get_arch
+
+    qwen = get_arch("qwen2-1.5b").cells()
+    deep = get_arch("deepseek-v2-lite-16b").cells()
+    layers = SERVE_MLA[0]
+    return (qwen["prefill_32k"].model_cfg, qwen["long_500k"].model_cfg,
+            dataclasses.replace(deep["prefill_32k"].model_cfg, n_layers=layers), qwen, deep)
+
+
+def serve_rank(rank, world, device):
+    """One rank of phase 21; results to ``rank<r>.pt``, an exception to
+    ``rank<r>.err`` (and exit code 1)."""
+    import traceback
+
+    try:
+        import torch
+
+        torch.save(_serve_rank(rank, world, device), SERVE_DIR / f"rank{rank}.pt")
+    except BaseException:
+        (SERVE_DIR / f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)
+
+
+def serve_bytes(kind, **s) -> int:
+    """The bytes a rank sends a step, reckoned from the shapes as ring
+    collectives over R ranks: an all-gather sends (R - 1) parts, an
+    all-reduce 2 (R - 1) / R of the tensor."""
+    R = s["R"]
+    if R == 1:
+        return 0
+    if kind == "decode":   # a (B_r, Hq, D + 1) float32 all-gather a layer
+        return (R - 1) * s["B"] * s["Hq"] * (s["D"] + 1) * 4 * s["layers"]
+    history = 2 * (R - 1) * s["B"] * s["L"] * s["d"] * 4 // R   # sharded_rows' all-reduce
+    if kind == "serve":    # + merge_topk's (2, B_r, 100) all-gather
+        return history + (R - 1) * 2 * s["B"] * s["k"] * 4
+    # retrieval: the ids' all-gather, then the scores' all-reduce over R blocks
+    return history + (R - 1) * s["B"] * s["nc"] * 4 + 2 * (R - 1) * s["B"] * s["nc"] * 4
+
+
+def _serve_rank(rank, world, device):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.distributed.serving as serving_mod
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.core import make_process_mesh
+    from repro_torch.data import make_candidates, make_sasrec_batch_fn
+    from repro_torch.distributed import (
+        LM_DECODE_LONG_RULES,
+        LM_DECODE_RULES,
+        LM_PREFILL_RULES,
+        RECSYS_RETRIEVAL_RULES,
+        RECSYS_RULES,
+        merge_attention,
+        shard_tree,
+        sharded_rows,
+    )
+    from repro_torch.kernels import (
+        decode_attention,
+        decode_attention_ref,
+        decode_attention_rel_err,
+        embedding_bag_sums,
+        take_rows,
+    )
+    from repro_torch.launch import (
+        TOP_K,
+        assert_topk_agrees,
+        sasrec_retrieval_step,
+        sasrec_serve_step,
+        serve_layout,
+        sharded_decode_step,
+        sharded_prefill_step,
+        sharded_retrieval_step,
+        sharded_serve_step,
+    )
+    from repro_torch.models import sasrec
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.optim import tree_map
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{SERVE_DIR / 'init'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    m12 = make_process_mesh((1, 2), ("data", "model"), device=dev)
+    m21 = make_process_mesh((2, 1), ("data", "model"), device=dev)
+    sync = torch.cuda.synchronize
+    gather_parts = serving_mod.gather_parts   # the logits' vocab gather: outside the timing
+    spent = []
+    real = {(mod, name): getattr(mod, name) for mod in (serving_mod, steps_mod)
+            for name in ("gather_parts", "all_reduce_sum")}
+    for (mod, name), fn in real.items():
+        setattr(mod, name, _timed(fn, spent, sync))
+    qcfg, long_cfg, mla_cfg, _, _ = serve_cells()
+    out = {"rank": rank}
+
+    def counts_zero():
+        decode_attention.launches = 0
+        embedding_bag_sums.launches = 0
+        spent.clear()
+
+    def counts():
+        return {"k5": embedding_bag_sums.launches, "k6": decode_attention.launches}
+
+    def timed_steps(step, n):
+        """``n`` calls of ``step(i)``, each synchronised; ms a step (median of
+        the calls after the first), the collectives' ms a step (median) and
+        the results."""
+        times, coll, res = [], [], []
+        for i in range(n):
+            before = len(spent)
+            sync()
+            ts = time.perf_counter()
+            res.append(step(i))
+            sync()
+            times.append(time.perf_counter() - ts)
+            coll.append(sum(spent[before:]))
+        later = slice(1, None) if n > 1 else slice(None)
+        return (statistics.median(times[later]) * 1e3, statistics.median(coll[later]) * 1e3,
+                res)
+
+    def full_logits(logits, layout):
+        """The rank's vocab columns gathered over the vocab axes: (B_r, V)."""
+        parts = gather_parts(logits, layout.mesh, layout.vocab_axes)
+        return parts.permute(1, 0, 2).reshape(logits.shape[0], -1)
+
+    def attention_rows(layout, caches, rows, lengths, B):
+        """Kernel 6 with its lse over layer 0's slice of every rank, merged,
+        against the plain version over the whole layer (gathered): the
+        largest row error (relative L2)."""
+        entry = next(iter(caches.values()))
+        k, v = entry["k"][0], entry["v"][0]
+        H = qcfg.n_heads
+        q = torch.randn((B, H, k.shape[-1]), generator=torch.Generator(dev).manual_seed(SEED),
+                        device=dev).to(k.dtype)
+        n = torch.full((B,), lengths, dtype=torch.int32, device=dev)
+        got = merge_attention(*decode_attention(q, k, v, n, return_lse=True), layout.mesh,
+                              layout.seq_axes).to(k.dtype)
+        whole = [gather_parts(t, layout.mesh, layout.seq_axes) for t in (k, v)]
+        kw, vw = (w.permute(1, 0, 2, 3, 4).reshape(B, -1, *k.shape[2:]) for w in whole)
+        want = decode_attention_ref(q, kw, vw, torch.full((B,), rows, dtype=torch.int32,
+                                                           device=dev))
+        return decode_attention_rel_err(got, want)
+
+    def serve_lm(tag, cfg, mesh, ref, max_seq, seed):
+        """(b) and (d): load, prefill, then the reference's tokens decoded."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        lay_p = serve_layout(lm, cfg, mesh, LM_PREFILL_RULES)
+        lay_d = serve_layout(lm, cfg, mesh, LM_DECODE_RULES)
+        params = lm.init(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+        blocks = tree_map(lambda t: t.clone(), shard_tree(params, lay_p.params, mesh))
+        del params
+        sync()
+        ts = time.perf_counter()
+        served = lay_p.load(blocks)
+        sync()
+        load_s = time.perf_counter() - ts
+        del blocks
+        prompts = ref["prompts"].to(dev)
+        B, P = prompts.shape
+        lo, hi = lay_p.rows(B)
+        s_lo, s_hi = lay_p.block(lay_p.seq_axes, max_seq)
+        sync()
+        ts = time.perf_counter()
+        logits0, caches = sharded_prefill_step(served, prompts[lo:hi], cfg, lay_p, max_seq)
+        sync()
+        r = {"prefill_s": time.perf_counter() - ts, "load_s": load_s, "rows": (lo, hi),
+             "seq": (s_lo, s_hi), "logits0": full_logits(logits0, lay_p).cpu()}
+        a, b = s_lo, min(s_hi, P)
+        r["digest"] = rows_digest(caches, 0, b - a) if a < b else {}
+        r["zero_past_prompt"] = not any(bool(t[:, :, max(b - a, 0):].any())
+                                        for e in caches.values() for t in e.values())
+        counts_zero()
+        toks = [t.to(dev)[lo:hi] for t in ref["tokens"]]
+        ms, coll, res = timed_steps(lambda i: sharded_decode_step(
+            served, caches, toks[i], P + i, cfg, lay_d)[0], len(toks))
+        r.update(counts(), ms=ms, coll_ms=coll, logits=[full_logits(x, lay_d).cpu() for x in res],
+                 peak=torch.cuda.max_memory_allocated(dev))
+        if cfg.attn != "mla":
+            valid = P + len(toks)
+            r["attn_rel"] = attention_rows(lay_d, caches, valid,
+                                           min(max(valid - s_lo, 0), s_hi - s_lo), hi - lo)
+        R = math.prod(mesh.axis_size(x) for x in lay_d.seq_axes)
+        dv = cfg.v_head_dim if cfg.attn == "mla" else cfg.d_head
+        r["bytes"] = serve_bytes("decode", R=R, B=hi - lo, Hq=cfg.n_heads, D=dv,
+                                 layers=cfg.n_layers)
+        del served, caches, res
+        out[tag] = r
+        return r
+
+    # (b) qwen2-1.5B as a server on (1, 2), full width and depth
+    B, P, max_seq, steps = SERVE_LM
+    serve_lm("b", qcfg, m12, torch.load(SERVE_DIR / "qwen2.pt", weights_only=False), max_seq,
+             SEED + 210)
+    # (c) long_500k on (2, 1), uncut: a cache filled by blocks of rows
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = torch.load(SERVE_DIR / "long.pt", weights_only=False)
+    lay = serve_layout(lm, long_cfg, m21, LM_DECODE_LONG_RULES)
+    params = lm.init(long_cfg, generator=torch.Generator(dev).manual_seed(SEED + 210),
+                     device=dev)
+    blocks = tree_map(lambda t: t.clone(), shard_tree(params, lay.params, m21))
+    del params
+    sync()
+    ts = time.perf_counter()
+    served = lay.load(blocks)
+    sync()
+    load_s = time.perf_counter() - ts
+    del blocks
+    S = long_cfg.kv_block
+    s_lo, s_hi = lay.block(lay.seq_axes, S)
+    caches = lm.make_cache(long_cfg, 1, s_hi - s_lo, device=dev)
+    fill_cache(caches, s_lo, dev)
+    counts_zero()
+    toks = [t.to(dev) for t in ref["tokens"]]
+    ms, coll, res = timed_steps(lambda i: sharded_decode_step(
+        served, caches, toks[i], S - len(toks) + i, long_cfg, lay)[0], len(toks))
+    out["c"] = dict(counts(), ms=ms, coll_ms=coll, load_s=load_s, seq=(s_lo, s_hi),
+                    logits=[full_logits(x, lay).cpu() for x in res],
+                    cache_bytes=sum(t.numel() * t.element_size() for e in caches.values()
+                                    for t in e.values()),
+                    peak=torch.cuda.max_memory_allocated(dev),
+                    attn_rel=attention_rows(lay, caches, S, s_hi - s_lo, 1),
+                    bytes=serve_bytes("decode", R=2, B=1, Hq=long_cfg.n_heads,
+                                      D=long_cfg.d_head, layers=long_cfg.n_layers))
+    del served, caches, res
+    # (d) deepseek-v2-lite-16b cut to 2 layers (MLA, no kernel) on (1, 2)
+    serve_lm("d", mla_cfg, m12, torch.load(SERVE_DIR / "mla.pt", weights_only=False),
+             SERVE_MLA[3], SEED + 212)
+    # (e) SASRec uncut: serve_p99 and retrieval_cand on (1, 2) and (2, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cells = get_arch("sasrec").cells()
+    cfg = cells["serve_p99"].model_cfg
+    users = cells["serve_p99"].batch_specs["seq"].shape[0]
+    n_cand = cells["retrieval_cand"].batch_specs["candidates"].shape[1]
+    params = sasrec.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    batch = make_sasrec_batch_fn(cfg.vocab, users, cfg.seq_len, device=dev)(SEED)
+    query = {"seq": batch["seq"][:1],
+             "candidates": make_candidates(torch.Generator(dev).manual_seed(SEED + 1), 1, n_cand,
+                                           cfg.vocab, device=dev)}
+    want_scores = sasrec.serve_scores(params, batch, cfg)
+    want_top = sasrec_serve_step(params, batch, cfg)
+    want_ret = sasrec_retrieval_step(params, query, cfg)
+    e = {}
+    for tag, mesh in (("(1, 2)", m12), ("(2, 1)", m21)):
+        lay = serve_layout(sasrec, cfg, mesh, RECSYS_RULES)
+        served = lay.load(shard_tree(params, lay.params, mesh))
+        block = served["item_emb"]
+        digest = tensor_digest(block)
+        R = math.prod(mesh.axis_size(x) for x in lay.rows_axes)
+        r_lo = lay.block(lay.rows_axes, cfg.vocab)[0]
+        lo, hi = lay.rows(users)
+        seq = batch["seq"][lo:hi]
+        got_rows = sharded_rows(block, seq, r_lo, mesh, lay.rows_axes)
+        lookups_bits = torch.equal(got_rows.view(torch.int32),
+                                   take_rows(params["item_emb"], seq).view(torch.int32))
+        scores = sasrec.serve_scores(served, {"seq": seq}, cfg, lookup=lambda ids: sharded_rows(
+            block, ids, r_lo, mesh, lay.rows_axes))
+        score_err = float((scores - want_scores[lo:hi, r_lo:r_lo + block.shape[0]]).abs().max())
+        del got_rows, scores
+        sharded_serve_step(served, {"seq": seq}, cfg, lay)   # warm-up
+        counts_zero()
+        ms, coll, res = timed_steps(lambda i: sharded_serve_step(served, {"seq": seq}, cfg, lay),
+                                    RECSYS_CALLS)
+        top = res[-1]
+        ties = assert_topk_agrees(top, {k: v[lo:hi] for k, v in want_top.items()},
+                                  want_scores[lo:hi], SCORE_TOL, f"phase 21(e) serve {tag}")
+        e[f"serve {tag}"] = dict(counts(), ms=ms, coll_ms=coll, bits=lookups_bits,
+                                 score_err=score_err, ties=ties, rows=(lo, hi),
+                                 block=tuple(block.shape), unwritten=tensor_digest(block) == digest,
+                                 bytes=serve_bytes("serve", R=R, B=hi - lo, L=cfg.seq_len,
+                                                   d=cfg.embed_dim, k=TOP_K))
+        lay = serve_layout(sasrec, cfg, mesh, RECSYS_RETRIEVAL_RULES)
+        served = lay.load(shard_tree(params, lay.params, mesh))
+        c_lo, c_hi = lay.block(lay.cand_axes, n_cand)
+        part = {"seq": query["seq"], "candidates": query["candidates"][:, c_lo:c_hi]}
+        sharded_retrieval_step(served, part, cfg, lay)   # warm-up
+        counts_zero()
+        ms, coll, res = timed_steps(lambda i: sharded_retrieval_step(served, part, cfg, lay),
+                                    RECSYS_CALLS)
+        ret_err = float((res[-1] - want_ret[:, c_lo:c_hi]).abs().max())
+        e[f"retrieval {tag}"] = dict(counts(), ms=ms, coll_ms=coll, err=ret_err,
+                                     cands=(c_lo, c_hi),
+                                     unwritten=tensor_digest(served["item_emb"]) == digest,
+                                     bytes=serve_bytes("retrieval", R=R, B=1, L=cfg.seq_len,
+                                                       d=cfg.embed_dim, nc=c_hi - c_lo))
+        del served, res
+    e["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["e"] = e
+    for (mod, name), fn in real.items():
+        setattr(mod, name, fn)
+    dist.destroy_process_group()
+    return out
+
+
+def log_serve(tag, r, one_ms, rank, what):
+    ms = r["ms"]
+    log(f"[21] ({tag}) rank {rank}, {what}: {ms:.3f} ms a step (median after the first), "
+        f"one device {one_ms:.3f} ms; collectives {r['coll_ms']:.3f} ms a step = "
+        f"{r['coll_ms'] / ms:.3f} (each side synchronised; gloo on CUDA tensors, not an NCCL "
+        f"number); sent a step {r['bytes']} B (reckoned as ring collectives); kernel 5 / 6 "
+        f"launches {r['k5']} / {r['k6']}" + (f"; peak device memory {r['peak']} B"
+                                            if "peak" in r else ""))
+
+
+def drive_sharded_serve(dev) -> tuple:
+    """Phase 21: (a) kernel 6's lse in this process; then two gloo ranks on
+    the one card serve (b) qwen2-1.5B on (1, 2) under ``LM_PREFILL_RULES`` /
+    ``LM_DECODE_RULES``, (c) its long_500k cell uncut on (2, 1) under
+    ``LM_DECODE_LONG_RULES``, (d) deepseek-v2-lite-16b (MLA) cut to 2
+    layers on (1, 2), (e) SASRec's serve_p99 and retrieval_cand uncut on
+    (1, 2) and (2, 1), held to this process's one-device runs (made first,
+    freed before the spawn).  Returns the ranks' launches of kernels 5 and
+    6 on the path, and (a)'s timing."""
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.kernels import ATTN_REL_TOL
+    from repro_torch.launch import TOP_K
+
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    lse_timing = check_kernel6_lse(dev)
+    wall_a = time.perf_counter() - t_all
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    qcfg, long_cfg, mla_cfg, qwen, deep = serve_cells()
+    B, P, max_seq, steps = SERVE_LM
+    ref_b = serve_ref_lm(dev, qcfg, B, P, max_seq, steps, SEED + 210, 2)
+    torch.save(ref_b, SERVE_DIR / "qwen2.pt")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref_c = serve_ref_long(dev, long_cfg, SEED + 210, SERVE_LONG_STEPS)
+    torch.save(ref_c, SERVE_DIR / "long.pt")
+    torch.cuda.empty_cache()
+    layers, Bd, Pd, max_d, steps_d = SERVE_MLA
+    ref_d = serve_ref_lm(dev, mla_cfg, Bd, Pd, max_d, steps_d, SEED + 212, 2)
+    torch.save(ref_d, SERVE_DIR / "mla.pt")
+    torch.cuda.empty_cache()
+    ref_e = serve_ref_sasrec(dev)
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_all - wall_a
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=serve_rank, args=(r, 2, str(dev))) for r in range(2)]
+    t_spawn = time.perf_counter()
+    for p_ in procs:
+        p_.start()
+    deadline = time.monotonic() + SERVE_LIMIT_S
+    try:
+        for p_ in procs:
+            p_.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p_ in enumerate(procs) if p_.is_alive()]
+    finally:
+        for p_ in procs:
+            if p_.is_alive():
+                p_.kill()
+                p_.join(10)
+    spawn_s = time.perf_counter() - t_spawn
+    for r in range(2):
+        err = SERVE_DIR / f"rank{r}.err"
+        check(not err.exists(), f"phase 21 rank {r} failed:\n"
+              + (err.read_text() if err.exists() else ""))
+    check(not hung, f"phase 21: ranks {hung} still running after {SERVE_LIMIT_S} s, killed")
+    check(all(p_.exitcode == 0 for p_ in procs),
+          f"phase 21 exit codes {[p_.exitcode for p_ in procs]}")
+    res = [torch.load(SERVE_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    dcell = qwen["decode_32k"].batch_specs["tokens"].shape[0]
+    log(f"[21] from the registry: qwen2-1.5b prefill_32k / decode_32k cut to {B} prompts of {P} "
+        f"tokens (the cells' batches {qwen['prefill_32k'].batch_specs['tokens'].shape[0]} and "
+        f"{dcell}, prompts {qwen['prefill_32k'].batch_specs['tokens'].shape[1]}) into {max_seq} "
+        f"positions (the cells'), {steps} decode steps; long_500k uncut (batch 1, "
+        f"{long_cfg.kv_block} positions), {SERVE_LONG_STEPS} steps at its end; "
+        f"deepseek-v2-lite-16b cut to {layers} of {deep['decode_32k'].model_cfg.n_layers} layers, "
+        f"{Bd} x {Pd} prompts into {max_d} positions, {steps_d} steps; sasrec serve_p99 and "
+        f"retrieval_cand uncut; two gloo ranks on {CARD}; one-device references "
+        f"{t_ref:.1f} s")
+    k5 = k6 = 0
+    for r, rr in enumerate(res):
+        for tag, ref, cfg, n_layers in (("b", ref_b, qcfg, qcfg.n_layers),
+                                        ("d", ref_d, mla_cfg, mla_cfg.n_layers)):
+            x = rr[tag]
+            lo, hi = x["rows"]
+            rel0 = logits_rel_err(x["logits0"], ref["logits0"][lo:hi])
+            check(rel0 <= LOGITS_REL_TOL, f"phase 21({tag}) rank {r}: prefill logits {rel0}")
+            rel, _, worst, agree = compare_logits(
+                x["logits"], [w[lo:hi] for w in ref["logits"]], f"phase 21({tag}) rank {r}")
+            check(x["zero_past_prompt"], f"phase 21({tag}) rank {r}: a cache row past the "
+                                         "prompt was written by the prefill")
+            gqa = cfg.attn != "mla"
+            check(x["k6"] == (n_layers * len(ref["tokens"]) if gqa else 0),
+                  f"phase 21({tag}) rank {r}: kernel 6 launches {x['k6']}")
+            if tag == "b":
+                check(x["digest"] == ref["digests"][r],
+                      f"phase 21(b) rank {r}: the prefill's cache slice differs from the "
+                      "one-device prefill's rows")
+            if gqa:
+                check(x["attn_rel"] <= ATTN_REL_TOL[torch.bfloat16],
+                      f"phase 21({tag}) rank {r}: kernel 6 rows {x['attn_rel']} from plain")
+            k6 += x["k6"]
+            log(f"[21] ({tag}) rank {r}: {cfg.name} on (1, 2), batch rows {x['rows']}, cache "
+                f"positions {x['seq']}: load (parameter gather) {x['load_s']:.3f} s, prefill "
+                f"{x['prefill_s']:.3f} s (one device {ref['prefill_s']:.3f} s), logits against "
+                f"one device: prefill {rel0!r}, decode {rel!r} relative (limit "
+                f"{LOGITS_REL_TOL}), max abs {worst!r}, greedy tokens agree {agree}; "
+                + ("the prefill's slice bit for bit the one-device rows (SHA-256); kernel 6 "
+                   f"rows (lse, merged) against plain {x['attn_rel']!r} (ATTN_REL_TOL "
+                   f"{ATTN_REL_TOL[torch.bfloat16]!r})" if gqa else "MLA: kernel 6 launched 0 times"))
+            log_serve(tag, x, ref["ms"], r, "decode")
+        c = rr["c"]
+        relc, _, worstc, agreec = compare_logits(c["logits"], ref_c["logits"], f"phase 21(c) {r}")
+        check(c["k6"] == long_cfg.n_layers * SERVE_LONG_STEPS and c["attn_rel"] <=
+              ATTN_REL_TOL[torch.bfloat16], f"phase 21(c) rank {r}: kernel 6 launches {c['k6']}, rows "
+              f"{c['attn_rel']}")
+        k6 += c["k6"]
+        log(f"[21] (c) rank {r}: long_500k on (2, 1), positions {c['seq']} ({c['cache_bytes']} "
+            f"B of cache a rank), {SERVE_LONG_STEPS} steps at the end: logits against one device "
+            f"{relc!r} relative, max abs {worstc!r}, tokens agree {agreec}; kernel 6 rows "
+            f"against plain {c['attn_rel']!r}; one device's peak {ref_c['peak']} B")
+        log_serve("c", c, ref_c["ms"], r, "decode")
+        e = rr["e"]
+        for tag, x in e.items():
+            if tag == "peak":
+                continue
+            kind, mesh = tag.split(" ", 1)
+            if kind == "serve":
+                check(x["bits"] and x["score_err"] <= SCORE_TOL and x["unwritten"]
+                      and x["k5"] == RECSYS_CALLS,
+                      f"phase 21(e) rank {r} {tag}: lookups bit for bit {x['bits']}, scores "
+                      f"{x['score_err']}, item table unwritten {x['unwritten']}, kernel 5 "
+                      f"launches {x['k5']}")
+                what = (f"serve_p99 {mesh}, users {x['rows']}, item rows {x['block']}: lookups "
+                        f"bit for bit take_rows, scores within {x['score_err']!r} of one device, "
+                        f"top-{TOP_K} near-tie swaps {x['ties']}")
+                one = ref_e["serve_ms"]
+            else:
+                check(x["err"] <= SCORE_TOL and x["unwritten"] and x["k5"] == 2 * RECSYS_CALLS,
+                      f"phase 21(e) rank {r} {tag}: scores {x['err']}, kernel 5 launches "
+                      f"{x['k5']}")
+                what = (f"retrieval_cand {mesh}, candidates {x['cands']}: scores within "
+                        f"{x['err']!r} of one device")
+                one = ref_e["retrieval_ms"]
+            k5 += x["k5"]
+            log_serve("e", x, one, r, what)
+        log(f"[21] (e) rank {r}: item table unwritten (SHA-256); peak device memory {e['peak']} B")
+    log(f"[21] two ranks on {CARD}, gloo: (a) {wall_a:.1f} s, one-device references "
+        f"{t_ref:.1f} s, the spawn {spawn_s:.1f} s; kernel 5 / 6 launches on the ranks "
+        f"{k5} / {k6}; phase wall {time.perf_counter() - t_all:.1f} s")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return k5, k6, lse_timing
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     only = ap.add_mutually_exclusive_group()
@@ -6005,6 +6730,10 @@ def main(argv=None) -> int:
     only.add_argument("--shard-train-only", action="store_true",
                       help="build the kernels and run phase 20 alone (two ranks on the card "
                            "train SASRec and qwen2-1.5B on process meshes, gloo)")
+    only.add_argument("--shard-serve-only", action="store_true",
+                      help="build the kernels and run phase 21 alone (kernel 6's log-sum-exp; "
+                           "two ranks on the card serve qwen2-1.5B, its long_500k cell, "
+                           "deepseek's MLA and SASRec on process meshes, gloo)")
     only.add_argument("--gnn-only", action="store_true",
                       help="build the kernels and run phase 18 alone (the GNN family trained "
                            "on the card; no hand kernel lies on its path)")
@@ -6075,6 +6804,11 @@ def main(argv=None) -> int:
         drive_sharded_train(dev)
         kernels = []  # its launch counts are the ranks'; the full run lists every kernel
         log(f"wall seconds: sharded training {time.perf_counter() - t0:.1f}")
+    elif args.shard_serve_only:
+        t0 = time.perf_counter()
+        drive_sharded_serve(dev)
+        kernels = []  # its launch counts are the ranks'; the full run lists every kernel
+        log(f"wall seconds: sharded serving {time.perf_counter() - t0:.1f}")
     elif args.gnn_only:
         t0 = time.perf_counter()
         drive_gnn(dev)
@@ -6103,6 +6837,12 @@ def main(argv=None) -> int:
         for name, n in zip(("embedding_bag", "embedding_bag_backward", "embedding_bag_plan"),
                            shard):
             next(k for k in kernels if k["name"] == name)["launches"] += n
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        k5, k6, _ = drive_sharded_serve(dev)  # 21. serving on a process mesh, two ranks
+        log(f"wall seconds: sharded serving {time.perf_counter() - t0:.1f}")
+        next(k for k in kernels if k["name"] == "embedding_bag")["launches"] += k5
+        next(k for k in kernels if k["name"] == "decode_attention")["launches"] += k6
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """repro_torch.distributed — the logical-axis rules and their placement on
 a process mesh (``shardings``), elastic re-carving and restore
-(``elastic``), and the edge-partitioned graph engine's helpers, thin
-specializations of the sharded planner (``repro_torch.core.plan``), on an
-in-process ``ShardMesh`` or a ``ProcessMesh`` (one shard a rank,
-``repro_torch.core.make_process_mesh``)."""
+(``elastic``), the serving state sharded over a process mesh (``serving``:
+a cache's row ranges and the merge of their attention partials, a
+row-sharded table's lookups and top-k), and the edge-partitioned graph
+engine's helpers, thin specializations of the sharded planner
+(``repro_torch.core.plan``), on an in-process ``ShardMesh`` or a
+``ProcessMesh`` (one shard a rank, ``repro_torch.core.make_process_mesh``)."""
 from .elastic import carve_mesh, carve_shape, elastic_restore
 from .engine import (
     distributed_frontier_min,
@@ -11,6 +13,13 @@ from .engine import (
     distributed_vertex_reduce,
     prepare_sharded,
     shard_blocks_for_mesh,
+)
+from .serving import (
+    local_rows,
+    merge_attention,
+    merge_topk,
+    seq_block,
+    sharded_rows,
 )
 from .shardings import (
     GNN_RULES,
@@ -48,6 +57,11 @@ __all__ = [
     "carve_mesh",
     "carve_shape",
     "elastic_restore",
+    "seq_block",
+    "merge_attention",
+    "local_rows",
+    "sharded_rows",
+    "merge_topk",
     "LM_RULES",
     "LM_RULES_SP",
     "LM_PREFILL_RULES",

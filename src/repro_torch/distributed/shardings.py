@@ -151,6 +151,9 @@ class PartitionSpec(tuple):
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
+    def __getnewargs__(self):  # pickle: rebuild from the entries, not from one tuple
+        return tuple(self)
+
     def _normal(self) -> tuple:
         return tuple(_normal_entry(e) for e in self)
 

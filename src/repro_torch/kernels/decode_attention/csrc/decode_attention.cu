@@ -75,7 +75,10 @@
 // second launch (combine_kernel); the grid is not persistent, so each CTA
 // pays its ring's fill and drain; the CUDA-core body keeps one tile in
 // flight a warp.  The domain is 1 <= pos[b] <= S; pos = 0 gives 0, where the
-// TPU kernel averages V over its padded tile.
+// TPU kernel averages V over its padded tile.  With an lse pointer (a cache
+// sharded along its rows: each rank attends over its slice, and the ranks'
+// partials merge by their log-sum-exps) the domain is 0 <= pos[b] <= S, the
+// output float32 and lse the log-sum-exp, -inf at pos 0.
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
@@ -87,6 +90,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;   // warps a CTA
 constexpr int kTile = 32;   // rows a warp stages at a time: one a lane in phase 1
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -128,6 +132,7 @@ struct Args {
   float* part_l;
   float* part_acc;
   void* out;
+  float* lse;  // (B, Hq) float32, or null: see combine_kernel
 };
 
 // 16 bytes global -> shared, asynchronously; zeros (and no read) when !ok.
@@ -690,7 +695,10 @@ attend_mma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant_
   }
 }
 
-// Grid (Hq, B), D threads: merge the ranges of (b, h) that hold rows.
+// Grid (Hq, B), D threads: merge the ranges of (b, h) that hold rows.  With
+// a.lse set, out is float32 (the merge's value before any rounding) and lse
+// gets the natural-log log-sum-exp of the scaled scores, M ln 2 + ln L (M is
+// in the log2 domain); a sequence with no rows gives out 0 and lse -inf.
 template <typename T>
 __global__ void combine_kernel(Args a, int D) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
@@ -705,8 +713,19 @@ __global__ void combine_kernel(Args a, int D) {
     L += a.part_l[base + s] * c;
     A += a.part_acc[(base + s) * D + d] * c;
   }
-  static_cast<T*>(a.out)[(static_cast<size_t>(b) * a.Hq + h) * D + d] =
-      from_float<T>(A / fmaxf(L, 1e-30f));
+  const size_t o = static_cast<size_t>(b) * a.Hq + h;
+  static_cast<T*>(a.out)[o * D + d] = from_float<T>(A / fmaxf(L, 1e-30f));
+  if (a.lse != nullptr && d == 0) a.lse[o] = n == 0 ? -INFINITY : M * kLn2 + logf(L);
+}
+
+// combine_kernel with T the output's type: q's, or float32 when lse is asked for.
+template <typename T>
+cudaError_t launch_combine(const Args& a, int D, cudaStream_t stream) {
+  if (a.lse != nullptr)
+    combine_kernel<float><<<dim3(a.Hq, a.B), D, 0, stream>>>(a, D);
+  else
+    combine_kernel<T><<<dim3(a.Hq, a.B), D, 0, stream>>>(a, D);
+  return cudaGetLastError();
 }
 
 // Launch attend_kernel and combine_kernel for `a`, or, with `occupancy` set,
@@ -725,8 +744,7 @@ cudaError_t run(const Args& a, cudaStream_t stream, int* occupancy) {
       <<<dim3(a.splits, a.Hkv * nchunks, a.B), kWarps * 32, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_kernel<T><<<dim3(a.Hq, a.B), D, 0, stream>>>(a, D);
-  return cudaGetLastError();
+  return launch_combine<T>(a, D, stream);
 }
 
 // cuTensorMapEncodeTiled, reached through the CUDA runtime's entry-point
@@ -788,8 +806,7 @@ cudaError_t run_mma(const Args& a, cudaStream_t stream, int* occupancy) {
       <<<dim3(a.splits, a.Hkv * nchunks, a.B), threads, smem, stream>>>(tk, tv, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_kernel<__nv_bfloat16><<<dim3(a.Hq, a.B), D, 0, stream>>>(a, D);
-  return cudaGetLastError();
+  return launch_combine<__nv_bfloat16>(a, D, stream);
 }
 
 // q heads a CTA holds: the group's heads rounded up to 1, 2, 4, 6 or 8;
@@ -855,17 +872,19 @@ extern "C" void decode_attention_ring(int* stages, int* rows, int* consumers, in
 // 1 bfloat16), contiguous and 16-byte aligned; pos (B,) int32.  The rows of
 // each (b, KV head) are cut into `splits` ranges of `rows` rows; part_m,
 // part_l (B, Hq, splits) and part_acc (B, Hq, splits, D) are float32
-// scratch.  Writes out (B, Hq, D) in the dtype of q.  `scale` is 1/sqrt(D).
-// Returns the cudaError_t of the launches (0 on success).
+// scratch.  Writes out (B, Hq, D) in the dtype of q; with lse (B, Hq) float32
+// non-null, out is float32 and lse gets each row's log-sum-exp, and pos may be 0.
+// `scale` is 1/sqrt(D).  Returns the cudaError_t of the launches (0 on success).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const int* pos, int B, int S, int Hq, int Hkv, int D,
                                        int dtype, int splits, int rows, float scale,
                                        float* part_m, float* part_l, float* part_acc,
-                                       void* out, void* stream) {
+                                       void* out, float* lse, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv < 1 || Hq % Hkv != 0 || splits < 1 || rows < 1 ||
       static_cast<long long>(splits) * rows < S || B > 65535 || Hq > 65535)
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, pos, B, S, Hq, Hkv, splits, rows, scale, part_m, part_l, part_acc, out};
+  const Args a{q, k, v, pos, B, S, Hq, Hkv, splits, rows, scale, part_m, part_l, part_acc, out,
+               lse};
   return run_dtype(a, dtype, D, static_cast<cudaStream_t>(stream), nullptr);
 }

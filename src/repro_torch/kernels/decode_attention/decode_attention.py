@@ -27,6 +27,11 @@ CUDA-core kernel (3 CTAs an SM there).  Each CTA writes a partial
 ``B · Hq · splits · (D + 2)`` floats, and a second kernel combines the
 splits into the output.
 
+With ``return_lse=True`` the combine also writes each row's log-sum-exp
+and leaves the output in float32, so that the partials of a cache sharded
+along its rows merge across ranks with one rounding
+(``repro_torch.distributed.serving.merge_attention``).
+
 ``decode_attention.launches`` counts the launches of the attention
 kernel (a plain integer, bumped once per launch and nowhere else).
 """
@@ -58,7 +63,7 @@ _ARGTYPES = [
     _I, _I, _I,            # dtype code, splits, rows per split
     ctypes.c_float,        # 1/sqrt(D)
     _P, _P, _P,            # partial m, partial l, partial acc
-    _P, _P,                # out, stream
+    _P, _P, _P,            # out, lse (null: none), stream
 ]
 
 
@@ -129,14 +134,21 @@ def kernel_config(q: torch.Tensor, k: torch.Tensor) -> dict:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor, return_lse: bool = False):
     """q (B, Hq, D); k, v (B, S, Hkv, D), Hkv dividing Hq; pos (B,) int32
     with ``1 <= pos <= S`` → (B, Hq, D) in ``q.dtype``.  On the card: float32
     or bfloat16 (q, k and v of one dtype), D in ``HEAD_DIMS``, contiguous
     operands.  ``decode_attention_ref``'s function, with the sums in another
-    order."""
+    order.
+
+    ``return_lse=True`` (a cache sharded along its rows, one slice a rank)
+    gives ``(out, lse)``: ``out`` (B, Hq, D) float32, unrounded, and ``lse``
+    (B, Hq) float32, the natural-log log-sum-exp of the scaled scores over
+    the first ``pos[b]`` rows; the domain is ``0 <= pos <= S``, and a
+    sequence at 0 gives ``out`` 0 and ``lse`` -inf, the identity of the
+    merge across slices."""
     if kernel_route(q.device) == "torch":
-        return decode_attention_ref(q, k, v, pos)
+        return decode_attention_ref(q, k, v, pos, return_lse=return_lse)
     dev = q.device
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"q must be (B, H, D) and k (B, S, H, D), got {tuple(q.shape)}, "
@@ -153,9 +165,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand("k", k, (q.dtype,), (B, S, Hkv, D), dev, align=16)
     check_operand("v", v, (q.dtype,), (B, S, Hkv, D), dev, align=16)
     check_operand("pos", pos, (torch.int32,), (B,), dev)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.full((B, Hq), -math.inf, dtype=torch.float32, device=dev) if return_lse else None
     if B == 0 or S == 0:
-        return out.zero_()
+        return (out.zero_(), lse) if return_lse else out.zero_()
     splits, rows = split_rows(q, k)
     part_m = torch.empty((B, Hq, splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
@@ -164,11 +177,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         B, S, Hq, Hkv, D, _DTYPES[q.dtype], splits, rows, 1.0 / math.sqrt(D),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(status, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -23,14 +23,19 @@ NEG_INF = -1e30
 ATTN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
-def decode_attention_ref(q, k, v, pos):
+def decode_attention_ref(q, k, v, pos, return_lse: bool = False):
     """q (B, Hq, D); k, v (B, S, Hkv, D) with Hkv dividing Hq; pos (B,)
     int32, the valid cache length of each sequence → (B, Hq, D) in
     ``q.dtype``.  q head ``h`` attends to KV head ``h // (Hq // Hkv)``.
 
     Scores, softmax and the weighted sum are float32.  The domain is
     ``1 <= pos <= S``: at ``pos = 0`` every score is masked and this
-    averages V over all S rows, as the JAX oracle does."""
+    averages V over all S rows, as the JAX oracle does.
+
+    ``return_lse=True`` gives ``(out, lse)``, ``out`` float32 and ``lse``
+    (B, Hq) float32 the natural-log log-sum-exp of the scaled scores over
+    the first ``pos[b]`` rows, on the domain ``0 <= pos <= S``: a sequence
+    at 0 gives ``out`` 0 and ``lse`` -inf."""
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     scale = torch.reciprocal(torch.sqrt(torch.tensor(float(D), device=q.device)))
@@ -38,10 +43,17 @@ def decode_attention_ref(q, k, v, pos):
     s = torch.einsum("bghd,bsgd->bghs", qf, k.float())
     mask = torch.arange(S, device=q.device)[None, :] < pos.to(q.device)[:, None]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-    out = torch.einsum("bghs,bsgd->bghd", p, v.float())
-    return out.reshape(B, Hq, D).to(q.dtype)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if return_lse:
+        p = torch.where(mask[:, None, None, :], p, 0.0)
+    total = p.sum(dim=-1, keepdim=True)
+    p = p / torch.clamp_min(total, 1e-30)
+    out = torch.einsum("bghs,bsgd->bghd", p, v.float()).reshape(B, Hq, D)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = (m + torch.log(total)).reshape(B, Hq)
+    return out, torch.where(pos.to(q.device)[:, None] > 0, lse, -torch.inf)
 
 
 def decode_attention_rel_err(got, want) -> float:

@@ -1,12 +1,19 @@
 """Step bodies of the port's cells, ``build_step`` with its placements,
-the sharded train step on a process mesh, and the fault-tolerant trainer."""
+the sharded train step and the sharded serving steps on a process mesh
+(``TrainLayout``, ``ServeLayout``), and the fault-tolerant trainer."""
 from .steps import (
     TOP_K,
+    ServeLayout,
     TrainLayout,
     assert_topk_agrees,
     build_step,
     sasrec_retrieval_step,
     sasrec_serve_step,
+    serve_layout,
+    sharded_decode_step,
+    sharded_prefill_step,
+    sharded_retrieval_step,
+    sharded_serve_step,
     sharded_train_step,
     train_layout,
     train_step,

@@ -9,6 +9,10 @@
                            as the rank's blocks (``TrainLayout``)
   sasrec_serve_step      — full-catalog scores, then the top ``TOP_K`` (100)
   sasrec_retrieval_step  — the scores of an explicit candidate list
+  sharded_prefill_step / sharded_decode_step / sharded_serve_step /
+  sharded_retrieval_step — the serving cells on a ``ProcessMesh``
+                           (``ServeLayout``: the rank's cache range, catalog
+                           block, batch rows and vocab columns)
   build_step(cell, mesh) — ``(fn, arg_specs, in_specs, out_specs)`` of a cell
 
 ``value_and_grad`` is ``jax.value_and_grad`` over a parameter tree;
@@ -33,10 +37,30 @@ the global batch:
 5. AdamW updates the rank's block of every leaf and of its moments (the
    update is elementwise).
 
-This slice stores shards but computes on gathered parameters: a rank's
-peak memory is about the one-device step's.  Every decision before a
-collective reads replicated state, so every rank issues the same
-collectives in the same order.
+The sharded serving steps hold the serving state as the cell's rules
+place it and compute on parameters gathered once, when the server loads
+(``ServeLayout.load``; SASRec's ``item_emb`` stays the rank's block):
+
+* prefill (``LM_PREFILL_RULES``): the rank prefills its batch rows whole
+  and keeps its ``cache_seq`` block of every cache leaf;
+* decode (``LM_DECODE_RULES``, ``LM_DECODE_LONG_RULES``): the owner of
+  position ``pos`` writes the new row; every rank attends over its slice
+  (kernel 6 with its log-sum-exp, or MLA's plain partial) and the partials
+  merge over the ``cache_seq`` axes (``distributed.serving.merge_attention``,
+  one all-gather a layer); the logits are the rank's vocab columns;
+* serve (``RECSYS_RULES``): the rank's users' history through
+  ``sharded_rows`` (kernel 5, one all-reduce), scores against its catalog
+  block, a local top 100 and ``merge_topk`` over the table's axes;
+* retrieval (``RECSYS_RETRIEVAL_RULES``): the candidate ids all-gathered
+  over the table's axes, the candidates the rank owns scored (0 for the
+  rest), one SUM all-reduce (gloo has no reduce-scatter: an all-reduce and
+  the rank's slice) and the rank's block kept.
+
+Compute is not sharded yet: a rank's products use whole parameters, and
+its peak memory is about the one-device step's less the serving state it
+does not hold.  Every decision before a collective reads replicated state
+(the step's ``pos``, the shapes), so every rank issues the same collectives
+in the same order.
 """
 from __future__ import annotations
 
@@ -44,10 +68,18 @@ import dataclasses
 import math
 
 import torch
-import torch.distributed as dist
 
 from ..configs.common import Cell, TensorSpec
 from ..core.mesh import ProcessMesh, ShardMesh
+from ..distributed.serving import (
+    all_reduce_sum,
+    gather_parts,
+    local_rows,
+    merge_attention,
+    merge_topk,
+    seq_block,
+    sharded_rows,
+)
 from ..distributed.shardings import (
     PartitionSpec,
     axis_rules,
@@ -58,6 +90,7 @@ from ..distributed.shardings import (
     spec_tree,
 )
 from ..models import sasrec
+from ..models import transformer_lm as lm
 from ..optim import (
     AdamWConfig,
     adamw_update,
@@ -153,7 +186,7 @@ def assert_topk_agrees(got: dict, want: dict, ref_scores: torch.Tensor, tol: flo
 # ----------------------------------------------------------------------
 # the sharded train step on a process mesh
 # ----------------------------------------------------------------------
-LATER = "ROADMAP.md, queue 1"
+LATER = "ROADMAP.md, queue 1: item 6, the GNN combine; item 7, sharded compute"
 
 
 def param_tensor_specs(model, cfg) -> dict:
@@ -232,20 +265,11 @@ def train_layout(model, cfg, mesh: ProcessMesh, rules: dict | None) -> TrainLayo
                        shapes=param_tensor_specs(model, cfg), batch_axes=batch_axes)
 
 
-def all_reduce_sum(t: torch.Tensor, axes: tuple, mesh: ProcessMesh) -> torch.Tensor:
-    """``t`` summed in place over the ranks that differ from this one in
-    ``axes`` alone: one all-reduce on each axis's group."""
-    for a in axes:
-        if mesh.axis_size(a) > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.axis_groups[a])
-    return t
-
-
 def reduce_gradients(grads, axes: tuple, mesh: ProcessMesh):
     """The float32 gradient tree summed over ``axes``, one all-reduce a leaf
     (in walk order)."""
     for g in tree_leaves(grads):
-        all_reduce_sum(g, axes, mesh)
+        all_reduce_sum(g, mesh, axes)
     return grads
 
 
@@ -265,7 +289,7 @@ def data_parallel_value_and_grad(model, params, batch: dict, cfg, layout: TrainL
     for i, (a, b) in enumerate(pieces):
         if a < b:
             counts[i] = torch.sum(model.loss_mask({k: v[a:b] for k, v in batch.items()}))
-    all_reduce_sum(counts, axes, mesh)
+    all_reduce_sum(counts, mesh, axes)
     denom = accum * torch.clamp(counts, min=1.0)
     acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -279,7 +303,7 @@ def data_parallel_value_and_grad(model, params, batch: dict, cfg, layout: TrainL
         loss += lval
         del g
     reduce_gradients(acc, axes, mesh)
-    all_reduce_sum(loss, axes, mesh)
+    all_reduce_sum(loss, mesh, axes)
     return loss, acc
 
 
@@ -307,13 +331,143 @@ def sharded_train_step(model, params, opt_state: dict, batch: dict, cfg, layout:
 
 
 # ----------------------------------------------------------------------
+# the sharded serving steps on a process mesh
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """Where a serving cell's state lives on a ``ProcessMesh``: the spec
+    tree and global shapes of the parameters, the top-level leaves that stay
+    the rank's block when the server loads (SASRec's ``item_emb``), and the
+    mesh axes that split the batch's rows, a cache's ``cache_seq``, the
+    logits' vocab columns, the item table's rows and a candidate list."""
+
+    mesh: ProcessMesh
+    params: dict          # PartitionSpec tree of the parameters
+    shapes: dict          # TensorSpec tree of the global parameters
+    kept: tuple           # leaves kept as the rank's block at load
+    batch_axes: tuple
+    seq_axes: tuple
+    vocab_axes: tuple
+    rows_axes: tuple
+    cand_axes: tuple
+
+    def block(self, axes: tuple, n: int) -> tuple[int, int]:
+        """This rank's range [lo, hi) of a dimension of ``n`` over ``axes``."""
+        return seq_block(self.mesh, axes, n)
+
+    def rows(self, n: int) -> tuple[int, int]:
+        """This rank's rows [lo, hi) of a global batch of ``n`` rows."""
+        return self.block(self.batch_axes, n)
+
+    def load(self, blocks: dict) -> dict:
+        """The serving parameters from the rank's blocks: every leaf
+        gathered (``gather_tree``, once, when the server loads) except the
+        ``kept`` ones, which stay blocks."""
+        rest = lambda t: {k: v for k, v in t.items() if k not in self.kept}  # noqa: E731
+        full = gather_tree(rest(blocks), rest(self.params), rest(self.shapes), self.mesh)
+        return {k: blocks[k] if k in self.kept else full[k] for k in blocks}
+
+    def cache_slice(self, max_seq: int):
+        """The ``transformer_lm.CacheSlice`` of a cache of ``max_seq``
+        positions: this rank's range and the merge over ``seq_axes``."""
+        lo, hi = self.block(self.seq_axes, max_seq)
+        return lm.CacheSlice(lo, hi, max_seq,
+                             lambda out, lse: merge_attention(out, lse, self.mesh,
+                                                              self.seq_axes))
+
+
+def serve_layout(model, cfg, mesh: ProcessMesh, rules: dict | None) -> ServeLayout:
+    """The ``ServeLayout`` of ``model`` (the LM or SASRec) under ``rules``
+    on ``mesh``."""
+    with axis_rules(rules, mesh):
+        p_spec = spec_tree(model.param_specs(cfg))
+        axes = {name: spec_axes(logical_to_spec(name)[0])
+                for name in ("batch", "cache_seq", "vocab", "vocab_rows", "candidates")}
+    return ServeLayout(mesh=mesh, params=p_spec, shapes=param_tensor_specs(model, cfg),
+                       kept=("item_emb",) if model is sasrec else (),
+                       batch_axes=axes["batch"], seq_axes=axes["cache_seq"],
+                       vocab_axes=axes["vocab"], rows_axes=axes["vocab_rows"],
+                       cand_axes=axes["candidates"])
+
+
+def sharded_prefill_step(params: dict, tokens: torch.Tensor, cfg, layout: ServeLayout,
+                         max_seq: int | None = None):
+    """Prefill on ``layout.mesh``: ``params`` gathered (``ServeLayout.load``),
+    ``tokens`` this rank's batch rows (B_r, S), prefilled whole into caches
+    of ``max_seq`` positions (default S) of which the rank keeps its
+    ``cache_seq`` block.  Returns ``(logits (B_r, V_r), caches)``: the last
+    position's logits at the rank's vocab columns and its cache blocks."""
+    part = layout.cache_slice(max_seq or tokens.shape[1])
+    vocab = layout.block(layout.vocab_axes, cfg.vocab)
+    return lm.prefill(params, tokens, cfg, cache_slice=part, vocab=vocab)
+
+
+def sharded_decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int, cfg,
+                        layout: ServeLayout, *, attention=None):
+    """One decode step on ``layout.mesh``: ``caches`` the rank's blocks (its
+    batch rows, its ``cache_seq`` range), ``tokens`` (B_r, 1) its rows at
+    the replicated position ``pos``; ``attention`` as ``decode_step`` takes
+    it.  Returns ``(logits (B_r, V_r), caches)``, the blocks updated in
+    place (only the owner of ``pos`` writes)."""
+    rows = next(iter(next(iter(caches.values())).values())).shape[2]
+    parts = math.prod(layout.mesh.axis_size(a) for a in layout.seq_axes)
+    vocab = layout.block(layout.vocab_axes, cfg.vocab)
+    return lm.decode_step(params, caches, tokens, pos, cfg, attention=attention,
+                          cache_slice=layout.cache_slice(rows * parts), vocab=vocab)
+
+
+def _table(params: dict, layout: ServeLayout):
+    """(block, lo, lookup): this rank's ``item_emb`` rows, where they start,
+    and ``sharded_rows`` over the table's axes."""
+    block = params["item_emb"]
+    lo = layout.block(layout.rows_axes, block.shape[0] * math.prod(
+        layout.mesh.axis_size(a) for a in layout.rows_axes))[0]
+    return block, lo, lambda ids: sharded_rows(block, ids, lo, layout.mesh, layout.rows_axes)
+
+
+def sharded_serve_step(params: dict, batch: dict, cfg: sasrec.SASRecConfig,
+                       layout: ServeLayout) -> dict:
+    """``sasrec_serve_step`` on ``layout.mesh``: ``params`` loaded (the
+    rank's ``item_emb`` rows, the rest whole), ``batch["seq"]`` this rank's
+    users.  Their top ``TOP_K`` of the whole catalog, best first:
+    ``{"values", "indices" int32}`` (B_r, 100)."""
+    block, lo, lookup = _table(params, layout)
+    scores = sasrec.serve_scores(params, batch, cfg, lookup=lookup)
+    values, at = torch.topk(scores, min(TOP_K, block.shape[0]), dim=-1, largest=True,
+                            sorted=True)
+    values, indices = merge_topk(values, (at + lo).to(torch.int32), TOP_K, layout.mesh,
+                                 layout.rows_axes)
+    return {"values": values, "indices": indices}
+
+
+def sharded_retrieval_step(params: dict, batch: dict, cfg: sasrec.SASRecConfig,
+                           layout: ServeLayout) -> torch.Tensor:
+    """``sasrec_retrieval_step`` on ``layout.mesh``: ``batch["seq"]`` this
+    rank's users, ``batch["candidates"]`` (B_r, NC_r) its block of their
+    candidate list.  The ids are all-gathered over the table's axes; the
+    rank scores those whose rows it owns (0 for the rest), one SUM
+    all-reduce over those axes completes every score, and the rank keeps
+    its block: (B_r, NC_r)."""
+    block, lo, lookup = _table(params, layout)
+    mesh, axes = layout.mesh, layout.rows_axes
+    cands = batch["candidates"]
+    line = gather_parts(cands, mesh, axes)                  # (R, B_r, NC_r)
+    ids = line.permute(1, 0, 2).reshape(cands.shape[0], -1)
+    n_global = block.shape[0] * line.shape[0]
+    scores = sasrec.retrieval_scores(
+        params, {"seq": batch["seq"], "candidates": ids}, cfg, lookup=lookup,
+        candidate_rows=lambda c: local_rows(block, c, lo, n_global))
+    all_reduce_sum(scores, mesh, axes)
+    r, nc = mesh.shard_index(axes), cands.shape[1]
+    return scores[:, r * nc:(r + 1) * nc].contiguous()
+
+
+# ----------------------------------------------------------------------
 # build_step: a cell's step, its inputs and their placements
 # ----------------------------------------------------------------------
 def _module_for(cell: Cell):
     if cell.family == "lm":
-        from ..models import transformer_lm
-
-        return transformer_lm
+        return lm
     if cell.family == "recsys":
         return sasrec
     from ..models.gnn import module_of
@@ -334,21 +488,27 @@ def build_step(cell: Cell, mesh):
     ``param_specs``, ``state_logical_specs``, ``cache_specs`` and
     ``cell.batch_logical`` under ``cell.rules``.
 
-    ``fn`` is, for the LM and SASRec train cells on a ``ProcessMesh``, the
-    sharded train step (blocks in, blocks out, the global batch); anywhere
-    else the one-device body.  Raises ``NotImplementedError`` for the other
-    kinds, and for a GNN train cell, on a process mesh of more than one rank
-    (sharded caches and catalogs, and the GNNs' combine, are later slices),
-    and ``TypeError`` for a train cell on a ``ShardMesh`` of more than one
-    position (training takes one shard a process)."""
+    ``fn`` is, for the LM and SASRec cells on a ``ProcessMesh`` of more
+    than one rank, the sharded step: blocks in (the parameters, a decode's
+    caches), blocks out (the parameters and AdamW state, the caches, the
+    outputs as ``out_specs`` place them), the global batch.  Its serving
+    steps gather the parameters on every call; a server gathers them once,
+    when it loads (``ServeLayout.load``), and calls the ``sharded_*_step``
+    below it, as ``Trainer`` calls ``sharded_train_step``.  Anywhere else
+    ``fn`` is the one-device body.  Raises ``NotImplementedError`` for a GNN
+    train cell on a process mesh of more than one rank (the aggregation's
+    combine is a later slice), and ``TypeError`` for a train cell on a
+    ``ShardMesh`` of more than one position (training takes one shard a
+    process)."""
     mod = _module_for(cell)
     cfg = cell.model_cfg
     on_ranks = isinstance(mesh, ProcessMesh) and mesh.size > 1
-    if on_ranks and (cell.kind != "train" or cell.family == "gnn"):
+    if on_ranks and cell.family == "gnn":
         raise NotImplementedError(
             f"{cell.arch}/{cell.shape} ({cell.kind}) on a process mesh of {mesh.size} ranks: "
-            f"sharded caches, catalogs and the GNN aggregation's combine are a later slice "
-            f"({LATER})")
+            f"the GNN aggregation's combine is a later slice ({LATER})")
+    layout = serve_layout(mod, cfg, mesh, cell.rules) if on_ranks and cell.kind != "train" \
+        else None
     with axis_rules(cell.rules, mesh):
         p_logical = mod.param_specs(cfg)
         p_spec = spec_tree(p_logical)
@@ -376,7 +536,10 @@ def build_step(cell: Cell, mesh):
 
     if cell.kind == "prefill":
         def fn(params, batch):
-            return mod.prefill(params, batch["tokens"], cfg)
+            if layout is None:
+                return mod.prefill(params, batch["tokens"], cfg)
+            lo, hi = layout.rows(batch["tokens"].shape[0])
+            return sharded_prefill_step(layout.load(params), batch["tokens"][lo:hi], cfg, layout)
 
         with axis_rules(cell.rules, mesh):
             c_spec = spec_tree(mod.cache_specs(cfg))
@@ -392,7 +555,11 @@ def build_step(cell: Cell, mesh):
             logits_spec = logical_to_spec("batch", "vocab")
 
         def fn(params, caches, batch):
-            return mod.decode_step(params, caches, batch["tokens"], int(batch["pos"]), cfg)
+            if layout is None:
+                return mod.decode_step(params, caches, batch["tokens"], int(batch["pos"]), cfg)
+            lo, hi = layout.rows(batch["tokens"].shape[0])
+            return sharded_decode_step(layout.load(params), caches, batch["tokens"][lo:hi],
+                                       int(batch["pos"]), cfg, layout)
 
         return (fn, (params_shape, _tensor_specs(cache), cell.batch_specs),
                 (p_spec, c_spec, batch_spec), (logits_spec, c_spec))
@@ -402,7 +569,11 @@ def build_step(cell: Cell, mesh):
             out_spec = logical_to_spec("batch", None)
 
         def fn(params, batch):
-            return sasrec_serve_step(params, batch, cfg)
+            if layout is None:
+                return sasrec_serve_step(params, batch, cfg)
+            lo, hi = layout.rows(batch["seq"].shape[0])
+            return sharded_serve_step(layout.load(params), {"seq": batch["seq"][lo:hi]}, cfg,
+                                      layout)
 
         return (fn, (params_shape, cell.batch_specs), (p_spec, batch_spec),
                 {"values": out_spec, "indices": out_spec})
@@ -412,7 +583,14 @@ def build_step(cell: Cell, mesh):
             out_spec = logical_to_spec("batch", "candidates")
 
         def fn(params, batch):
-            return sasrec_retrieval_step(params, batch, cfg)
+            if layout is None:
+                return sasrec_retrieval_step(params, batch, cfg)
+            lo, hi = layout.rows(batch["seq"].shape[0])
+            c_lo, c_hi = layout.block(layout.cand_axes, batch["candidates"].shape[1])
+            return sharded_retrieval_step(
+                layout.load(params), {"seq": batch["seq"][lo:hi],
+                                      "candidates": batch["candidates"][lo:hi, c_lo:c_hi]},
+                cfg, layout)
 
         return fn, (params_shape, cell.batch_specs), (p_spec, batch_spec), out_spec
 

@@ -22,11 +22,21 @@ in ``loss_fn``, the candidates in ``retrieval_scores``) is
 here: bags of one of the EmbeddingBag kernel, whose backward kernel carries
 the gradient to ``item_emb``.  The catalog product and the candidate dot
 are plain products.  No remat, as in the JAX package.
+
+The serving functions take their lookups as arguments (``ids → rows``), so
+that a ``ProcessMesh`` serving step can hold ``item_emb`` as the rank's
+block of rows: ``encode``'s history through ``lookup``
+(``distributed.serving.sharded_rows`` there), ``retrieval_scores``'
+candidates through ``candidate_rows`` (``local_rows``: the rank's own rows,
+zero elsewhere), and ``serve_scores`` scores whatever rows
+``params["item_emb"]`` holds.  The defaults are ``take_rows`` on the whole
+table.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -126,13 +136,20 @@ def params_to(params, device):
     return params.to(device)
 
 
-def encode(params: dict, seq: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
-    """seq: (B, L) item ids (0 = padding) → user states (B, L, d)."""
+def _table_rows(params: dict):
+    return lambda ids: take_rows(params["item_emb"], ids)
+
+
+def encode(params: dict, seq: torch.Tensor, cfg: SASRecConfig, *,
+           lookup: Callable | None = None) -> torch.Tensor:
+    """seq: (B, L) item ids (0 = padding) → user states (B, L, d).  The
+    history's rows come from ``lookup(ids)`` (default ``take_rows`` on
+    ``item_emb``)."""
     B, L = seq.shape
     d = cfg.embed_dim
     H = cfg.n_heads
     keep = (seq > 0)[..., None]
-    x = take_rows(params["item_emb"], seq)
+    x = (lookup or _table_rows(params))(seq)
     x = x * math.sqrt(d) + params["pos_emb"][None, :L]
     x = x * keep
     for bp in params["blocks"]:
@@ -176,15 +193,23 @@ def loss_fn(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:
     return total / torch.clamp(count, min=1.0)
 
 
-def serve_scores(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:
-    """Full-catalog scoring: seq (B, L) → scores (B, vocab)."""
-    h = encode(params, batch["seq"], cfg)[:, -1]  # (B, d)
+def serve_scores(params: dict, batch: dict, cfg: SASRecConfig, *,
+                 lookup: Callable | None = None) -> torch.Tensor:
+    """Full-catalog scoring: seq (B, L) → scores (B, rows), one column a row
+    of ``params["item_emb"]``: the whole catalog, or a rank's block [lo,
+    hi) of it (then ``lookup`` reads the history from every rank's block)."""
+    h = encode(params, batch["seq"], cfg, lookup=lookup)[:, -1]  # (B, d)
     return h @ params["item_emb"].T
 
 
-def retrieval_scores(params: dict, batch: dict, cfg: SASRecConfig) -> torch.Tensor:
+def retrieval_scores(params: dict, batch: dict, cfg: SASRecConfig, *,
+                     lookup: Callable | None = None,
+                     candidate_rows: Callable | None = None) -> torch.Tensor:
     """One (or few) queries × explicit candidate list: seq (B, L),
-    candidates (B, NC) → (B, NC).  A batched dot, never a loop."""
-    h = encode(params, batch["seq"], cfg)[:, -1]  # (B, d)
-    ce = take_rows(params["item_emb"], batch["candidates"])  # (B, NC, d)
+    candidates (B, NC) → (B, NC).  A batched dot, never a loop.  The
+    candidates' rows come from ``candidate_rows(ids)`` (default
+    ``take_rows``): a rank's own rows, zero elsewhere, score only the
+    candidates it owns (0 for the rest)."""
+    h = encode(params, batch["seq"], cfg, lookup=lookup)[:, -1]  # (B, d)
+    ce = (candidate_rows or _table_rows(params))(batch["candidates"])  # (B, NC, d)
     return torch.einsum("bd,bcd->bc", h, ce)

@@ -20,6 +20,7 @@ of them (the JAX package scans them).
   loss_mask(batch)                          → the positions that count
   prefill(params, tokens, cfg, max_seq=)    → (last-position logits, caches)
   decode_step(params, caches, tok, pos, cfg) → (logits, caches)
+  CacheSlice(lo, hi, max_seq, merge)        → a rank's slice of sharded caches
 
 A training forward (no caches, autograd recording) recomputes each layer
 in the backward, as the JAX package wraps each layer in ``jax.checkpoint``:
@@ -42,6 +43,23 @@ cache and attends with ``gqa_attention`` at ``q_offset = pos``, as the JAX
 package does (the kernel takes no 192/128 head dims).  ``cfg.attn`` alone
 picks the route.
 
+Caches sharded along ``cache_seq`` (a ``ProcessMesh`` serving cell): with
+``cache_slice=CacheSlice(lo, hi, max_seq, merge)``, ``prefill``,
+``decode_step`` and ``forward`` take the rank's slice of every cache leaf,
+positions [lo, hi) of ``max_seq``, (L, B, hi - lo, ...), and write only the
+rows that fall in it, at ``position - lo``.  A decode step attends over the
+slice's first ``clamp(pos + 1 - lo, 0, hi - lo)`` rows and ``merge`` (the
+mesh's ``distributed.serving.merge_attention``) combines the ranks' float32
+partials by their log-sum-exps before the one rounding: GQA through kernel 6
+with ``return_lse=True``, MLA through ``nn.attention.partial_attention``
+over K and V materialised from the slice's valid rows.  A sliced prefill
+(from position 0) attends over the prompt's own rows, zero-padded to the
+end of the last kv block that holds one, so its blocks are those of the
+one-device prefill over ``max_seq`` rows (the rest are all masked and add
+exactly 0).  ``vocab=(lo, hi)`` gives the logits' columns [lo, hi) alone:
+the hidden state times those rows of the tied embedding.  Without a slice
+every path is the one-device path.
+
 Not here yet: a sliding window at decode (no configuration sets
 ``window``; the decode kernel raises on it).
 """
@@ -60,7 +78,7 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
-from ..nn.attention import gqa_attention
+from ..nn.attention import gqa_attention, partial_attention
 from ..nn.mlp import draw_normal, swiglu, swiglu_specs
 from ..nn.moe import MoECfg, moe_ffn, moe_specs
 from ..nn.norms import rms_norm
@@ -225,18 +243,85 @@ def layer_params(layers: dict, i: int) -> dict:
 # ----------------------------------------------------------------------
 # forward
 # ----------------------------------------------------------------------
-def _attend(q, k, v, cfg: LMConfig, pos):
+@dataclasses.dataclass(frozen=True)
+class CacheSlice:
+    """A rank's slice of caches sharded along ``cache_seq``: the caches it
+    holds are positions [lo, hi) of ``max_seq``; ``merge(out, lse)`` combines
+    the single-token attention's float32 partials (B, Hq, D) and (B, Hq)
+    over the ranks into float32 (B, Hq, D)."""
+
+    lo: int
+    hi: int
+    max_seq: int
+    merge: Callable
+
+    def length(self, pos: int) -> int:
+        """Valid rows of the slice at a decode step at ``pos`` (its row
+        written): ``clamp(pos + 1 - lo, 0, hi - lo)``."""
+        return min(max(pos + 1 - self.lo, 0), self.hi - self.lo)
+
+
+def _attend(q, k, v, cfg: LMConfig, pos, causal_skip=None):
     return gqa_attention(
         q, k, v, causal=True, q_offset=0 if pos is None else pos, kv_block=cfg.kv_block,
-        window=cfg.window, mixed=cfg.attn_mixed_precision, causal_skip=cfg.attn_causal_skip,
+        window=cfg.window, mixed=cfg.attn_mixed_precision,
+        causal_skip=cfg.attn_causal_skip if causal_skip is None else causal_skip,
     )
 
 
-def _mla_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None):
+def _write_slice(cache: dict, rows: dict, pos: int, lo: int):
+    """Rows of positions [pos, pos + S) into a cache slice holding
+    positions from ``lo``: only those that fall in the slice, at
+    ``position - lo``, in place."""
+    S = next(iter(rows.values())).shape[1]
+    n = next(iter(cache.values())).shape[1]
+    a, b = max(pos, lo), min(pos + S, lo + n)
+    if a < b:
+        for name, r in rows.items():
+            cache[name][:, a - lo:b - lo] = r[:, a - pos:b - pos]
+
+
+def _pad_rows(t, rows: int):
+    """``t`` (B, S, ...) with zero rows appended up to ``rows``."""
+    if t.shape[1] >= rows:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], rows - t.shape[1]) + tuple(t.shape[2:]))], 1)
+
+
+def _prefill_rows(cfg: LMConfig, S: int, max_seq: int) -> int:
+    """The rows a sliced prefill of S prompt tokens attends over: up to the
+    end of the last kv block that holds one, as the one-device prefill's
+    blocks over ``max_seq`` rows fall."""
+    kb = min(cfg.kv_block, max_seq)
+    return min(max_seq, -(-S // kb) * kb)
+
+
+def _attend_prefill(q, k, v, cfg: LMConfig, max_seq: int):
+    """A sliced prefill's attention (from position 0) over the prompt's own
+    rows ``k``, ``v`` padded as ``_prefill_rows`` says: the one-device
+    prefill's function block for block."""
+    P = _prefill_rows(cfg, k.shape[1], max_seq)
+    return _attend(q, _pad_rows(k, P), _pad_rows(v, P), cfg, 0,
+                   causal_skip=cfg.attn_causal_skip and P == max_seq)
+
+
+def _mla_kv(p, ckv, kr, cfg: LMConfig):
+    """K (B, S, H, dn + dr) and V (B, S, H, dv) materialised from latent
+    rows, the rope part of K broadcast over the heads."""
+    B, Skv, _ = ckv.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    k_nope = (ckv @ p["w_uk"]).reshape(B, Skv, H, dn)
+    v = (ckv @ p["w_uv"]).reshape(B, Skv, H, dv)
+    return torch.cat([k_nope, kr[:, :, None, :].expand(B, Skv, H, dr)], dim=-1), v
+
+
+def _mla_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None, part=None):
     """MLA attention.  With a cache, the new latent rows are first written
     into ``cache["ckv"]`` (B, Smax, r) and ``cache["kr"]`` (B, Smax, dr) at
-    ``pos`` in place; K and V are then materialised from the whole cache,
-    the rope part of K broadcast over the heads."""
+    ``pos`` in place; K and V are then materialised from the whole cache.
+    With a ``CacheSlice`` ``part`` (module note) a decode step materialises
+    them from the slice's valid rows and merges ``partial_attention``'s
+    partials; a prefill attends over its own rows."""
     B, S, _ = x.shape
     H = cfg.n_heads
     dn, dr, dv, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
@@ -245,26 +330,35 @@ def _mla_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None):
     ckv_kr = x @ p["w_dkv"]
     ckv = rms_norm(ckv_kr[..., :r], p["kv_norm"])
     kr = apply_rope(ckv_kr[..., r:], positions, cfg.rope_theta)
+    if part is not None:
+        _write_slice(cache, {"ckv": ckv, "kr": kr}, pos, part.lo)
+        if S == 1:
+            n = part.length(pos)
+            k, v = _mla_kv(p, cache["ckv"][:, :n], cache["kr"][:, :n], cfg)
+            out = part.merge(*partial_attention(q[:, 0], k, v, n)).to(x.dtype)
+            return out.reshape(B, 1, H * dv) @ p["wo"]
+        P = _prefill_rows(cfg, S, part.max_seq)
+        k, v = _mla_kv(p, _pad_rows(ckv, P), _pad_rows(kr, P), cfg)
+        return _attend_prefill(q, k, v, cfg, part.max_seq).reshape(B, S, H * dv) @ p["wo"]
     if cache is not None:
         cache["ckv"][:, pos:pos + S] = ckv
         cache["kr"][:, pos:pos + S] = kr
         ckv, kr = cache["ckv"], cache["kr"]
-    Skv = ckv.shape[1]
-    k_nope = (ckv @ p["w_uk"]).reshape(B, Skv, H, dn)
-    v = (ckv @ p["w_uv"]).reshape(B, Skv, H, dv)
-    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, Skv, H, dr)], dim=-1)
+    k, v = _mla_kv(p, ckv, kr, cfg)
     return _attend(q, k, v, cfg, pos).reshape(B, S, H * dv) @ p["wo"]
 
 
 def _attn_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None,
-                  attention: Callable | None = None, lengths=None):
+                  attention: Callable | None = None, lengths=None, part=None):
     """The attention block's output.  GQA: with a cache, the new K/V rows
     are first written into ``cache["k"/"v"]`` (B, Smax, Hkv, Dh) at ``pos``
     in place, and the whole cache is attended to.  ``attention(q[:, 0],
     k_cache, v_cache, lengths)`` is the single-token attention of a decode
-    step; without it, ``gqa_attention`` attends."""
+    step; without it, ``gqa_attention`` attends.  With a ``CacheSlice``
+    ``part`` the rows go into the slice and a decode step merges
+    ``attention(..., return_lse=True)``'s partials (module note)."""
     if cfg.attn == "mla":
-        return _mla_forward(p, x, cfg, positions, cache, pos)
+        return _mla_forward(p, x, cfg, positions, cache, pos, part)
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ p["wq"]
@@ -275,6 +369,12 @@ def _attn_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None,
     q = apply_rope(q.reshape(B, S, H, Dh), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, cfg.rope_theta)
     v = v.reshape(B, S, Hkv, Dh)
+    if part is not None:
+        _write_slice(cache, {"k": k, "v": v}, pos, part.lo)
+        if attention is None:
+            return _attend_prefill(q, k, v, cfg, part.max_seq).reshape(B, S, H * Dh) @ p["wo"]
+        out = part.merge(*attention(q[:, 0], cache["k"], cache["v"], lengths, return_lse=True))
+        return out.to(x.dtype).reshape(B, 1, H * Dh) @ p["wo"]
     if cache is not None:
         cache["k"][:, pos:pos + S] = k
         cache["v"][:, pos:pos + S] = v
@@ -287,9 +387,9 @@ def _attn_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None,
 
 
 def _block(p, x, cfg: LMConfig, positions, moe_block: bool, cache=None, pos=None,
-           attention=None, lengths=None):
+           attention=None, lengths=None, part=None):
     h = rms_norm(x, p["pre_attn"])
-    x = x + _attn_forward(p["attn"], h, cfg, positions, cache, pos, attention, lengths)
+    x = x + _attn_forward(p["attn"], h, cfg, positions, cache, pos, attention, lengths, part)
     h = rms_norm(x, p["pre_ffn"])
     if moe_block:
         B, S, d = h.shape
@@ -317,7 +417,8 @@ def _remat_block(p, x, cfg: LMConfig, positions, moe_block: bool):
 
 
 def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = None,
-            attention: Callable | None = None, collect_cache: bool = False):
+            attention: Callable | None = None, collect_cache: bool = False,
+            cache_slice: CacheSlice | None = None):
     """tokens (B, S) → ``(hidden (B, S, d), caches)``; with ``caches`` the
     cache rows of positions ``pos .. pos+S-1`` are written into them in
     place (``caches`` comes back), else ``caches`` is None.
@@ -328,8 +429,15 @@ def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = Non
     ``attention`` (GQA only, with ``caches`` and S = 1) is the single-token
     attention of a decode step, called per layer as ``attention(q (B, Hq,
     Dh), k_cache, v_cache, lengths)`` with ``lengths`` (B,) int32 =
-    ``pos + 1``."""
+    ``pos + 1``.
+
+    ``cache_slice`` (with ``caches`` the rank's slices): a decode step
+    (S = 1) or a prefill from position 0; the lengths are the slice's
+    (``CacheSlice.length``) and ``attention`` is called with
+    ``return_lse=True`` (module note)."""
     B, S = tokens.shape
+    if cache_slice is not None and (caches is None or (S > 1 and pos != 0)):
+        raise ValueError("a cache slice takes caches, and a prefill into it starts at 0")
     if collect_cache and caches is None:
         if pos not in (None, 0):
             raise ValueError("collect_cache without caches starts at position 0")
@@ -346,7 +454,8 @@ def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = Non
             raise ValueError("a decode attention needs caches and one token per sequence")
         if cfg.window is not None:
             raise NotImplementedError("the decode attention kernel has no sliding window")
-        lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=tokens.device)
+        valid = pos + 1 if cache_slice is None else cache_slice.length(pos)
+        lengths = torch.full((B,), valid, dtype=torch.int32, device=tokens.device)
     remat = caches is None and torch.is_grad_enabled()
     for key, cache_key, n, moe_block in _stacks(cfg):
         stack = None if caches is None else caches[cache_key]
@@ -356,12 +465,16 @@ def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = Non
                 x = _remat_block(lp, x, cfg, positions, moe_block)
                 continue
             cache_l = None if stack is None else {k: t[i] for k, t in stack.items()}
-            x = _block(lp, x, cfg, positions, moe_block, cache_l, pos, attention, lengths)
+            x = _block(lp, x, cfg, positions, moe_block, cache_l, pos, attention, lengths,
+                       cache_slice)
     return rms_norm(x, params["final_norm"]), caches
 
 
-def logits_from_hidden(params, x, cfg: LMConfig):
-    return x @ params["embed"].T  # tied embedding
+def logits_from_hidden(params, x, cfg: LMConfig, vocab: tuple[int, int] | None = None):
+    """Logits of the tied embedding; ``vocab=(lo, hi)``: columns [lo, hi)
+    alone, from those rows of the embedding."""
+    embed = params["embed"] if vocab is None else params["embed"][vocab[0]:vocab[1]]
+    return x @ embed.T
 
 
 def loss_terms(params, batch: dict, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -409,18 +522,25 @@ def make_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None, device=None)
             for _, cache_key, n, _ in _stacks(cfg)}
 
 
-def prefill(params, tokens, cfg: LMConfig, *, max_seq: int | None = None):
+def prefill(params, tokens, cfg: LMConfig, *, max_seq: int | None = None,
+            cache_slice: CacheSlice | None = None, vocab: tuple[int, int] | None = None):
     """Prefill: returns (last-position logits (B, V), caches), the caches
     allocated for ``max_seq`` positions (default the prompt's length) on
-    the tokens' device."""
+    the tokens' device.  With ``cache_slice`` the caches are the slice's
+    rows [lo, hi) of ``cache_slice.max_seq``; with ``vocab`` the logits are
+    its columns (module note)."""
     B, S = tokens.shape
-    caches = make_cache(cfg, B, max_seq or S, device=tokens.device)
-    x, caches = forward(params, tokens, cfg, caches=caches, pos=0)
-    return logits_from_hidden(params, x[:, -1:, :], cfg)[:, 0], caches
+    if cache_slice is None:
+        caches = make_cache(cfg, B, max_seq or S, device=tokens.device)
+    else:
+        caches = make_cache(cfg, B, cache_slice.hi - cache_slice.lo, device=tokens.device)
+    x, caches = forward(params, tokens, cfg, caches=caches, pos=0, cache_slice=cache_slice)
+    return logits_from_hidden(params, x[:, -1:, :], cfg, vocab)[:, 0], caches
 
 
 def decode_step(params, caches, tokens, pos: int, cfg: LMConfig, *,
-                attention: Callable | None = None):
+                attention: Callable | None = None, cache_slice: CacheSlice | None = None,
+                vocab: tuple[int, int] | None = None):
     """One decode step: tokens (B, 1) at absolute position ``pos``.  Returns
     (logits (B, V), caches), the caches updated in place.
 
@@ -429,11 +549,15 @@ def decode_step(params, caches, tokens, pos: int, cfg: LMConfig, *,
     ``decode_attention`` by default; ``decode_attention_ref`` gives the
     plain route that the kernel route is held to.  An MLA layer attends
     with ``gqa_attention`` over K and V materialised from its latent cache,
-    at ``q_offset = pos``; passing ``attention`` for it raises."""
+    at ``q_offset = pos``; passing ``attention`` for it raises.
+
+    ``cache_slice`` and ``vocab``: the rank's cache slice and logits'
+    columns (module note); ``attention`` then takes ``return_lse=True``."""
     if attention is None and cfg.attn != "mla":
         attention = decode_attention
-    x, caches = forward(params, tokens, cfg, caches=caches, pos=pos, attention=attention)
-    return logits_from_hidden(params, x, cfg)[:, 0], caches
+    x, caches = forward(params, tokens, cfg, caches=caches, pos=pos, attention=attention,
+                        cache_slice=cache_slice)
+    return logits_from_hidden(params, x, cfg, vocab)[:, 0], caches
 
 
 # ----------------------------------------------------------------------

@@ -12,7 +12,11 @@ float32 either way.  ``mixed=False`` is the all-float32 baseline.
 
 The single-token decode attention over a KV cache is the kernel
 ``repro_torch.kernels.decode_attention``; this module is the prefill path
-and the reference the model's decode is held to.
+and the reference the model's decode is held to.  ``partial_attention`` is
+the single-token attention of an MLA decode step over one rank's slice of
+a cache sharded along its rows: its ``(out, lse)`` merge across the ranks
+(``repro_torch.distributed.serving.merge_attention``).  The JAX package
+has no kernel for MLA attention, so it stays torch ops.
 """
 from __future__ import annotations
 
@@ -113,3 +117,24 @@ def gqa_attention(
         out = _block_attn(qg, k, v, causal=causal, q_offset=q_offset, kv_block=kv_block,
                           window=window, mixed=mixed)
     return out.reshape(B, Sq, Hq, v.shape[-1])
+
+
+def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int):
+    """One query token against the first ``length`` rows of a cache slice:
+    q (B, Hq, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv), Hkv dividing Hq →
+    ``(out (B, Hq, Dv), lse (B, Hq))``, both float32: the softmax-weighted
+    sum of V, unrounded, and the natural-log log-sum-exp of the scaled
+    scores (scale 1/sqrt(D), as ``gqa_attention``).  ``length`` 0 gives
+    out 0 and lse -inf, the identity of the merge across slices."""
+    B, Hq, D = q.shape
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if length <= 0:
+        return (torch.zeros((B, Hq, Dv), dtype=torch.float32, device=q.device),
+                torch.full((B, Hq), -torch.inf, device=q.device))
+    scale = torch.reciprocal(torch.sqrt(torch.tensor(float(D), device=q.device)))
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, D) * scale
+    s = torch.einsum("bghd,bsgd->bghs", qf, k[:, :length].float())
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bghs,bsgd->bghd", p, v[:, :length].float())
+    return out.reshape(B, Hq, Dv), lse.reshape(B, Hq)

@@ -2,14 +2,15 @@
 of a 4-rank gloo group runs on the CPU.
 
 Imports the port only (no JAX): a spawned rank starts from a fresh
-interpreter.  The parent passes the JAX package's initial parameters and
-batches as numpy; the ranks split into two 2-rank groups that run at once:
+interpreter.  The parent writes the JAX package's initial parameters and
+batches as numpy to a pickle once the ranks are starting
+(``torch_parity.load_payload``); the ranks split into two 2-rank groups that run at once:
 
 * ranks 0 and 1, a (1, 2) ``("data", "model")`` mesh: SASRec's smoke config
   under ``RECSYS_RULES`` (item rows over ``model``), 3 steps, beside the
   port's one-device ``Trainer`` on the same state and batches; the tiny LM
   under ``LM_RULES`` (its 101 vocabulary rows do not split in two); a GNN
-  and a serve cell through ``build_step``;
+  train cell, and serving cells, through ``build_step``;
 * ranks 2 and 3, a (2, 1) mesh: the tiny LM and SASRec, 2 steps at each
   accumulation, batches whose ranks hold different counts of unmasked
   positions; SASRec failing at step 3 with a checkpoint every 2, resumed,
@@ -27,6 +28,8 @@ import traceback
 
 import torch
 import torch.distributed as dist
+
+from torch_parity import load_payload
 
 COLLECTIVE_TIMEOUT_S = 60   # a collective that waits longer fails the rank
 CPU = torch.device("cpu")
@@ -50,14 +53,14 @@ def _raises(fn, kinds) -> str:
     return ""
 
 
-def rank_main(rank, world, init_file, payload, out_dir):
+def rank_main(rank, world, init_file, payload_file, out_dir):
     out = pathlib.Path(out_dir)
     try:
         torch.set_num_threads(1)
         dist.init_process_group(
             "gloo", init_method=f"file://{init_file}", rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-        torch.save(_run(rank, payload, out), out / f"rank{rank}.pt")
+        torch.save(_run(rank, load_payload(payload_file), out), out / f"rank{rank}.pt")
         dist.destroy_process_group()
     except BaseException:
         (out / f"rank{rank}.err").write_text(traceback.format_exc())
@@ -138,11 +141,9 @@ def _run(rank, payload, out):
                 torch.Generator().manual_seed(0)), ValueError),
             "gnn train": _raises(lambda: build_step(cells[("gin-tu", "molecule")], mesh),
                                  NotImplementedError),
-            "serve": _raises(lambda: build_step(cells[("sasrec", "serve_p99")], mesh),
-                             NotImplementedError),
-            "decode": _raises(lambda: build_step(cells[("qwen2-1.5b", "decode_32k")], mesh),
-                              NotImplementedError),
         }
+        res["serving specs"] = {cell: build_step(cells[cell], mesh)[2:]
+                                for cell in payload["serving_cells"]}
     else:
         mesh = make_process_mesh((2, 1), ("data", "model"), group=groups[1], device=CPU)
         runs = {}

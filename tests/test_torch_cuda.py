@@ -17,6 +17,7 @@ float32 and one ulp in bfloat16 (a float32 sum rounded once); bags of one,
 and so ``take_rows``, exactly.
 """
 import dataclasses
+import math
 
 import pytest
 
@@ -835,6 +836,25 @@ def test_decode_attention_matches_plain(cuda, shape, dtype, lengths, nan_past_po
     assert got.dtype == dtype
     assert bool(torch.isfinite(got.float()).all())
     assert decode_attention_rel_err(got, want) <= ATTN_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_lse_matches_plain(cuda, shape, dtype):
+    """Kernel 6 with ``return_lse=True`` (the first sequence at pos 0): the
+    float32 output within ``ATTN_REL_TOL`` of the plain version's, the lse
+    within 1e-5, the empty sequence exactly 0 and -inf, and the output
+    rounded bit for bit the call without lse."""
+    q, k, v, pos = _attn_case(*shape, dtype, cuda, sum(shape))
+    pos[0] = 0
+    out, lse = decode_attention(q, k, v, pos, return_lse=True)
+    want, want_lse = decode_attention_ref(q, k, v, pos, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32
+    assert torch.equal(out[0], torch.zeros_like(out[0])) and bool((lse[0] == -math.inf).all())
+    assert decode_attention_rel_err(out[1:], want[1:]) <= ATTN_REL_TOL[dtype]
+    assert float((lse[1:] - want_lse[1:]).abs().max()) <= 1e-5
+    assert torch.equal(out[1:].to(dtype), decode_attention(q, k, v, pos)[1:])
 
 
 def test_decode_attention_rejects_bad_operands(cuda):

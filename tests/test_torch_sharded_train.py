@@ -42,6 +42,9 @@ import jax.numpy as jnp
 from repro import optim as joptim
 from repro.configs import sasrec as jsasrec_config
 from repro.data.recsys import make_sasrec_batch_fn as jmake_sasrec_batch_fn
+from repro.configs import all_cells as jall_cells
+from repro.launch.mesh import single_device_mesh
+from repro.launch.steps import build_step as jbuild_step
 from repro.launch.train import TrainConfig as JTrainConfig
 from repro.launch.train import Trainer as JTrainer
 from repro.models import sasrec as jsasrec
@@ -60,7 +63,7 @@ from repro_torch.distributed import (
 from repro_torch.launch import Trainer
 from repro_torch.models import sasrec
 from sharded_train_ranks import rank_main
-from torch_parity import numpy_tree
+from torch_parity import numpy_tree, write_payload
 
 ATOL = 2e-5          # tests/test_distributed.py's accumulation tolerance
 LOSS_RTOL = 1e-5
@@ -73,6 +76,9 @@ TINY = dict(name="tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_head
 TWO_ONE = [("lm", 1, "batches"), ("lm", 2, "batches"), ("sasrec", 1, "batches"),
            ("sasrec", 2, "batches"), ("lm", 3, "batches6")]
 HELD_TO_JAX = TWO_ONE[:4]
+SERVING_CELLS = [("sasrec", "serve_p99"), ("sasrec", "serve_bulk"), ("sasrec", "retrieval_cand"),
+                 ("qwen2-1.5b", "prefill_32k"), ("qwen2-1.5b", "decode_32k"),
+                 ("qwen2-1.5b", "long_500k")]
 
 
 def _tree_np(tree):
@@ -112,6 +118,7 @@ def _payload(tmp_path):
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (4, 32)))
     return {
         "steps": STEPS, "two_one": TWO_ONE, "ckpt_dir": str(tmp_path / "ckpt"), "psum_x": x,
+        "serving_cells": SERVING_CELLS,
         "sasrec": {"params": _tree_np(jp_s), "opt": _tree_np(joptim.adamw_init(jp_s)),
                    "batches": s_batches},
         "lm": {"cfg": TINY, "params": _tree_np(jp_l), "opt": _tree_np(joptim.adamw_init(jp_l)),
@@ -156,14 +163,16 @@ def spawned(tmp_path_factory):
                             env={**os.environ, "PYTHONPATH": "src",
                                  "PSUM_OUT": str(tmp / "psum.npy")},
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    payload, jax_models = _payload(tmp)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=rank_main, args=(r, 4, str(tmp / "init"), payload, str(tmp)))
+    procs = [ctx.Process(target=rank_main, args=(r, 4, str(tmp / "init"),
+                                                 str(tmp / "payload.pkl"), str(tmp)))
              for r in range(4)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + SPAWN_LIMIT_S
     try:
+        payload, jax_models = _payload(tmp)
+        write_payload(tmp / "payload.pkl", payload)
         want = {}
         for name, accum, key in HELD_TO_JAX:
             jmod, jcfg, jp = jax_models[name]
@@ -235,15 +244,26 @@ def test_init_state_keeps_the_ranks_block(spawned, rank):
             np.testing.assert_array_equal(blocks[k], w, err_msg=k)
 
 
+def _jax_specs(tree):
+    """A tree of JAX ``NamedSharding``s as tuples."""
+    return jax.tree.map(lambda s: tuple(s.spec), tree, is_leaf=lambda s: hasattr(s, "spec"))
+
+
 def test_errors_on_a_two_rank_mesh(spawned):
     """The tiny LM's 101 vocabulary rows do not split over ``model``: the
-    error names the leaf; a GNN train cell, a serve cell and a decode cell
-    on a 2-rank mesh raise ``NotImplementedError`` naming ROADMAP."""
+    error names the leaf; a GNN train cell on a 2-rank mesh raises
+    ``NotImplementedError`` naming ROADMAP; every LM and SASRec serving
+    cell returns its sharded step, with ``in_specs`` / ``out_specs`` equal
+    to the JAX package's ``build_step``'s."""
     for rank in (0, 1):
         e = spawned[0][rank]["errors"]
         assert e["lm uneven"].startswith("ValueError: /embed: dim 0 of size 101"), e["lm uneven"]
-        for key in ("gnn train", "serve", "decode"):
-            assert e[key].startswith("NotImplementedError") and "ROADMAP.md" in e[key], e[key]
+        assert e["gnn train"].startswith("NotImplementedError") and "ROADMAP.md" in e[
+            "gnn train"], e["gnn train"]
+        for cell in SERVING_CELLS:
+            ins, outs = spawned[0][rank]["serving specs"][cell]
+            _, _, jin, jout = jbuild_step(jall_cells()[cell], single_device_mesh())
+            assert ins == _jax_specs(jin) and outs == _jax_specs(jout), cell
 
 
 # ---------------------------------------------------------------- (2, 1)

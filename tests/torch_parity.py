@@ -5,6 +5,9 @@ port as numpy arrays (``repro_torch.core.from_reference_arrays``), and both
 packages then run on the same data on the CPU.
 """
 import dataclasses
+import pathlib
+import pickle
+import time
 
 import numpy as np
 import torch
@@ -70,3 +73,25 @@ def assert_close(got, want, tol):
     """Element for element within rtol = atol = ``tol``, in float32."""
     got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+def load_payload(path, limit_s: float = 90.0):
+    """A spawned rank's payload: the pickle its parent renames to ``path``
+    once the ranks are starting.  Passed as an argument instead, it would
+    reach each child only after that child imported its module (torch):
+    the starts would go one at a time.  Raises after ``limit_s``."""
+    path = pathlib.Path(path)
+    deadline = time.monotonic() + limit_s
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no payload at {path} after {limit_s} s")
+        time.sleep(0.05)
+    return pickle.loads(path.read_bytes())
+
+
+def write_payload(path, payload):
+    """Write ``payload`` for ``load_payload``: a pickle renamed into place."""
+    path = pathlib.Path(path)
+    part = path.with_suffix(".part")
+    part.write_bytes(pickle.dumps(payload))
+    part.rename(path)
