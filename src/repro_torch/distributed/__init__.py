@@ -2,7 +2,9 @@
 a process mesh (``shardings``), elastic re-carving and restore
 (``elastic``), the serving state sharded over a process mesh (``serving``:
 a cache's row ranges and the merge of their attention partials, a
-row-sharded table's lookups and top-k), and the edge-partitioned graph
+row-sharded table's lookups and top-k), the GNN aggregation with its edge
+lists split over a process mesh (``gnn``: ``edge_slice`` and its combines),
+and the edge-partitioned graph
 engine's helpers, thin specializations of the sharded planner
 (``repro_torch.core.plan``), on an in-process ``ShardMesh`` or a
 ``ProcessMesh`` (one shard a rank, ``repro_torch.core.make_process_mesh``)."""
@@ -14,6 +16,7 @@ from .engine import (
     prepare_sharded,
     shard_blocks_for_mesh,
 )
+from .gnn import edge_slice
 from .serving import (
     local_rows,
     merge_attention,
@@ -58,6 +61,7 @@ __all__ = [
     "carve_shape",
     "elastic_restore",
     "seq_block",
+    "edge_slice",
     "merge_attention",
     "local_rows",
     "sharded_rows",

@@ -60,12 +60,17 @@ def gather_parts(t: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
     return x
 
 
-def all_reduce_sum(t: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
-    """``t`` summed in place over ``axes``: one all-reduce an axis."""
+def all_reduce(t: torch.Tensor, mesh, axes: tuple, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced in place by ``op`` over ``axes``: one all-reduce an axis."""
     for a in axes:
         if mesh.axis_size(a) > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.axis_groups[a])
+            dist.all_reduce(t, op=op, group=mesh.axis_groups[a])
     return t
+
+
+def all_reduce_sum(t: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """``t`` summed in place over ``axes``: one all-reduce an axis."""
+    return all_reduce(t, mesh, axes)
 
 
 def merge_attention(out: torch.Tensor, lse: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:

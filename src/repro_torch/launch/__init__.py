@@ -1,12 +1,14 @@
 """Step bodies of the port's cells, ``build_step`` with its placements,
-the sharded train step and the sharded serving steps on a process mesh
-(``TrainLayout``, ``ServeLayout``), and the fault-tolerant trainer."""
+the sharded train step (rows or, for a GNN, edge lists split over the
+ranks) and the sharded serving steps on a process mesh (``TrainLayout``,
+``ServeLayout``), and the fault-tolerant trainer."""
 from .steps import (
     TOP_K,
     ServeLayout,
     TrainLayout,
     assert_topk_agrees,
     build_step,
+    edge_parallel_value_and_grad,
     sasrec_retrieval_step,
     sasrec_serve_step,
     serve_layout,

@@ -6,7 +6,8 @@
                            too, with its clip, LR scale and accumulation
   sharded_train_step     — the same step on a ``ProcessMesh``, one rank a
                            process, the parameters and AdamW moments stored
-                           as the rank's blocks (``TrainLayout``)
+                           as the rank's blocks (``TrainLayout``); a GNN's
+                           edge lists split over the ranks
   sasrec_serve_step      — full-catalog scores, then the top ``TOP_K`` (100)
   sasrec_retrieval_step  — the scores of an explicit candidate list
   sharded_prefill_step / sharded_decode_step / sharded_serve_step /
@@ -36,6 +37,18 @@ the global batch:
 4. the full gradient is clipped by its global norm;
 5. AdamW updates the rank's block of every leaf and of its moments (the
    update is elementwise).
+
+A GNN (a model module with ``SPLIT``) splits its edge lists instead of its
+batch (``edge_parallel_value_and_grad``): the R ranks over the rules'
+``"edges"`` axes each take an equal contiguous range of the list named by
+``SPLIT`` (DimeNet's triplets), hold the node arrays whole and run the
+node layers on all n rows; each aggregation combines over those axes
+(``distributed.gnn``).  Each rank back-props its loss / R and one SUM
+all-reduce a leaf of the float32 gradients and of the loss runs over the
+edge axes: the replicated node part adds R copies of 1/R of its gradient,
+each rank's edge part its own share.  Every rank then holds the same
+gradient bytes, so clipping and AdamW keep the parameters replicated, bit
+for bit.  Over edge axes of size 1 the rank runs the one-device body.
 
 The sharded serving steps hold the serving state as the cell's rules
 place it and compute on parameters gathered once, when the server loads
@@ -71,6 +84,7 @@ import torch
 
 from ..configs.common import Cell, TensorSpec
 from ..core.mesh import ProcessMesh, ShardMesh
+from ..distributed.gnn import edge_slice
 from ..distributed.serving import (
     all_reduce_sum,
     gather_parts,
@@ -186,9 +200,6 @@ def assert_topk_agrees(got: dict, want: dict, ref_scores: torch.Tensor, tol: flo
 # ----------------------------------------------------------------------
 # the sharded train step on a process mesh
 # ----------------------------------------------------------------------
-LATER = "ROADMAP.md, queue 1: item 6, the GNN combine; item 7, sharded compute"
-
-
 def param_tensor_specs(model, cfg) -> dict:
     """The global parameters as a ``TensorSpec`` tree (``param_shapes``'
     shapes; an LM's leaves in ``cfg.activation_dtype``, the rest float32)."""
@@ -214,14 +225,24 @@ def opt_tensor_specs(param_specs_tree) -> dict:
 @dataclasses.dataclass(frozen=True)
 class TrainLayout:
     """Where a model's training state lives on a ``ProcessMesh``: the spec
-    trees of the parameters and of AdamW's state, the global shapes, and
-    the mesh axes the batch's leading axis splits over."""
+    trees of the parameters and of AdamW's state, the global shapes, the
+    mesh axes the batch's leading axis splits over, and a GNN's edge axes
+    (the mesh axes its edge lists split over; None for a model whose batch
+    splits by rows)."""
 
     mesh: ProcessMesh
     params: dict          # PartitionSpec tree of the parameters
     opt: dict             # ... of AdamW's state
     shapes: dict          # TensorSpec tree of the global parameters
     batch_axes: tuple     # mesh axes of the batch's leading axis
+    edge_axes: tuple | None = None   # a GNN's: the rules' "edges" axes
+
+    @property
+    def edge_parallel(self) -> int:
+        """The number of ranges a GNN's edge list splits into (0: no GNN)."""
+        if self.edge_axes is None:
+            return 0
+        return math.prod(self.mesh.axis_size(a) for a in self.edge_axes)
 
     @property
     def data_parallel(self) -> int:
@@ -248,21 +269,23 @@ class TrainLayout:
 
 
 def train_layout(model, cfg, mesh: ProcessMesh, rules: dict | None) -> TrainLayout:
-    """The ``TrainLayout`` of ``model`` under ``rules`` on ``mesh``.  Raises
-    ``NotImplementedError`` for a model without ``loss_terms`` (the GNNs,
-    whose nodes and edges need a combine inside the aggregation) on a mesh
-    of more than one rank."""
-    if mesh.size > 1 and not hasattr(model, "loss_terms"):
-        raise NotImplementedError(
-            f"{model.__name__} on a process mesh of {mesh.size} ranks: its node and edge axes "
-            f"need a combine inside the aggregation, a later slice ({LATER})")
+    """The ``TrainLayout`` of ``model`` under ``rules`` on ``mesh``: a GNN
+    (a module with ``SPLIT``) gets the axes of ``"edges"``.  Raises
+    ``TypeError`` on a mesh of more than one rank for a model that splits
+    neither its batch's rows (``loss_terms``) nor its edges."""
+    gnn = hasattr(model, "SPLIT")
+    if mesh.size > 1 and not (gnn or hasattr(model, "loss_terms")):
+        raise TypeError(f"{model.__name__} on a process mesh of {mesh.size} ranks: it splits "
+                        "neither its batch's rows (loss_terms) nor its edge lists (SPLIT)")
     with axis_rules(rules, mesh):
         p_logical = model.param_specs(cfg)
         p_spec = spec_tree(p_logical)
         o_spec = spec_tree(state_logical_specs(p_logical))
         batch_axes = spec_axes(logical_to_spec("batch")[0])
+        edge_axes = spec_axes(logical_to_spec("edges")[0]) if gnn else None
     return TrainLayout(mesh=mesh, params=p_spec, opt=o_spec,
-                       shapes=param_tensor_specs(model, cfg), batch_axes=batch_axes)
+                       shapes=param_tensor_specs(model, cfg), batch_axes=batch_axes,
+                       edge_axes=edge_axes)
 
 
 def reduce_gradients(grads, axes: tuple, mesh: ProcessMesh):
@@ -307,6 +330,21 @@ def data_parallel_value_and_grad(model, params, batch: dict, cfg, layout: TrainL
     return loss, acc
 
 
+def edge_parallel_value_and_grad(model, params, batch: dict, cfg, layout: TrainLayout):
+    """``(loss, grads)`` of a GNN's step on the global batch (whole on every
+    rank), from this rank's range of the list ``model.SPLIT`` names: the
+    loss / R and its float32 gradients with every aggregation combined over
+    the edge axes (``distributed.gnn.edge_slice``), then summed over those
+    axes.  ``params`` are global."""
+    mesh, axes = layout.mesh, layout.edge_axes
+    part = edge_slice(mesh, axes, batch[model.SPLIT].shape[0])
+    loss, grads = value_and_grad(lambda p: model.loss_fn(p, batch, cfg, part=part) / part.parts,
+                                 params)
+    reduce_gradients(grads, axes, mesh)
+    all_reduce_sum(loss, mesh, axes)
+    return loss, grads
+
+
 def sharded_train_step(model, params, opt_state: dict, batch: dict, cfg, layout: TrainLayout,
                        opt_cfg: AdamWConfig | None = None, *, max_norm: float = 1.0,
                        lr_scale=1.0, accum: int = 1):
@@ -314,10 +352,16 @@ def sharded_train_step(model, params, opt_state: dict, batch: dict, cfg, layout:
     this rank's blocks, ``batch`` the global batch (every rank passes the
     same); returns ``(params, opt_state, {"loss", "grad_norm"})``, blocks
     again, the metrics replicated.  See the module docstring for the
-    steps."""
+    steps.  A GNN's edge split takes no ``accum`` but 1: a graph batch
+    does not cut into microbatches by its leading axis."""
     mesh = layout.mesh
+    if layout.edge_parallel > 1 and accum != 1:
+        raise ValueError(f"accum {accum} with a GNN's edges split over {layout.edge_parallel} "
+                         "ranks: a graph batch does not cut into microbatches")
     full = gather_tree(params, layout.params, layout.shapes, mesh)
-    if layout.data_parallel == 1:
+    if layout.edge_parallel > 1:
+        loss, grads = edge_parallel_value_and_grad(model, full, batch, cfg, layout)
+    elif layout.data_parallel == 1 or layout.edge_axes is not None:
         loss, grads = accumulated_value_and_grad(lambda p, b: model.loss_fn(p, b, cfg), full,
                                                  batch, accum)
     else:
@@ -488,25 +532,23 @@ def build_step(cell: Cell, mesh):
     ``param_specs``, ``state_logical_specs``, ``cache_specs`` and
     ``cell.batch_logical`` under ``cell.rules``.
 
-    ``fn`` is, for the LM and SASRec cells on a ``ProcessMesh`` of more
-    than one rank, the sharded step: blocks in (the parameters, a decode's
-    caches), blocks out (the parameters and AdamW state, the caches, the
-    outputs as ``out_specs`` place them), the global batch.  Its serving
-    steps gather the parameters on every call; a server gathers them once,
-    when it loads (``ServeLayout.load``), and calls the ``sharded_*_step``
-    below it, as ``Trainer`` calls ``sharded_train_step``.  Anywhere else
-    ``fn`` is the one-device body.  Raises ``NotImplementedError`` for a GNN
-    train cell on a process mesh of more than one rank (the aggregation's
-    combine is a later slice), and ``TypeError`` for a train cell on a
+    ``fn`` is, for every cell on a ``ProcessMesh`` of more than one rank,
+    the sharded step: blocks in (the parameters, a decode's caches), blocks
+    out (the parameters and AdamW state, the caches, the outputs as
+    ``out_specs`` place them), the global batch on every rank.  A GNN train
+    cell's step keeps its node arrays whole on every rank and splits its
+    edge lists (DimeNet's triplets) over the ``"edges"`` axes, whatever
+    ``in_specs`` say of the nodes (``edge_parallel_value_and_grad``); its
+    parameters are whole under ``GNN_RULES``.  The serving steps gather the
+    parameters on every call; a server gathers them once, when it loads
+    (``ServeLayout.load``), and calls the ``sharded_*_step`` below it, as
+    ``Trainer`` calls ``sharded_train_step``.  Anywhere else ``fn`` is the
+    one-device body.  Raises ``TypeError`` for a train cell on a
     ``ShardMesh`` of more than one position (training takes one shard a
     process)."""
     mod = _module_for(cell)
     cfg = cell.model_cfg
     on_ranks = isinstance(mesh, ProcessMesh) and mesh.size > 1
-    if on_ranks and cell.family == "gnn":
-        raise NotImplementedError(
-            f"{cell.arch}/{cell.shape} ({cell.kind}) on a process mesh of {mesh.size} ranks: "
-            f"the GNN aggregation's combine is a later slice ({LATER})")
     layout = serve_layout(mod, cfg, mesh, cell.rules) if on_ranks and cell.kind != "train" \
         else None
     with axis_rules(cell.rules, mesh):

@@ -3,7 +3,8 @@
 ``Trainer(model, model_cfg, train_cfg=, device=, mesh=, rules=)`` trains
 any port model module exposing ``init(cfg, generator=, device=)``,
 ``param_shapes``, ``param_specs`` and ``loss_fn`` (``loss_terms`` and
-``loss_mask`` too where the batch splits over ranks):
+``loss_mask`` too where the batch splits over ranks; a GNN's ``SPLIT`` and
+``loss_fn(..., part=)`` where its edge lists do):
 
 * deterministic data (``make_batch(step)``) → bit-identical restart;
 * a checkpoint of ``{"params", "opt"}`` every ``ckpt_every`` steps (the
@@ -19,7 +20,9 @@ eagerly.  ``mesh=None`` (or a one-position ``ShardMesh``) trains on one
 device.  ``mesh=`` a ``ProcessMesh`` trains one rank a process: every rank
 builds the same ``Trainer`` and calls ``fit`` with the same arguments; the
 parameters and AdamW moments live as the rank's blocks under ``rules``
-(``launch.steps.sharded_train_step``).  There:
+(``launch.steps.sharded_train_step``).  A GNN under ``GNN_RULES`` keeps
+its parameters and its node arrays whole on every rank and splits its edge
+lists over the ``"edges"`` axes, one combine an aggregation.  There:
 
 * ``init_state`` draws the full init from the generator (bit for bit the
   one-device init) and keeps the rank's blocks;
@@ -44,6 +47,7 @@ Usage::
 
     mesh = make_process_mesh((2, 1), ("data", "model"))   # in every rank
     trainer = Trainer(sasrec, cfg, mesh=mesh, rules=RECSYS_RULES)
+    trainer = Trainer(gin, gin_cfg, mesh=mesh, rules=GNN_RULES)
 """
 from __future__ import annotations
 

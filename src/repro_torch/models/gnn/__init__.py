@@ -1,10 +1,11 @@
 """The GNN family (GIN, PNA, DimeNet, Equiformer-v2) on the aggregation
 primitives of ``aggregate``.  Each model module has ``init(cfg, generator=,
-device=)``, ``forward``, ``loss_fn``, ``param_shapes`` and ``param_specs``;
+device=)``, ``forward``, ``loss_fn`` (both with ``part=``, an ``EdgeSlice``),
+``param_shapes``, ``param_specs`` and ``SPLIT``;
 parameters are dict/list trees of tensors, the JAX package's leaf by leaf."""
 from . import dimenet, equiformer_v2, gin, pna
 from .aggregate import (
-    degrees, gather_src, scatter_max, scatter_mean, scatter_min,
+    EdgeSlice, degrees, gather_src, scatter_max, scatter_mean, scatter_min,
     scatter_std, scatter_sum, segment_softmax,
 )
 

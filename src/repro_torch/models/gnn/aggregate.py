@@ -21,10 +21,49 @@ The JAX semantics are kept for every integer index:
 
 On the card the sums are atomic adds (their order varies from run to run);
 max and min are exact.
+
+On a process mesh each rank holds the whole node state and one range of
+the edge list (``EdgeSlice``): every reduction takes ``part=``, runs over
+the rank's edges into all ``n`` segments, then combines across the ranks
+through the slice's callbacks (written in ``distributed/gnn.py``): sums an
+all-reduce whose backward all-reduces the gradient, max and min an
+all-reduce MAX / MIN whose backward splits the gradient among the elements
+that tie for the global extremum, counts an all-reduce with no gradient.
+``part=None`` runs the one-device operations unchanged.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeSlice:
+    """One rank's range ``[lo, hi)`` of an edge list (DimeNet's: its
+    triplet list) split over ``parts`` ranks, and the combines across them
+    (``distributed.gnn.edge_slice`` makes it):
+
+    * ``sum(t)``: ``t`` summed over the ranks, a new tensor; its backward
+      sums the incoming gradient over the ranks;
+    * ``extremum(vals, seg, local, reduce)``: ``local``, this rank's
+      ``"amax"`` / ``"amin"`` of ``vals`` by segment ``seg``, combined over
+      the ranks; its backward gives ``vals`` the gradient split evenly among
+      the elements, on every rank, that tie for the global extremum;
+    * ``reduce(t, op)``: ``t`` reduced in place by ``"sum"`` or ``"max"``
+      over the ranks, with no gradient."""
+
+    lo: int
+    hi: int
+    parts: int
+    sum: Callable
+    extremum: Callable
+    reduce: Callable
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's range of the leading axis of ``t``."""
+        return t[self.lo:self.hi]
 
 
 def gather_src(x: torch.Tensor, src: torch.Tensor, fill=0.0) -> torch.Tensor:
@@ -74,16 +113,18 @@ class _SegmentSum(torch.autograd.Function):
         return grad.index_select(0, seg), None, None
 
 
-def scatter_sum(vals: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
-    """``segment_sum(vals, dst, n + 1)[:n]``: (n, ...) sums by destination."""
-    return _SegmentSum.apply(vals, _segments(dst, n), n + 1)[:n]
+def scatter_sum(vals: torch.Tensor, dst: torch.Tensor, n: int,
+                part: EdgeSlice | None = None) -> torch.Tensor:
+    """``segment_sum(vals, dst, n + 1)[:n]``: (n, ...) sums by destination;
+    with ``part`` the rank's sums combined over the ranks."""
+    out = _SegmentSum.apply(vals, _segments(dst, n), n + 1)[:n]
+    return out if part is None else part.sum(out)
 
 
-def scatter_mean(vals, dst, n, *, deg=None):
-    s = scatter_sum(vals, dst, n)
+def scatter_mean(vals, dst, n, *, deg=None, part: EdgeSlice | None = None):
+    s = scatter_sum(vals, dst, n, part)
     if deg is None:
-        deg = scatter_sum(torch.ones(vals.shape[:1], dtype=torch.float32, device=vals.device),
-                          dst, n)
+        deg = degrees(dst, n, part)
     d = maximum(deg, 1.0)
     return s / d.reshape((-1,) + (1,) * (vals.ndim - 1))
 
@@ -97,31 +138,47 @@ def _scatter_extremal(vals, dst, n, reduce: str) -> torch.Tensor:
     return out.scatter_reduce(0, idx, vals, reduce, include_self=False)
 
 
-def scatter_max(vals, dst, n, *, neutral=-1e30):
-    return maximum(_scatter_extremal(vals, dst, n, "amax")[:n], neutral)
+def _extremal(vals, dst, n, reduce: str, part: EdgeSlice | None) -> torch.Tensor:
+    """(n, ...) ``amax`` / ``amin`` by destination, over every rank's edges
+    with ``part``."""
+    if part is None:
+        return _scatter_extremal(vals, dst, n, reduce)[:n]
+    local = _scatter_extremal(vals.detach(), dst, n, reduce)
+    return part.extremum(vals, _segments(dst, n), local, reduce)[:n]
 
 
-def scatter_min(vals, dst, n, *, neutral=1e30):
-    return minimum(_scatter_extremal(vals, dst, n, "amin")[:n], neutral)
+def scatter_max(vals, dst, n, *, neutral=-1e30, part: EdgeSlice | None = None):
+    return maximum(_extremal(vals, dst, n, "amax", part), neutral)
 
 
-def scatter_std(vals, dst, n, *, deg=None, eps=1e-5):
-    mu = scatter_mean(vals, dst, n, deg=deg)
-    mu2 = scatter_mean(vals * vals, dst, n, deg=deg)
+def scatter_min(vals, dst, n, *, neutral=1e30, part: EdgeSlice | None = None):
+    return minimum(_extremal(vals, dst, n, "amin", part), neutral)
+
+
+def scatter_std(vals, dst, n, *, deg=None, eps=1e-5, part: EdgeSlice | None = None):
+    mu = scatter_mean(vals, dst, n, deg=deg, part=part)
+    mu2 = scatter_mean(vals * vals, dst, n, deg=deg, part=part)
     return torch.sqrt(maximum(mu2 - mu * mu, 0.0) + eps)
 
 
-def degrees(dst: torch.Tensor, n: int) -> torch.Tensor:
-    return scatter_sum(torch.ones(dst.shape, dtype=torch.float32, device=dst.device), dst, n)
+def degrees(dst: torch.Tensor, n: int, part: EdgeSlice | None = None) -> torch.Tensor:
+    """(n,) float32 in-degrees; with ``part`` every rank's counted (whole
+    floats below 2^24: the all-reduce is exact)."""
+    d = scatter_sum(torch.ones(dst.shape, dtype=torch.float32, device=dst.device), dst, n)
+    return d if part is None else part.reduce(d, "sum")
 
 
-def segment_softmax(scores: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
+def segment_softmax(scores: torch.Tensor, dst: torch.Tensor, n: int,
+                    part: EdgeSlice | None = None) -> torch.Tensor:
     """Edge-softmax by destination (Equiformer's attention).  The max is
     detached (JAX's ``stop_gradient``); ``jnp.take``'s default fill for an
-    id out of range is NaN."""
-    mx = _scatter_extremal(scores, dst, n, "amax")[:n]
+    id out of range is NaN.  With ``part`` the max is every rank's (an
+    all-reduce MAX, no gradient) and the denominator a combined sum."""
+    mx = _scatter_extremal(scores.detach(), dst, n, "amax")[:n]
+    if part is not None:
+        mx = part.reduce(mx, "max")
     near = torch.minimum(dst.long(), torch.tensor(n - 1, device=dst.device))
     mx = gather_src(mx, near, float("nan"))
-    ex = torch.exp(scores - mx.detach())
-    den = gather_src(scatter_sum(ex, dst, n), near, float("nan"))
+    ex = torch.exp(scores - mx)
+    den = gather_src(scatter_sum(ex, dst, n, part), near, float("nan"))
     return ex / maximum(den, 1e-30)

@@ -11,6 +11,12 @@ whose cosine reaches ±1 (the edges collinear, or ``t_kj == t_ji``) has an
 angle of zero gradient here (JAX: -inf at ±1, NaN past it, through
 ``arccos(clip(c))``), and a self-loop's zero vector a norm of zero gradient
 (JAX: NaN).  Every value is JAX's.
+
+With ``part`` (an ``EdgeSlice`` of the triplet list, whose T = E x the
+cell's triplet cap dominates the blocks) the rank computes the geometry
+and messages of its triplets and combines their sum into the E edges; the
+(E, d) edge state plays the part of vertex state, whole on every rank, as
+do the node layers and the readout.
 """
 from __future__ import annotations
 
@@ -22,8 +28,12 @@ import torch.nn.functional as F
 
 from ...device import resolve_device
 from ...nn.mlp import init_from_specs, mlp2, mlp2_axes, mlp2_specs
-from .aggregate import gather_src, maximum, scatter_sum
+from .aggregate import EdgeSlice, gather_src, maximum, scatter_sum
 from .heads import mse
+
+
+# the batch leaf whose leading axis an edge split (``aggregate.EdgeSlice``) cuts
+SPLIT = "t_kj"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +100,12 @@ def init(cfg: DimeNetConfig, *, generator: torch.Generator, device=None) -> dict
                            device=resolve_device(device))
 
 
-def forward(params, batch, cfg: DimeNetConfig):
+def forward(params, batch, cfg: DimeNetConfig, part: EdgeSlice | None = None):
     x, pos = batch["node_feat"], batch["pos"]
     src, dst = batch["edge_src"], batch["edge_dst"]
     t_kj, t_ji = batch["t_kj"].long(), batch["t_ji"].long()  # indices into edges, pad=E
+    if part is not None:
+        t_kj, t_ji = part.take(t_kj), part.take(t_ji)
     n = x.shape[0]
     E = src.shape[0]
 
@@ -119,7 +131,7 @@ def forward(params, batch, cfg: DimeNetConfig):
         a = m.index_select(0, kj) @ bp["w_kj"]                # (T, nb)
         b = sbf @ bp["w_sbf"]                                 # (T, nb)
         tmsg = torch.where(tvalid, a * b, 0.0) @ bp["w_bil"]  # (T, d)
-        agg = scatter_sum(tmsg, seg, E)
+        agg = scatter_sum(tmsg, seg, E, part)
         m = m + mlp2(bp["update"], F.silu(m @ bp["w_self"] + agg))
 
     # per-node output: sum incident directed-edge messages
@@ -130,8 +142,8 @@ def forward(params, batch, cfg: DimeNetConfig):
     return per_node
 
 
-def loss_fn(params, batch, cfg: DimeNetConfig):
-    return mse(forward(params, batch, cfg),
+def loss_fn(params, batch, cfg: DimeNetConfig, part: EdgeSlice | None = None):
+    return mse(forward(params, batch, cfg, part),
                batch["graph_labels" if cfg.task == "graph" else "labels"])
 
 

@@ -12,6 +12,11 @@ replaced by direct SH modulation, as in the JAX package: an SEGNN-flavored
 approximation of eSCN with the same per-edge mixing cost, not an exactly
 equivariant layer.  The (l, m) table, the m-truncation mask and the
 coefficient indices are static, built on the host with numpy.
+
+With ``part`` (an ``EdgeSlice``) the rank computes the geometry and
+messages of its range of the edge list, gathering from whole node state,
+and each layer combines the edge softmax and the (N, Cf, d) message sum
+over the ranks; the node layers and the readout run on whole node state.
 """
 from __future__ import annotations
 
@@ -22,9 +27,13 @@ import torch
 
 from ...device import resolve_device
 from ...nn.mlp import init_from_specs, mlp2, mlp2_axes, mlp2_specs
-from .aggregate import gather_src, maximum, scatter_sum, segment_softmax
+from .aggregate import EdgeSlice, gather_src, maximum, scatter_sum, segment_softmax
 from .heads import masked_ce, mse
 from .sh import real_sph_harm, sh_index_table
+
+
+# the batch leaf whose leading axis an edge split (``aggregate.EdgeSlice``) cuts
+SPLIT = "edge_src"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +99,11 @@ def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
     return torch.cat([lo * (1 - s) + hi * s, hi.reshape(1).to(device)])
 
 
-def forward(params, batch, cfg: EquiformerV2Config):
+def forward(params, batch, cfg: EquiformerV2Config, part: EdgeSlice | None = None):
     x, pos = batch["node_feat"], batch["pos"]
     src, dst = batch["edge_src"], batch["edge_dst"]
+    if part is not None:
+        src, dst = part.take(src), part.take(dst)
     n = x.shape[0]
     Cf, d = cfg.n_coef, cfg.d_hidden
     dev = x.device
@@ -125,7 +136,7 @@ def forward(params, batch, cfg: EquiformerV2Config):
         # per-edge scalar attention (n_heads heads)
         logits = mlp2(lp["attn"], torch.cat([hs, hd, rbf], dim=-1))
         logits = torch.where(valid[:, None], logits, -1e30)
-        alpha = segment_softmax(logits, seg, n)                          # (E, H)
+        alpha = segment_softmax(logits, seg, n, part)                    # (E, H)
         gate = torch.repeat_interleave(alpha, d // cfg.n_heads, dim=-1)  # (E, d)
 
         # radial per-l gains
@@ -141,7 +152,7 @@ def forward(params, batch, cfg: EquiformerV2Config):
             msg = fs * gain.index_select(1, sel) + Y.index_select(1, sel)[:, :, None] * inject
             msg = msg * gate[:, None, :]
             msg = torch.where(valid[:, None, None], msg, 0.0)
-            f = f.index_add(1, sel, scatter_sum(msg, seg, n))        # (N, Cs, d) added
+            f = f.index_add(1, sel, scatter_sum(msg, seg, n, part))  # (N, Cs, d) added
         else:
             fs = f.index_select(0, sv)                               # (E, Cf, d)
             # eSCN m-truncated channel mixing: coefficients with |m| ≤ m_max
@@ -153,7 +164,7 @@ def forward(params, batch, cfg: EquiformerV2Config):
             msg = fs * gain + Y[:, :, None] * inject
             msg = msg * gate[:, None, :]
             msg = torch.where(valid[:, None, None], msg, 0.0)
-            f = f + scatter_sum(msg, seg, n)                         # (N, Cf, d)
+            f = f + scatter_sum(msg, seg, n, part)                   # (N, Cf, d)
         # equivariant norm-gated nonlinearity on l>0, MLP on l=0
         norms = torch.sqrt(maximum(torch.sum(f[:, 1:, :] ** 2, dim=1), 1e-12))
         h = h + mlp2(lp["ffn"], f[:, 0, :] + (norms @ lp["w_dst"]) / Cf)
@@ -164,8 +175,8 @@ def forward(params, batch, cfg: EquiformerV2Config):
     return mlp2(params["head"], h)
 
 
-def loss_fn(params, batch, cfg: EquiformerV2Config):
-    out = forward(params, batch, cfg)
+def loss_fn(params, batch, cfg: EquiformerV2Config, part: EdgeSlice | None = None):
+    out = forward(params, batch, cfg, part)
     if cfg.n_classes == 1:
         return mse(out[..., 0], batch["graph_labels" if cfg.task == "graph" else "labels"])
     return masked_ce(out.float(), batch["labels"])

@@ -1,5 +1,9 @@
 """GIN — Graph Isomorphism Network [arXiv:1810.00826], TU-benchmark config:
-5 layers, d=64, sum aggregator, learnable ε (a 0-d leaf)."""
+5 layers, d=64, sum aggregator, learnable ε (a 0-d leaf).
+
+With ``part`` (an ``EdgeSlice``) the rank aggregates its range of the edge
+list and combines the sums; the node layers and the readout run on whole
+node state."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,8 +12,12 @@ import torch
 
 from ...device import resolve_device
 from ...nn.mlp import init_from_specs, mlp2, mlp2_axes, mlp2_specs
-from .aggregate import gather_src, scatter_sum
+from .aggregate import EdgeSlice, gather_src, scatter_sum
 from .heads import masked_ce, mse
+
+
+# the batch leaf whose leading axis an edge split (``aggregate.EdgeSlice``) cuts
+SPLIT = "edge_src"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,14 +51,16 @@ def init(cfg: GINConfig, *, generator: torch.Generator, device=None) -> dict:
                            device=resolve_device(device))
 
 
-def forward(params, batch, cfg: GINConfig):
+def forward(params, batch, cfg: GINConfig, part: EdgeSlice | None = None):
     x = batch["node_feat"]
     src, dst = batch["edge_src"], batch["edge_dst"]
+    if part is not None:
+        src, dst = part.take(src), part.take(dst)
     n = x.shape[0]
     h = mlp2(params["encode"], x)
     reps = [h]
     for lp in params["layers"]:
-        agg = scatter_sum(gather_src(h, src), dst, n)
+        agg = scatter_sum(gather_src(h, src), dst, n, part)
         h = torch.relu(mlp2(lp["mlp"], (1.0 + lp["eps"]) * h + agg))
         reps.append(h)
     hcat = torch.cat(reps, dim=-1)
@@ -59,11 +69,11 @@ def forward(params, batch, cfg: GINConfig):
     return mlp2(params["head"], hcat)
 
 
-def loss_fn(params, batch, cfg: GINConfig):
+def loss_fn(params, batch, cfg: GINConfig, part: EdgeSlice | None = None):
     """Squared error for one output (the molecule cells' regression head),
     else the masked cross-entropy; against ``graph_labels`` for a graph
     task, ``labels`` for a node task."""
-    logits = forward(params, batch, cfg).float()
+    logits = forward(params, batch, cfg, part).float()
     labels = batch["graph_labels" if cfg.task == "graph" else "labels"]
     if cfg.n_classes == 1:
         return mse(logits[..., 0], labels)

@@ -3,6 +3,10 @@
 4 aggregators (mean/max/min/std) × 3 degree scalers (identity /
 amplification / attenuation) → 12·d message concat → linear → update MLP,
 with residual.  n_layers=4, d_hidden=75 per the assigned config.
+
+With ``part`` (an ``EdgeSlice``) the rank aggregates its range of the edge
+list: the degrees, hence δ and the scalers, and the four aggregators are
+combined over the ranks; the node layers run on whole node state.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 from ...device import resolve_device
 from ...nn.mlp import init_from_specs, mlp2, mlp2_axes, mlp2_specs
 from .aggregate import (
+    EdgeSlice,
     degrees,
     gather_src,
     maximum,
@@ -23,6 +28,10 @@ from .aggregate import (
     scatter_sum,
 )
 from .heads import masked_ce, mse
+
+
+# the batch leaf whose leading axis an edge split (``aggregate.EdgeSlice``) cuts
+SPLIT = "edge_src"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,12 +66,14 @@ def init(cfg: PNAConfig, *, generator: torch.Generator, device=None) -> dict:
                            device=resolve_device(device))
 
 
-def forward(params, batch, cfg: PNAConfig):
+def forward(params, batch, cfg: PNAConfig, part: EdgeSlice | None = None):
     x = batch["node_feat"]
     src, dst = batch["edge_src"], batch["edge_dst"]
+    if part is not None:
+        src, dst = part.take(src), part.take(dst)
     n = x.shape[0]
     h = mlp2(params["encode"], x)
-    deg = degrees(torch.clamp_max(dst, n), n)
+    deg = degrees(torch.clamp_max(dst, n), n, part)
     logd = torch.log1p(deg)
     delta = torch.mean(torch.where(deg > 0, logd, 0.0)) + 1e-6  # batch-estimated δ
     amp = (logd / delta)[:, None]
@@ -74,10 +85,10 @@ def forward(params, batch, cfg: PNAConfig):
         hd = gather_src(h, dst)
         m = mlp2(lp["msg"], torch.cat([hs, hd], dim=-1))
         aggs = [
-            scatter_mean(m, dst, n, deg=deg),
-            scatter_max(m, dst, n),
-            scatter_min(m, dst, n),
-            scatter_std(m, dst, n, deg=deg),
+            scatter_mean(m, dst, n, deg=deg, part=part),
+            scatter_max(m, dst, n, part=part),
+            scatter_min(m, dst, n, part=part),
+            scatter_std(m, dst, n, deg=deg, part=part),
         ]
         aggs = [torch.where(present, a, 0.0) for a in aggs]  # isolated nodes → 0
         scaled = []
@@ -90,8 +101,8 @@ def forward(params, batch, cfg: PNAConfig):
     return mlp2(params["head"], h)
 
 
-def loss_fn(params, batch, cfg: PNAConfig):
-    out = forward(params, batch, cfg)
+def loss_fn(params, batch, cfg: PNAConfig, part: EdgeSlice | None = None):
+    out = forward(params, batch, cfg, part)
     if cfg.task == "graph":
         return mse(out[..., 0], batch["graph_labels"])
     return masked_ce(out.float(), batch["labels"])

@@ -10,7 +10,8 @@ batches as numpy to a pickle once the ranks are starting
   under ``RECSYS_RULES`` (item rows over ``model``), 3 steps, beside the
   port's one-device ``Trainer`` on the same state and batches; the tiny LM
   under ``LM_RULES`` (its 101 vocabulary rows do not split in two); a GNN
-  train cell, and serving cells, through ``build_step``;
+  train cell (its step built, edges split over both ranks), and serving
+  cells, through ``build_step``;
 * ranks 2 and 3, a (2, 1) mesh: the tiny LM and SASRec, 2 steps at each
   accumulation, batches whose ranks hold different counts of unmasked
   positions; SASRec failing at step 3 with a checkpoint every 2, resumed,
@@ -110,6 +111,7 @@ def _run(rank, payload, out):
     from repro_torch.configs import all_cells
     from repro_torch.core import make_process_mesh
     from repro_torch.launch import TrainConfig, Trainer, build_step
+    from repro_torch.models.gnn import gin
     from repro_torch.optim import compressed_psum
 
     res = {"rank": rank}
@@ -140,8 +142,12 @@ def _run(rank, payload, out):
                                                  rules=lm_rules).init_state(
                 torch.Generator().manual_seed(0)), ValueError),
             "gnn train": _raises(lambda: build_step(cells[("gin-tu", "molecule")], mesh),
-                                 NotImplementedError),
+                                 (NotImplementedError, TypeError, ValueError)),
         }
+        gin_cell = cells[("gin-tu", "molecule")]
+        res["gnn specs"] = build_step(gin_cell, mesh)[2:]
+        res["gnn edge axes"] = Trainer(gin, gin_cell.model_cfg, device=CPU, mesh=mesh,
+                                       rules=gin_cell.rules).layout.edge_axes
         res["serving specs"] = {cell: build_step(cells[cell], mesh)[2:]
                                 for cell in payload["serving_cells"]}
     else:

@@ -251,15 +251,18 @@ def _jax_specs(tree):
 
 def test_errors_on_a_two_rank_mesh(spawned):
     """The tiny LM's 101 vocabulary rows do not split over ``model``: the
-    error names the leaf; a GNN train cell on a 2-rank mesh raises
-    ``NotImplementedError`` naming ROADMAP; every LM and SASRec serving
-    cell returns its sharded step, with ``in_specs`` / ``out_specs`` equal
-    to the JAX package's ``build_step``'s."""
+    error names the leaf; a GNN train cell on a 2-rank mesh builds its
+    layout (the edges split over both axes) and its step, with JAX's
+    specs; every LM and SASRec serving cell returns its sharded step, with
+    ``in_specs`` / ``out_specs`` equal to the JAX package's
+    ``build_step``'s."""
     for rank in (0, 1):
         e = spawned[0][rank]["errors"]
         assert e["lm uneven"].startswith("ValueError: /embed: dim 0 of size 101"), e["lm uneven"]
-        assert e["gnn train"].startswith("NotImplementedError") and "ROADMAP.md" in e[
-            "gnn train"], e["gnn train"]
+        assert e["gnn train"] == "", e["gnn train"]
+        assert spawned[0][rank]["gnn edge axes"] == ("data", "model")
+        _, _, jin, jout = jbuild_step(jall_cells()[("gin-tu", "molecule")], single_device_mesh())
+        assert spawned[0][rank]["gnn specs"] == (_jax_specs(jin), _jax_specs(jout))
         for cell in SERVING_CELLS:
             ins, outs = spawned[0][rank]["serving specs"][cell]
             _, _, jin, jout = jbuild_step(jall_cells()[cell], single_device_mesh())

@@ -236,19 +236,23 @@ def test_restart_is_bit_identical(tmp_path, dtype):
 
 def test_trainer_refuses_a_mesh_and_names_the_roadmap():
     """A mesh that is no ``ProcessMesh`` or ``ShardMesh`` raises
-    ``TypeError``; a GNN on a process mesh of two ranks raises
-    ``NotImplementedError`` naming ROADMAP (its aggregation needs a combine),
-    before any collective; rules without a mesh train on one device."""
+    ``TypeError``; a GNN on a process mesh of two ranks builds its layout
+    before any collective: parameters whole under ``GNN_RULES``, the edge
+    lists split over both mesh axes; rules without a mesh train on one
+    device."""
     from repro_torch.configs import gin_tu
     from repro_torch.core import ProcessMesh
+    from repro_torch.distributed import GNN_RULES
+    from repro_torch.distributed.shardings import spec_leaves
     from repro_torch.models.gnn import gin
 
     with pytest.raises(TypeError, match="ProcessMesh"):
         Trainer(sasrec, sasrec_config.smoke_config(), device=CPU, mesh=object())
     two = ProcessMesh(shape=(2, 1), axis_names=("data", "model"), rank=0,
                       device=torch.device(CPU), backend="gloo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(gin, gin_tu.smoke_config(), device=CPU, mesh=two, rules={})
+    lay = Trainer(gin, gin_tu.smoke_config(), device=CPU, mesh=two, rules=GNN_RULES).layout
+    assert lay.edge_axes == ("data", "model") and lay.edge_parallel == 2
+    assert all(e is None for _, _, spec in spec_leaves(lay.shapes, lay.params) for e in spec)
     assert Trainer(sasrec, sasrec_config.smoke_config(), device=CPU, rules={}).layout is None
 
 
