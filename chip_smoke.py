@@ -251,8 +251,22 @@ registry (every cell's batch made on the card).
    for bit the parent's single-device card run, PageRank and the step within
    1e-5.  Printed: the wall per BFS round per rank and the combine's share
    (gloo stages CUDA tensors through the host: not an NCCL number), the
-   bytes a rank sends a round, the in-process (2,) plan's round.  A rank
-   that fails, or runs past 150 s, fails the run.
+   bytes a rank sends a round, the in-process (2,) plan's round.  Then the
+   serving tier on the process plan, in the same spawn: each rank's
+   ``QueryEngine`` over the host graph B (phase 5's 12 BFS and 4 wBFS, then
+   4 PPR), ``ServingService`` (phase 12(d)'s 48-request stream) and a
+   mutable service over ``DeltaOverlay(graph E)`` (8 requests, 64 edits,
+   one compaction persisted by rank 0 alone to one shared ``ckpt_dir``,
+   reloaded by every rank equal to its own fold), against the same legs run
+   meanwhile in the parent on one device (BFS and wBFS bit for bit, PPR by
+   (c)'s rule, the checkpoint leaf for leaf) and on the in-process (2,)
+   plan (tickets, ``stats``, ledgers, cache misses, PSAM account, read
+   quantum); every rank against rank 0; only the rank's shard and its
+   results on the card; at most one fused launch a cohort round, none of
+   kernel 1's decode for BFS/wBFS.  Printed: each leg's rate a rank beside
+   one device's and the in-process plan's, the combines' share and bytes,
+   the flush digests' ms.  A rank that fails, or runs past 150 s, fails
+   the run.
 15. Mutable graphs and observability: (a) graph A (the full configuration)
    under a ``DeltaOverlay``: a 4,096-edit script from the seed (inserts of
    absent edges, deletes of present ones, re-inserts at the old and at a new
@@ -5336,6 +5350,8 @@ def drive_features(dev, B_, E_):
 DIST_DIR = ROOT / "build" / "phase14g"
 DIST_LIMIT_S = 150   # the ranks' limit, start included: a rank still running is killed
 DIST_SOURCES = 2     # phase 14(b)'s sources of graph B, and the next
+DIST_PPR = 4         # PPR queries (SERVICE_PPR) beside phase 5's 16 in the ranks' engine
+DIST_MUTABLE = (8, 64)   # graph E's mutable stream on the ranks: requests, edits
 
 
 def _tensors_of(g) -> list:
@@ -5346,23 +5362,24 @@ def _tensors_of(g) -> list:
             if isinstance(getattr(g, f.name), torch.Tensor)]
 
 
-def dist_rank(rank, world, device, srcs):
+def dist_rank(rank, world, device, srcs, job):
     """One rank of phase 14(g): gloo from a ``file://`` path under ``build/``,
     the graphs from the parent's ``save_compacted`` files, a (2,) process
     mesh on ``device``; results to ``rank<r>.pt``, an exception to
-    ``rank<r>.err`` (and exit code 1)."""
+    ``rank<r>.err`` (and exit code 1).  ``job`` holds the serving legs'
+    streams (``dist_job``)."""
     import traceback
 
     try:
         import torch
 
-        torch.save(_dist_rank(rank, world, device, srcs), DIST_DIR / f"rank{rank}.pt")
+        torch.save(_dist_rank(rank, world, device, srcs, job), DIST_DIR / f"rank{rank}.pt")
     except BaseException:
         (DIST_DIR / f"rank{rank}.err").write_text(traceback.format_exc())
         os._exit(1)
 
 
-def _dist_rank(rank, world, device, srcs):
+def _dist_rank(rank, world, device, srcs, job):
     import datetime
 
     import torch
@@ -5449,6 +5466,7 @@ def _dist_rank(rank, world, device, srcs):
     inv = 1.0 / gsB.degrees.clamp(min=1).to(torch.float32)
     step = distributed_pagerank_step(mesh, n=gB.n)(gsB, pr, inv)
     out["step"] = step.cpu()
+    out["serving"] = dist_serving(mesh, dev, gB, gE, plan_b, job)
     if on_card:
         nccl = dist.new_group(backend="nccl")
         try:
@@ -5460,14 +5478,202 @@ def _dist_rank(rank, world, device, srcs):
     return out
 
 
+def dist_job(B_, E_, srcs) -> dict:
+    """The serving legs' inputs, the same for the ranks and the parent:
+    phase 5's 12 BFS and 4 wBFS requests and ``DIST_PPR`` PPR ones, phase
+    12(d)'s 48-request stream and the capped tenant's budget (the (2,)
+    plan's read quantum), graph E's mutable stream (sources and edits)."""
+    from repro_torch.core import edgemap_round_read_words
+
+    words = edgemap_round_read_words(B_.host, num_shards=2)
+    keys, w = base_edges(E_.host_csr)
+    return {
+        "engine": [("bfs", {"src": s}) for s in srcs[2:14]]
+        + [("wbfs", {"src": s}) for s in srcs[14:18]],
+        "ppr": [("ppr", {"src": s, **SERVICE_PPR}) for s in srcs[:DIST_PPR]],
+        "stream": sources(B_.host, SERVICE_REQUESTS, SEED + 4),
+        "budgets": {"capped": (1.5 * words, 1.5 * words)},
+        "mutable_srcs": sources(E_.host, DIST_MUTABLE[0], SEED + 20),
+        "script": edit_script(keys, w, E_.host.n, DIST_MUTABLE[1], SEED + 19),
+    }
+
+
+def dist_service_config(job, *, mutable=False, ckpt_dir=None):
+    """Phase 12(d)'s service knobs and budget; ``mutable``: graph E's, whose
+    one compaction is the ``force_compact`` at the stream's end."""
+    from repro_torch.serving import ServiceConfig
+    from repro_torch.tuning import OverlayTrigger
+
+    knobs = {"slo": 0.05, "max_batch": 8, "depth_trigger": 6, "round_quantum": 2}
+    if mutable:
+        return ServiceConfig(**knobs, compact_trigger=OverlayTrigger(hysteresis=math.inf),
+                             ckpt_dir=ckpt_dir)
+    return ServiceConfig(**knobs, admission="defer", budgets=job["budgets"])
+
+
+def _to_cpu(res):
+    return tuple(_to_cpu(r) for r in res) if isinstance(res, tuple) else (
+        res.cpu() if hasattr(res, "cpu") else res)
+
+
+def _devices_of(results) -> set:
+    out = set()
+    for res in results:
+        for t in (res if isinstance(res, tuple) else (res,)):
+            if hasattr(t, "device"):
+                out.add(str(t.device))
+    return out
+
+
+def _unmarked(counts) -> dict:
+    """A process plan's cache keys, each checked to name the process mesh
+    (``("process", mesh)``) and keyed as the in-process plan's."""
+    for key in counts:
+        check(isinstance(key[1], tuple) and key[1][0] == "process",
+              f"a process plan's cache key does not name the process mesh: {key}")
+    return {key[:1] + (key[1][1],) + key[2:]: v for key, v in counts.items()}
+
+
+def _service_record(svc, tickets):
+    """A process-plan service as ``same_service`` reads it (cache keys
+    unmarked), and its tickets with results on the host."""
+    import types
+
+    rec = types.SimpleNamespace(
+        stats=dict(svc.stats), engine=types.SimpleNamespace(stats=dict(svc.engine.stats)),
+        ledgers=dict(svc.ledgers.items()), trace_counts=_unmarked(svc.trace_counts),
+        cost=types.SimpleNamespace(large_reads=svc.cost.large_reads,
+                                   small_ops=svc.cost.small_ops,
+                                   large_writes=svc.cost.large_writes),
+        round_words=svc._round_words, held=_held(svc.engine.prepared))
+    return rec, [dataclasses.replace(t, result=_to_cpu(t.result)) for t in tickets]
+
+
+def _held(gs):
+    """Which shard a prepared graph holds and where: (index, shards held,
+    shards in all, devices)."""
+    return (gs.shard_index, len(gs.shards), gs.num_shards,
+            sorted({str(t.device) for t in _tensors_of(gs.shards[0])}))
+
+
+def dist_serving(mesh, dev, gB, gE, plan_b, job):
+    """Phase 14(g)'s serving legs on one rank: the engine (phase 5's 16
+    requests, then ``DIST_PPR`` PPR), phase 12(d)'s service stream, and graph
+    E's mutable service persisting one compaction to ``build/phase14g/ckpt_e``
+    (rank 0 writes it; every rank reloads it and holds it to its own fold).
+    Each leg's wall, its combines (seconds and bytes, each side
+    synchronised) and its flush digests (seconds) are recorded."""
+    import torch
+
+    import repro_torch.core.plan as plan_mod
+    import repro_torch.serving.engine as engine_mod
+    import repro_torch.serving.service as service_mod
+    from repro_torch.core import make_plan
+    from repro_torch.delta import DeltaOverlay, load_compacted
+    from repro_torch.kernels import compressed_chunked_spmv, compressed_stream_round
+    from repro_torch.obs import noop_registry
+    from repro_torch.serving import QueryEngine, ServingService
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    real = (plan_mod._combine_process, engine_mod.check_same_digest,
+            service_mod.check_same_digest, service_mod.save_compacted)
+    saves = []
+
+    def watched(fn):
+        """``fn()`` timed, with its combines and digests, and kernel 1's
+        launches (decode, fused)."""
+        rec = {"combine": [], "digest": []}
+
+        def combine(plan, out, touched, *a, **kw):
+            sync()
+            t = time.perf_counter()
+            res = real[0](plan, out, touched, *a, **kw)
+            sync()
+            rec["combine"].append((time.perf_counter() - t,
+                                   out.numel() * out.element_size() + touched.numel() * 4))
+            return res
+
+        def digest(check_fn):
+            def timed_check(*a, **kw):
+                t = time.perf_counter()
+                check_fn(*a, **kw)
+                rec["digest"].append(time.perf_counter() - t)
+            return timed_check
+
+        def save(*a, **kw):
+            saves.append(a[1])
+            return real[3](*a, **kw)
+
+        plan_mod._combine_process = combine
+        engine_mod.check_same_digest = digest(real[1])
+        service_mod.check_same_digest = digest(real[2])
+        service_mod.save_compacted = save
+        b0 = (compressed_chunked_spmv.launches, compressed_stream_round.launches)
+        try:
+            sync()
+            t = time.perf_counter()
+            res = fn()
+            sync()
+            rec["wall"] = time.perf_counter() - t
+        finally:
+            (plan_mod._combine_process, engine_mod.check_same_digest,
+             service_mod.check_same_digest, service_mod.save_compacted) = real
+        rec["launches"] = (compressed_chunked_spmv.launches - b0[0],
+                           compressed_stream_round.launches - b0[1])
+        return res, rec
+
+    out = {}
+    eng = QueryEngine(gB, plan=plan_b, max_batch=8, registry=noop_registry())
+    got, rec = watched(lambda: eng.serve(job["engine"]))
+    got_p, rec_p = watched(lambda: eng.serve(job["ppr"]))
+    out["engine"] = {
+        "results": [_to_cpu(r) for r in got + got_p],
+        "devices": _devices_of(got + got_p), "held": _held(eng.prepared),
+        "legs": (rec, rec_p), "rounds": drain_rounds(job["engine"], got, 8),
+        "stats": dict(eng.stats), "trace_counts": _unmarked(eng.trace_counts),
+        "cost": (eng.cost.large_reads, eng.cost.small_ops),
+    }
+    del eng, got, got_p
+    svc = ServingService(gB, plan=plan_b, config=dist_service_config(job),
+                         registry=noop_registry())
+    tickets, rec = watched(lambda: service_stream(svc, job["stream"]))
+    out["service"] = (*_service_record(svc, tickets), rec,
+                      _devices_of([t.result for t in tickets if t.result is not None]))
+    del svc, tickets
+    ov = DeltaOverlay(gE)
+    plan_m = make_plan(ov.snapshot(), mesh=mesh, strategy="sparse_streamed",
+                       chunk_blocks=MUT_CHUNK)
+    ckpt = DIST_DIR / "ckpt_e"
+    svc = ServingService(ov, plan=plan_m, config=dist_service_config(
+        job, mutable=True, ckpt_dir=str(ckpt)), registry=noop_registry())
+
+    def stream():
+        res = mutable_stream(svc, job["mutable_srcs"], job["script"])
+        return res, svc.force_compact(1.0)
+
+    ((tickets, admitted), base), rec = watched(stream)
+    loaded, step = load_compacted(str(ckpt), device="cpu")
+    check(step == 0, f"rank {mesh.rank}: the persisted step is {step}")
+    same_compressed(loaded, base, f"rank {mesh.rank}: the persisted compaction against its own "
+                    "fold")
+    out["mutable"] = (*_service_record(svc, tickets), rec,
+                      _devices_of([t.result for t in tickets if t.result is not None]),
+                      admitted, saves)
+    return out
+
+
 def drive_process_mesh(dev, B_, E_, srcs):
     """Phase 14(g): two ranks on the one card (``torch.multiprocessing``,
     gloo, both on ``dev``), each holding one shard of graphs B and E on a
     (2,) process mesh: BFS and wBFS on B, k-core on E, PageRank on B (10
     iterations, ``eps=0``, flat) and one ``distributed_pagerank_step``,
     against this process's single-device runs on the card; a 2-rank NCCL
-    group on the one card must raise the duplicate-device error.  Returns
-    the ranks' (kernel 1 decode, fused) launches."""
+    group on the one card must raise the duplicate-device error.  Then the
+    serving tier on the process plan (``dist_serving``), against the same
+    legs on one device and on the in-process (2,) plan run here meanwhile
+    (``srcs``: phase 5's 18 sources of graph B).  Returns the ranks'
+    (kernel 1 decode, fused) launches."""
     import multiprocessing
 
     import torch
@@ -5482,9 +5688,10 @@ def drive_process_mesh(dev, B_, E_, srcs):
     DIST_DIR.mkdir(parents=True)
     save_compacted(str(DIST_DIR / "B"), 0, B_.host)
     save_compacted(str(DIST_DIR / "E"), 0, E_.host)
+    job = dist_job(B_, E_, srcs)
     srcs = list(srcs[:DIST_SOURCES])
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=dist_rank, args=(r, 2, str(dev), srcs)) for r in range(2)]
+    procs = [ctx.Process(target=dist_rank, args=(r, 2, str(dev), srcs, job)) for r in range(2)]
     for p in procs:
         p.start()
     # meanwhile, one device on the card, and the in-process (2,) plan
@@ -5508,6 +5715,8 @@ def drive_process_mesh(dev, B_, E_, srcs):
         if on_card:
             torch.cuda.synchronize()
         walls2.append((time.perf_counter() - t) / (int(lv.max()) + 1))
+    served = {tag: serve_legs(dev, gB, gE, plan, job)
+              for tag, plan in (("one device", single), ("(2,) in-process", in_proc))}
     deadline = time.monotonic() + DIST_LIMIT_S
     try:
         for p in procs:
@@ -5577,8 +5786,197 @@ def drive_process_mesh(dev, B_, E_, srcs):
         f"({res[0].get('nccl', 'not run: no card')[:90]!r}); each rank sends a round's out and "
         f"touched as int32[{n}] each: {8 * n} B in all-reduce inputs, ring traffic "
         f"2(k-1)/k = 1x that, {8 * n} B a rank a round; in-process (2,) plan "
-        f"{statistics.median(walls2) * 1e3:.3f} ms a BFS round; "
-        f"phase wall {time.perf_counter() - t_all:.1f} s (spawn included)")
+        f"{statistics.median(walls2) * 1e3:.3f} ms a BFS round")
+    d, f = check_serving_legs(dev, B_, E_, job, res, served)
+    log(f"[14] (g) phase wall {time.perf_counter() - t_all:.1f} s (spawn included)")
+    return decode + d, fused + f
+
+
+def serve_legs(dev, gB, gE, plan, job):
+    """``dist_serving``'s legs in this process on ``plan`` (one device, or
+    the in-process (2,) plan: graph E's plan then on a (2,) ``make_mesh``
+    of the card): the engine, the service and the mutable service, each
+    timed; one device's compaction persisted to ``ckpt_e_one``."""
+    import torch
+
+    from repro_torch.core import make_mesh, make_plan
+    from repro_torch.delta import DeltaOverlay
+    from repro_torch.obs import noop_registry
+    from repro_torch.serving import QueryEngine, ServingService
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    out = {}
+    eng = QueryEngine(gB, plan=plan, max_batch=8, registry=noop_registry())
+    got, t_e = timed(lambda: eng.serve(job["engine"]))
+    got_p, t_p = timed(lambda: eng.serve(job["ppr"]))
+    out["engine"] = ([_to_cpu(r) for r in got + got_p], t_e + t_p, eng)
+    svc = ServingService(gB, plan=plan, config=dist_service_config(job),
+                         registry=noop_registry())
+    tickets, t_s = timed(lambda: service_stream(svc, job["stream"]))
+    out["service"] = (svc, cpu_tickets(tickets), t_s)
+    ov = DeltaOverlay(gE)
+    mesh = None if plan.mesh is None else make_mesh((2,), ("data",), devices=[dev] * 2)
+    plan_m = make_plan(ov.snapshot(), mesh=mesh, strategy="sparse_streamed",
+                       chunk_blocks=MUT_CHUNK)
+    ckpt = str(DIST_DIR / "ckpt_e_one") if mesh is None else None
+    msvc = ServingService(ov, plan=plan_m, config=dist_service_config(
+        job, mutable=True, ckpt_dir=ckpt), registry=noop_registry())
+    (tickets, admitted), t_m = timed(lambda: mutable_stream(msvc, job["mutable_srcs"],
+                                                            job["script"]))
+    msvc.force_compact(1.0)
+    out["mutable"] = (msvc, cpu_tickets(tickets), t_m, admitted)
+    return out
+
+
+def cpu_tickets(tickets):
+    """Tickets with their results on the host."""
+    return [dataclasses.replace(t, result=_to_cpu(t.result)) for t in tickets]
+
+
+def check_serving_legs(dev, B_, E_, job, res, served):
+    """Phase 14(g)'s serving legs: each rank's engine, service and mutable
+    service against one device's results (BFS and wBFS bit for bit, PPR by
+    phase 12(c)'s rule) and the in-process (2,) plan's accounting (tickets,
+    ``stats``, ledgers, cache misses, PSAM account, read quantum), every rank
+    against rank 0, each rank's shard alone on the card, at most one fused
+    launch a cohort round; the compaction persisted once (rank 0) and equal
+    to one device's checkpoint.  Logs each leg's rate a rank beside one
+    device's and the in-process plan's, the combines' share and bytes, and
+    the flush digests' ms.  Returns the ranks' (decode, fused) launches."""
+    import torch
+
+    on_card = dev.type == "cuda"
+    card = [str(dev)]
+    deg_b = B_.host.degrees.clamp(min=1).to(torch.float32)
+    deg_e = E_.host.degrees.clamp(min=1).to(torch.float32)
+    pis = {}
+
+    def pi_of(csr, s):
+        if (id(csr), s) not in pis:
+            pis[id(csr), s] = ppr_power_iteration(csr, [s])[:, 0]
+        return pis[id(csr), s]
+
+    def like_one(op, got, want, deg, csr, params, what):
+        if op == "bfs":
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"{what}: BFS differs from one device")
+        elif op == "wbfs":
+            check(torch.equal(got, want), f"{what}: wBFS differs from one device")
+        else:
+            same_ppr(got, want, deg, lambda: pi_of(csr, params["src"]), params["eps"],
+                     params["max_rounds"], f"{what}: PPR")
+
+    def tickets_like_one(tickets, one, deg, csr, what):
+        check([t.id for t in tickets] == [t.id for t in one], f"{what}: ticket ids differ")
+        for t, u in zip(tickets, one):
+            check(t.status == u.status == "done", f"{what}: ticket {t.id} is {t.status}")
+            like_one(t.op, t.result, u.result, deg, csr, t.params, f"{what}, ticket {t.id}")
+
+    def share(rec):
+        comb = sum(t for t, _ in rec["combine"])
+        sent = statistics.mean(b for _, b in rec["combine"]) if rec["combine"] else 0
+        dig = statistics.mean(rec["digest"]) * 1e3 if rec["digest"] else float("nan")
+        return (f"combine {comb:.3f} s = {comb / rec['wall']:.3f} of it over "
+                f"{len(rec['combine'])} combines, {sent:.0f} B a combine in all-reduce inputs; "
+                f"{len(rec['digest'])} flush digests, {dig:.3f} ms each")
+
+    one, inp = served["one device"], served["(2,) in-process"]
+    reqs = job["engine"] + job["ppr"]
+    decode = fused = 0
+    rate = {}
+    for r, rr in enumerate(res):
+        e = rr["serving"]["engine"]
+        what = f"phase 14(g) rank {r} engine"
+        for (op, p), got, want in zip(reqs, e["results"], one["engine"][0]):
+            like_one(op, got, want, deg_b, B_.host_csr, p, f"{what}, {op} from {p['src']}")
+        eng_in = inp["engine"][2]
+        check(e["stats"] == eng_in.stats and e["trace_counts"] == eng_in.trace_counts
+              and e["cost"] == (eng_in.cost.large_reads, eng_in.cost.small_ops),
+              f"{what}: stats, cache misses or PSAM account differ from the in-process plan's")
+        check(e["held"] == (r, 1, 2, card) and e["devices"] == set(card),
+              f"{what}: holds {e['held']}, results on {e['devices']}")
+        (rec, rec_p), rounds = e["legs"], e["rounds"]
+        check(not on_card or (rec["launches"][0] == 0 and 0 < rec["launches"][1] <= rounds
+                              and rec_p["launches"][0] > 0 and rec_p["launches"][1] == 0),
+              f"{what}: kernel 1 launches (decode, fused) BFS/wBFS {rec['launches']} in "
+              f"{rounds} rounds, PPR {rec_p['launches']}")
+        decode += rec_p["launches"][0]
+        fused += rec["launches"][1]
+        rec_s, tickets, srec, devs = (rr["serving"]["service"][i] for i in (0, 1, 2, 3))
+        what = f"phase 14(g) rank {r} service"
+        svc_in, tickets_in, _ = inp["service"]
+        same_tickets(tickets, tickets_in, deg_b, lambda s: pi_of(B_.host_csr, s),
+                     f"{what} against the in-process (2,) plan")
+        same_service(rec_s, svc_in, f"{what} against the in-process (2,) plan")
+        tickets_like_one(tickets, one["service"][1], deg_b, B_.host_csr, what)
+        check(rec_s.round_words == svc_in._round_words and rec_s.held == (r, 1, 2, card)
+              and devs == set(card), f"{what}: read quantum {rec_s.round_words} (in-process "
+              f"{svc_in._round_words}), holds {rec_s.held}, results on {devs}")
+        st = rec_s.stats
+        check(not on_card or 0 < srec["launches"][1] <= st["cohort_rounds"],
+              f"{what}: fused launches {srec['launches'][1]} in {st['cohort_rounds']} cohort "
+              "rounds")
+        decode += srec["launches"][0]
+        fused += srec["launches"][1]
+        rec_m, tickets_m, mrec, devs_m, admitted, saves = rr["serving"]["mutable"]
+        what = f"phase 14(g) rank {r} mutable service"
+        msvc_in, mtickets_in, _, admitted_in = inp["mutable"]
+        same_tickets(tickets_m, mtickets_in, deg_e, lambda s: pi_of(E_.host_csr, s),
+                     f"{what} against the in-process (2,) plan")
+        same_service(rec_m, msvc_in, f"{what} against the in-process (2,) plan")
+        tickets_like_one(tickets_m, one["mutable"][1], deg_e, E_.host_csr, what)
+        check(rec_m.stats["compactions"] == 1 and rec_m.cost.large_writes
+              == msvc_in.cost.large_writes and admitted == admitted_in == one["mutable"][3],
+              f"{what}: compactions {rec_m.stats['compactions']}, admitted {admitted}")
+        check(saves == ([0] if r == 0 else []), f"{what}: save_compacted calls {saves}")
+        check(rec_m.held == (r, 1, 2, card) and devs_m == set(card),
+              f"{what}: holds {rec_m.held}, results on {devs_m}")
+        if r:
+            base = res[0]["serving"]
+            same_tickets(tickets, base["service"][1], deg_b, lambda s: pi_of(B_.host_csr, s),
+                         f"{what}: rank {r} against rank 0")
+            same_service(rec_s, base["service"][0], f"phase 14(g) service: rank {r} against 0")
+            same_tickets(tickets_m, base["mutable"][1], deg_e,
+                         lambda s: pi_of(E_.host_csr, s), f"{what}: rank {r} against rank 0")
+            for a, b in zip(e["results"], base["engine"]["results"]):
+                check(all(torch.equal(x, y) for x, y in zip(
+                    a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,))),
+                    f"phase 14(g) engine: rank {r}'s results differ from rank 0's")
+        wall_e = rec["wall"] + rec_p["wall"]
+        rate[r] = (len(reqs) / wall_e, st["served"] / srec["wall"],
+                   rec_m.stats["served"] / mrec["wall"])
+        log(f"[14] (g) rank {r} serving on the (2,) process plan: engine {len(reqs)} queries "
+            f"({len(job['engine'])} BFS/wBFS, {len(job['ppr'])} PPR) in {wall_e:.3f} s = "
+            f"{rate[r][0]:.2f} queries/s, kernel 1 fused {rec['launches'][1]} in {rounds} "
+            f"rounds, decode {rec['launches'][0]} (PPR {rec_p['launches'][0]}); BFS/wBFS "
+            f"{share(rec)}. Service {len(job['stream'])} requests in {srec['wall']:.3f} s = "
+            f"{rate[r][1]:.2f} requests/s, stats {st}, fused {srec['launches'][1]} in "
+            f"{st['cohort_rounds']} cohort rounds, decode {srec['launches'][0]}; "
+            f"{share(srec)}. Mutable service (graph E, {len(job['mutable_srcs'])} requests, "
+            f"{len(job['script'])} edits, one compaction) in {mrec['wall']:.3f} s = "
+            f"{rate[r][2]:.2f} served/s; {share(mrec)}; save_compacted calls {saves}")
+    steps = sorted(p.name for p in (DIST_DIR / "ckpt_e").iterdir())
+    check(steps == ["step_0000000000"], f"phase 14(g): the shared ckpt_dir holds {steps}")
+    same_checkpoints(DIST_DIR / "ckpt_e", DIST_DIR / "ckpt_e_one",
+                     "phase 14(g): the ranks' persisted compaction against one device's")
+    rates = {tag: (len(reqs) / leg["engine"][1], leg["service"][0].stats["served"]
+                   / leg["service"][2], leg["mutable"][0].stats["served"] / leg["mutable"][2])
+             for tag, leg in served.items()}
+    log(f"[14] (g) serving on {CARD}, while the ranks ran (all on the one card): queries/s of "
+        f"the engine, requests/s of the service, served/s of the mutable service: ranks "
+        + ", ".join(f"{r} {a:.2f} / {b:.2f} / {c:.2f}" for r, (a, b, c) in rate.items())
+        + "; " + ", ".join(f"{tag} {a:.2f} / {b:.2f} / {c:.2f}"
+                           for tag, (a, b, c) in rates.items())
+        + "; every rank's tickets, stats, ledgers, cache misses and PSAM account equal the "
+        "in-process (2,) plan's, its BFS/wBFS one device's bit for bit, PPR by phase 12(c)'s "
+        "rule; rank 0 persisted graph E's one compaction, rank 1 wrote none, both reloaded it "
+        "equal to their own fold and to one device's checkpoint")
     return decode, fused
 
 
@@ -7359,7 +7757,7 @@ def main(argv=None) -> int:
     elif args.dist_only:
         t0 = time.perf_counter()
         B_, E_ = build_graph(*GRAPH_B, dev), build_graph(*GRAPH_E, dev)
-        drive_process_mesh(dev, B_, E_, sources(B_.dev, 2, SEED + 1))
+        drive_process_mesh(dev, B_, E_, sources(B_.dev, 18, SEED + 1))
         kernels = []  # its launch counts are the ranks'; the full run lists every kernel
         log(f"wall seconds: process mesh {time.perf_counter() - t0:.1f}")
     elif args.shard_train_only:

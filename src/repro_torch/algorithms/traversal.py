@@ -363,7 +363,9 @@ def traversal_cohort_init(g: GraphLike, ops, sources):
 
     The serving scheduler repacks this state between quanta by indexing the
     leading B axis, which is legal because every batched edgeMap is per-lane
-    independent."""
+    independent.  The state lives on ``g.device``: pass the graph the
+    cohort runs on (a plan's prepared graph: on a process plan, the rank's
+    shard on its device)."""
     n, dev = g.n, g.device
     ops = tuple(ops)
     for op in ops:
@@ -427,10 +429,11 @@ def traversal_cohort_rounds(
     early when every lane drains.  Returns ``(state, lane_rounds, active)``:
     ``lane_rounds`` int32[B] counts the rounds each lane was active in this
     call, ``active`` bool[B] flags lanes with work left.  Each lane's rows
-    equal its single-query ``bfs`` / ``wbfs`` run."""
-    n, dev = g.n, g.device
+    equal its single-query ``bfs`` / ``wbfs`` run.  The round's own tensors
+    go where the prepared graph computes, with ``state``."""
     if plan is not None:
         g = plan.prepare(g)
+    n, dev = g.n, g.device
     weighted = tuple(bool(w) for w in weighted)
     B = len(weighted)
     any_w, all_w = any(weighted), all(weighted)

@@ -14,13 +14,22 @@ started (``torchrun``, or ``torch.multiprocessing`` with ``file://`` init).
 Its position is its rank in the group, row-major; the executor runs the one
 local sweep and combines by collectives (``plan._combine_process``).
 Nothing here starts a process group.
+
+Every rank of a process mesh must take the same decisions, or its
+collectives combine different queries (or wait for a call that never
+comes).  :func:`check_replicated`, :func:`check_same_digest` and
+:func:`run_on_first_rank` hold the ranks to that; off a process mesh they
+do nothing but call through.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
-from typing import Any
+import struct
+from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -203,3 +212,104 @@ def make_process_mesh(shape, axis_names, *, group=None, device=None) -> ProcessM
         groups[name] = dist.new_group(members, backend=backend,
                                       use_local_synchronization=True)
     return dataclasses.replace(mesh, axis_groups=groups)
+
+
+def check_replicated(mesh, fields: dict, what: str) -> None:
+    """Raise ``ValueError`` on every rank of a process mesh unless every rank
+    passed equal ``fields`` (one ``all_gather_object``); the message names
+    each field that differs and the ranks that differ from rank 0.  A no-op
+    off a process mesh."""
+    if not isinstance(mesh, ProcessMesh):
+        return
+    seen = [None] * mesh.size
+    dist.all_gather_object(seen, fields, group=mesh.group)
+    bad = []
+    for key in sorted({k for f in seen for k in f}, key=repr):
+        want = seen[0].get(key)
+        ranks = [r for r, f in enumerate(seen) if f.get(key) != want]
+        if ranks:
+            got = ", ".join(f"rank {r} {seen[r].get(key)!r}" for r in ranks)
+            bad.append(f"{key} (rank 0 {want!r}; {got})")
+    if bad:
+        raise ValueError(f"{what}: the ranks of the process mesh disagree on "
+                         + "; ".join(bad) + ": every rank must construct the same object")
+
+
+def _canonical(obj, out: list) -> None:
+    """Append a byte encoding of ``obj`` that is the same in every process
+    (``hash()`` of a str is salted a process): numbers by value, tensors
+    and arrays by dtype, shape and bytes, dicts in key order."""
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, np.ndarray):
+        out.append(f"a{obj.dtype.str}{obj.shape}:".encode())
+        out.append(np.ascontiguousarray(obj).tobytes())
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(b"T" if obj else b"F")
+    elif isinstance(obj, (int, np.integer)):
+        out.append(f"i{int(obj)};".encode())
+    elif isinstance(obj, (float, np.floating)):
+        out.append(b"f" + struct.pack("<d", float(obj)))
+    elif isinstance(obj, str):
+        out.append(f"s{len(obj)}:{obj}".encode())
+    elif isinstance(obj, bytes):
+        out.append(f"b{len(obj)}:".encode() + obj)
+    elif isinstance(obj, dict):
+        out.append(f"d{len(obj)}:".encode())
+        for k in sorted(obj, key=repr):
+            _canonical(k, out)
+            _canonical(obj[k], out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(f"l{len(obj)}:".encode())
+        for x in obj:
+            _canonical(x, out)
+    elif obj is None:
+        out.append(b"N")
+    else:
+        raise TypeError(f"no canonical encoding for {type(obj).__name__}")
+
+
+def digest(obj) -> bytes:
+    """An 8-byte BLAKE2b digest of ``obj``'s canonical encoding."""
+    parts: list = []
+    _canonical(obj, parts)
+    return hashlib.blake2b(b"".join(parts), digest_size=8).digest()
+
+
+def check_same_digest(mesh, obj, what: str) -> None:
+    """Raise ``ValueError`` on every rank of a process mesh unless every
+    rank's ``obj`` has the same :func:`digest` (one 8-byte all-gather).  A
+    no-op off a process mesh."""
+    if not isinstance(mesh, ProcessMesh):
+        return
+    dev = mesh.device if "nccl" in mesh.backend else torch.device("cpu")
+    mine = torch.tensor([int.from_bytes(digest(obj), "little", signed=True)],
+                        dtype=torch.int64, device=dev)
+    parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+    dist.all_gather(parts, mine, group=mesh.group)
+    got = [int(p.item()) for p in parts]
+    ranks = [r for r, v in enumerate(got) if v != got[0]]
+    if ranks:
+        raise ValueError(f"{what}: ranks {ranks} hold other work than rank 0: every rank must "
+                         "submit the same stream with the same virtual time")
+
+
+def run_on_first_rank(mesh, fn: Callable[[], Any], what: str) -> None:
+    """Run ``fn`` once: on rank 0 of a process mesh alone (elsewhere, here).
+
+    The other ranks wait for rank 0's status (one ``broadcast_object_list``,
+    the barrier), so no rank returns before ``fn`` has finished; if it
+    raised, every rank raises ``ValueError``."""
+    if not isinstance(mesh, ProcessMesh):
+        fn()
+        return
+    status, cause = [None], None
+    if mesh.rank == 0:
+        try:
+            fn()
+        except Exception as e:  # re-raised below, on every rank
+            status, cause = [f"{type(e).__name__}: {e}"], e
+    src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+    dist.broadcast_object_list(status, src=src, group=mesh.group)
+    if status[0] is not None:
+        raise ValueError(f"{what} failed on rank 0: {status[0]}") from cause

@@ -28,6 +28,12 @@ read-only large memory, every query's mutable state is O(n) words.  The
 * **Sharding** — a mesh plan prepares the graph once (``plan.prepare``):
   every batch runs the sharded executor, and the PSAM account charges the
   plan's shards (padding blocks and the O(B·n) combine per shard boundary).
+  Batch arguments go where the prepared graph computes (on a process plan,
+  the rank's device); the account reads the host graph.
+* **Ranks** — on a process plan every rank constructs the same engine from
+  the same host graph and submits the same queries: construction compares
+  the ranks' knobs and every flush the digest of what it drains, and both
+  raise ``ValueError`` on every rank where one differs.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from ..algorithms.eigen import pagerank_iteration_batched
 from ..algorithms.local import personalized_pagerank_batched
 from ..algorithms.traversal import bfs_batched, wbfs_batched
 from ..core.compressed import CompressedCSR, exception_dense
+from ..core.mesh import check_replicated, check_same_digest
 from ..core.primitives import INF_I32
 from ..core.psam import PSAMCost
 from ..obs import get_registry
@@ -205,10 +212,23 @@ class QueryEngine:
         self._next_id = 0
         if plan is not None and plan.is_sharded:
             self._mesh_key = tuple(zip(plan.mesh.axis_names, plan.mesh.shape))
+            if plan.is_process:
+                self._mesh_key = ("process", self._mesh_key)
         else:
             self._mesh_key = None
         self._backend_key = type(g).__name__
         self._tuning_key = plan.tuning_key if plan is not None else None
+        # the process mesh whose ranks must agree (None: nothing to check)
+        self._ranks = plan.mesh if plan is not None and plan.is_process else None
+        if self._ranks is not None:
+            check_replicated(self._ranks, self._rank_fields(), "QueryEngine")
+
+    def _rank_fields(self) -> dict:
+        """What every rank of a process plan must hold equal: the plan's
+        knobs, the batch cap and the graph's size."""
+        g = self.graph
+        return {"tuning_key": self._tuning_key, "max_batch": self.max_batch,
+                "backend": self._backend_key, "n": g.n, "m": g.m, "num_blocks": g.num_blocks}
 
     # ------------------------------------------------------------------
     def submit(self, op: str, **params) -> QueryHandle:
@@ -229,7 +249,12 @@ class QueryEngine:
 
         A ``reset_stats`` requested while buckets drain is deferred to the
         end of this flush, so the in-flight buckets' counters land exactly
-        once."""
+        once.  On a process plan the ranks first compare what they drain."""
+        if self._ranks is not None:
+            check_same_digest(self._ranks, list(self._pending.items()), "QueryEngine.flush")
+        return self._drain()
+
+    def _drain(self) -> dict[QueryHandle, Any]:
         out: dict[QueryHandle, Any] = {}
         pending, self._pending = self._pending, {}
         self._in_flush = True
@@ -283,7 +308,7 @@ class QueryEngine:
         k = len(chunk)
         B = _pow2_batch(k, self.max_batch)
         reqs = [r for _, r in chunk] + [chunk[-1][1]] * (B - k)
-        args = spec.stack(reqs, self.graph.device)
+        args = spec.stack(reqs, self.prepared.device)
         res = self._compiled_fn(op, scalars, B, spec)(self.prepared, *args)
         self.stats["batches"] += 1
         self.stats["served"] += k

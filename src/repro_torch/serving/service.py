@@ -39,8 +39,19 @@ queries of one flush see one snapshot; after each flush the
 :class:`~repro_torch.tuning.OverlayTrigger` decides whether the overlay's
 accumulated surcharge pays for folding it into a fresh compressed base
 (``repro_torch.delta.compact``, the subsystem's only large-memory write,
-persisted atomically when ``config.ckpt_dir`` is set).  The service takes
-its device from the graph it serves.
+persisted atomically when ``config.ckpt_dir`` is set).  Cohort state
+lives where the plan's prepared graph computes; the accounting reads the
+host graph.
+
+**Ranks** — on a process plan (``make_plan(g, mesh=make_process_mesh(...))``)
+every rank constructs the same service from the same host graph and
+config, submits the same stream with the same virtual ``now``, and gets
+every ticket's result, replicated, on its own device.  Construction
+compares the ranks' configs (``check_replicated``) and every flush the
+digest of its queue and of the edits admitted so far
+(``check_same_digest``); either raises ``ValueError`` on every rank.  A
+compaction is folded on every rank and persisted by rank 0 alone, which
+the others wait for (``run_on_first_rank``).
 """
 from __future__ import annotations
 
@@ -52,8 +63,9 @@ import numpy as np
 import torch
 
 from ..algorithms.traversal import traversal_cohort_init, traversal_cohort_rounds
+from ..core.mesh import check_replicated, check_same_digest, digest, run_on_first_rank
 from ..core.psam import TenantLedgers, edgemap_round_read_words
-from ..delta import DeltaOverlay, compact
+from ..delta import DeltaOverlay, compact, save_compacted
 from ..delta import compact_write_words as _compact_write_words
 from ..obs import DEFAULT_LATENCY_BUCKETS, get_registry
 from ..tuning.defaults import DEFAULT_EDITS_PER_COMPACT, DEFAULT_EST_ROUNDS
@@ -162,10 +174,7 @@ class ServingService:
         # drain): the admission estimate once warm
         self.observed_rounds: dict[tuple, float] = {}
         self.ledgers = TenantLedgers(self.config.budgets)
-        if plan is not None:
-            self._round_words = plan.edge_read_words_per_round(self.engine.prepared)
-        else:
-            self._round_words = edgemap_round_read_words(g)
+        self._price_round()
         self._queue: list[ServingTicket] = []
         self._deferred: list[ServingTicket] = []
         self._cohort_compiled: dict[tuple, Callable] = {}
@@ -184,6 +193,11 @@ class ServingService:
         self._compact_step = 0
         self._reads_at_compact = self.engine.cost.large_reads
         self._edits_per_compact = float(DEFAULT_EDITS_PER_COMPACT)
+        # on a process plan: the ranks' digest of every edit admitted so far
+        self._ranks = self.engine._ranks
+        self._edit_digest = b""
+        if self._ranks is not None:
+            check_replicated(self._ranks, self._rank_fields(), "ServingService")
         self.stats = {
             "submitted": 0,
             "admitted": 0,
@@ -252,6 +266,22 @@ class ServingService:
             "sage_delta_overlay_small_words",
             "per-sweep DRAM small-op surcharge of the current overlay",
         )
+
+    def _rank_fields(self) -> dict:
+        """What every rank of a process plan must hold equal beyond the
+        engine's: each config field that steers a decision, and the read
+        quantum admission prices in."""
+        cfg, trig = self.config, self.compact_trigger
+        return {
+            "slo": cfg.slo, "depth_trigger": self.depth_trigger,
+            "round_quantum": cfg.round_quantum, "admission": cfg.admission,
+            "budgets": cfg.budgets, "mode": cfg.mode, "est_rounds": cfg.est_rounds,
+            "ewma_alpha": cfg.ewma_alpha,
+            "compact_trigger": dataclasses.asdict(trig) if dataclasses.is_dataclass(trig)
+            else repr(trig),
+            "compact_keep": cfg.compact_keep, "ckpt_dir set": cfg.ckpt_dir is not None,
+            "mutable": self.overlay is not None, "round_words": self._round_words,
+        }
 
     # ------------------------------------------------------------------
     @property
@@ -347,10 +377,11 @@ class ServingService:
             return False
         led.reserve(est)
         self._edit_ledger.append((tenant, est))
-        self._edits.append(
-            ("insert", int(u), int(v), float(w)) if kind == "insert"
-            else ("delete", int(u), int(v))
-        )
+        edit = (("insert", int(u), int(v), float(w)) if kind == "insert"
+                else ("delete", int(u), int(v)))
+        self._edits.append(edit)
+        if self._ranks is not None:
+            self._edit_digest = digest((self._edit_digest, tenant, edit))
         self._m_admission.inc(outcome="edit_admitted", tenant=tenant)
         return True
 
@@ -462,17 +493,25 @@ class ServingService:
             self._m_edits.inc(kind=e[0])
         self._set_graph(self.overlay.snapshot())
 
+    def _price_round(self) -> None:
+        """The read quantum of the served graph: per-shard block reads over
+        the plan's shards, from the prepared graph (each rank's shard pads
+        to the same block and exception counts, so every rank prices the
+        same), or the graph's own on one device."""
+        if self.plan is not None:
+            self._round_words = self.plan.edge_read_words_per_round(self.engine.prepared)
+        else:
+            self._round_words = edgemap_round_read_words(self.engine.graph)
+
     def _set_graph(self, dg) -> None:
         """Point the wrapped engine (and the per-round word model) at a new
-        snapshot.  The cohort and engine caches key on the backend name
-        ("DeltaGraph"), stable across snapshots."""
+        snapshot; on a process plan each rank places its own shard of it.
+        The cohort and engine caches key on the backend name ("DeltaGraph"),
+        stable across snapshots."""
         eng = self.engine
         eng.graph = dg
         eng.prepared = dg if self.plan is None else self.plan.prepare(dg)
-        if self.plan is not None:
-            self._round_words = self.plan.edge_read_words_per_round(eng.prepared)
-        else:
-            self._round_words = edgemap_round_read_words(dg)
+        self._price_round()
         if self.overlay is not None:
             self._m_patch_edges.set(float(self.overlay.num_patch_edges))
             self._m_tombstones.set(float(self.overlay.num_tombstones))
@@ -499,16 +538,17 @@ class ServingService:
         persist the step when configured, settle the edit ledger pro-rata
         against the actual write, fold the realized edits-per-compaction
         into the admission EWMA, and rebase an empty overlay on the new
-        base."""
+        base.  On a process plan every rank folds the same overlay (host
+        work) and rank 0 alone persists the step; no rank goes on before
+        it is published, and a failed write raises on every rank."""
         del now
-        c = compact(
-            self.overlay,
-            cost=self.cost,
-            ckpt_dir=self.config.ckpt_dir,
-            step=self._compact_step,
-            keep=self.config.compact_keep,
-            registry=self.registry,
-        )
+        c = compact(self.overlay, cost=self.cost, registry=self.registry)
+        ckpt_dir, step = self.config.ckpt_dir, self._compact_step
+        if ckpt_dir is not None:
+            run_on_first_rank(
+                self._ranks,
+                lambda: save_compacted(ckpt_dir, step, c, keep=self.config.compact_keep),
+                f"persisting compaction step {step} to {ckpt_dir}")
         self._compact_step += 1
         self.stats["compactions"] += 1
         ledger, self._edit_ledger = self._edit_ledger, []
@@ -528,6 +568,12 @@ class ServingService:
         """Drain the full queue: traversal tickets fuse into ≤ max_batch
         cohorts (FIFO), the rest go to the engine; every ticket is settled
         against its tenant's ledger."""
+        if self._ranks is not None:
+            check_same_digest(
+                self._ranks,
+                (now, [(t.id, t.op, t.tenant, t.params) for t in self._queue],
+                 self._compact_step, self._edit_digest),
+                "ServingService flush")
         self.stats["flushes"] += 1
         queue, self._queue = self._queue, []
         trav = [t for t in queue if t.op in TRAVERSAL_OPS]
@@ -575,7 +621,7 @@ class ServingService:
         lane_tickets: list[ServingTicket | None] = list(tickets) + [None] * (B - k)
         ops = [t.op for t in tickets] + ["bfs"] * (B - k)
         srcs = [int(t.params["src"]) for t in tickets] + [-1] * (B - k)
-        state, weighted = traversal_cohort_init(self.engine.graph, ops, srcs)
+        state, weighted = traversal_cohort_init(self.engine.prepared, ops, srcs)
         shards = self.plan.num_shards if self.engine._mesh_key is not None else 1
         done: list[ServingTicket] = []
         while True:
@@ -616,7 +662,7 @@ class ServingService:
                 # repack: survivors first, drained rows as inert padding
                 pads = np.flatnonzero(~active_np)[: newB - len(act_idx)]
                 idx = np.concatenate([act_idx, pads])
-                rows = torch.as_tensor(idx, dtype=torch.int64, device=self.engine.graph.device)
+                rows = torch.as_tensor(idx, dtype=torch.int64, device=self.engine.prepared.device)
                 state = {key: (v if key == "rnd" else v[rows]) for key, v in state.items()}
                 weighted = tuple(weighted[i] for i in idx)
                 lane_tickets = [lane_tickets[i] for i in idx]
@@ -664,7 +710,7 @@ class ServingService:
         count its share corresponds to."""
         before = self.engine.cost.large_reads
         handles = [self.engine.submit(t.op, **t.params) for t in tickets]
-        results = self.engine.flush()
+        results = self.engine._drain()  # the flush's digest covered these tickets
         share = (self.engine.cost.large_reads - before) / len(tickets)
         lane_words = self._round_words / self.max_batch
         for h, t in zip(handles, tickets):
