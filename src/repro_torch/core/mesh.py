@@ -142,6 +142,14 @@ class ProcessMesh:
         return idx
 
 
+def collective(name):
+    """``torch.distributed``'s single-tensor collective, by its current name
+    where this torch has it (``reduce_scatter_single``), else the older one."""
+    new = {"reduce_scatter": "reduce_scatter_single", "all_gather": "all_gather_single"}
+    old = {"reduce_scatter": "reduce_scatter_tensor", "all_gather": "all_gather_into_tensor"}
+    return getattr(dist, new[name], None) or getattr(dist, old[name])
+
+
 def _line_ranks(shape, axis: int, coords) -> list:
     """The group ranks of the line through ``coords`` along ``axis``."""
     strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]

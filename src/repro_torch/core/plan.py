@@ -64,7 +64,7 @@ from ..tuning.table import TuningTable, constants_decision, default_table
 from .compressed import CompressedCSR, exception_dense
 from .csr import CSRGraph, graph_spec, sharded_block_counts
 from .graph_filter import edge_active_words
-from .mesh import ProcessMesh, ShardMesh
+from .mesh import ProcessMesh, ShardMesh, collective
 from .psam import is_overlay
 
 REDUCE_MODES = ("flat", "hierarchical")
@@ -655,14 +655,6 @@ def _combine_shards(plan: ExecutionPlan, parts: list, monoid: str, out_dtype):
         return _combine_shards_body(plan, parts, monoid, out_dtype)
 
 
-def _collective(name):
-    """``torch.distributed``'s single-tensor collective, by its current name
-    where this torch has it (``reduce_scatter_single``), else the older one."""
-    new = {"reduce_scatter": "reduce_scatter_single", "all_gather": "all_gather_single"}
-    old = {"reduce_scatter": "reduce_scatter_tensor", "all_gather": "all_gather_into_tensor"}
-    return getattr(dist, new[name], None) or getattr(dist, old[name])
-
-
 def _all_reduce_axes(plan: ExecutionPlan, pairs: list, axes=None) -> None:
     """All-reduce each ``(tensor, op)`` of ``pairs`` in place over each of
     ``axes`` (default: the plan's shard axes) in turn, as JAX's combine runs
@@ -688,9 +680,9 @@ def _hierarchical_sum(plan: ExecutionPlan, out: torch.Tensor) -> torch.Tensor:
     rows = torch.nn.functional.pad(rows, (0, 0, 0, (-n) % k)).contiguous()
     part = torch.empty((rows.shape[0] // k,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                        device=rows.device)
-    _collective("reduce_scatter")(part, rows, op=dist.ReduceOp.SUM, group=grp)
+    collective("reduce_scatter")(part, rows, op=dist.ReduceOp.SUM, group=grp)
     _all_reduce_axes(plan, [(part, dist.ReduceOp.SUM)], plan.axes[:-1])
-    _collective("all_gather")(rows, part, group=grp)
+    collective("all_gather")(rows, part, group=grp)
     return rows[:n].T.reshape(out.shape)
 
 

@@ -4,7 +4,11 @@ a process mesh (``shardings``), elastic re-carving and restore
 a cache's row ranges and the merge of their attention partials, a
 row-sharded table's lookups and top-k), the GNN aggregation with its edge
 lists split over a process mesh (``gnn``: ``edge_slice`` and its combines),
-and the edge-partitioned graph
+the LM's training compute on its blocks (``fsdp``: a layer's leaves gathered
+over the batch axes one layer at a time, their gradients reduce-scattered;
+``tensor_parallel``: Megatron's ``copy_to`` / ``reduce_from`` and the
+vocabulary-parallel lookup and cross-entropy over ``model``), and the
+edge-partitioned graph
 engine's helpers, thin specializations of the sharded planner
 (``repro_torch.core.plan``), on an in-process ``ShardMesh`` or a
 ``ProcessMesh`` (one shard a rank, ``repro_torch.core.make_process_mesh``)."""
@@ -16,6 +20,7 @@ from .engine import (
     prepare_sharded,
     shard_blocks_for_mesh,
 )
+from .fsdp import gather_rows, gathered, held
 from .gnn import edge_slice
 from .serving import (
     local_rows,
@@ -42,10 +47,12 @@ from .shardings import (
     gather_blocks,
     gather_tree,
     logical_to_spec,
+    reduce_scatter_blocks,
     shard_block,
     shard_tree,
     spec_tree,
 )
+from .tensor_parallel import copy_to, reduce_from, vocab_cross_entropy, vocab_lookup
 
 __all__ = [
     "axis_rules",
@@ -55,6 +62,7 @@ __all__ = [
     "PartitionSpec",
     "shard_block",
     "gather_blocks",
+    "reduce_scatter_blocks",
     "shard_tree",
     "gather_tree",
     "carve_mesh",
@@ -62,6 +70,13 @@ __all__ = [
     "elastic_restore",
     "seq_block",
     "edge_slice",
+    "gathered",
+    "held",
+    "gather_rows",
+    "copy_to",
+    "reduce_from",
+    "vocab_lookup",
+    "vocab_cross_entropy",
     "merge_attention",
     "local_rows",
     "sharded_rows",

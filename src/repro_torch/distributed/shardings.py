@@ -35,6 +35,9 @@ Placement on a ``ProcessMesh`` (one process a mesh position):
 
   shard_block(x, spec, mesh)                 — this rank's block of a global tensor
   gather_blocks(block, spec, shape, mesh)    — the global tensor, all-gathered
+  gather_over(block, spec, mesh, axes)       — the block gathered over ``axes`` only
+  reduce_scatter_blocks(t, spec, mesh, axes) — its inverse: ``t`` summed over
+                                               ``axes`` into the rank's block
   shard_tree / gather_tree                   — the same over trees
 
 Dim d splits over the spec's axes at d into equal contiguous parts; the
@@ -44,7 +47,8 @@ bytes: every block is all-gathered as ``uint8`` over the axis groups
 (``ProcessMesh.axis_groups``), so it needs no dtype of the backend's own
 (gloo's ``all_gather`` refuses int16, for one).  Under gloo the gathers run
 on CUDA tensors as they are: no host staging (gloo takes CUDA tensors in
-``all_gather`` and ``all_reduce``, as an H100 run showed).
+``all_gather`` and ``all_reduce``, as an H100 run showed).  A reduce-scatter
+sums values, so it moves them in their own dtype (float32 gradients).
 """
 from __future__ import annotations
 
@@ -54,6 +58,8 @@ from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
+
+from ..core.mesh import collective
 
 _state = threading.local()
 
@@ -304,16 +310,45 @@ def gather_blocks(block: torch.Tensor, spec, global_shape, mesh, *,
     one all-gather an axis of each split dimension, on that axis's group,
     the fastest axis first.  Every rank of the mesh calls it, in the same
     order as its other collectives.  A replicated block comes back as is."""
-    dims = _check_spec(spec, len(global_shape), mesh, what)
+    _check_spec(spec, len(global_shape), mesh, what)
     if block_shape(global_shape, spec, mesh, what=what) != tuple(block.shape):
         raise ValueError(f"{what}: block {tuple(block.shape)} is not a block of "
                          f"{tuple(global_shape)} under {spec}")
+    return gather_over(block, spec, mesh, mesh.axis_names)
+
+
+def gather_over(block: torch.Tensor, spec, mesh, axes) -> torch.Tensor:
+    """``block`` gathered over the mesh ``axes`` alone: the rank's block
+    under ``spec`` less them (no checks; every rank of ``axes`` calls it)."""
     x = block
-    for d, axes in enumerate(dims):
-        for a in reversed(axes):
-            if mesh.axis_size(a) > 1:
+    for d, entry in enumerate(spec):
+        for a in reversed(spec_axes(entry)):
+            if a in axes and mesh.axis_size(a) > 1:
                 x = _all_gather_dim(x, d, mesh.axis_groups[a], mesh.axis_size(a))
     return x
+
+
+def reduce_scatter_blocks(t: torch.Tensor, spec, mesh, axes, *, keep=()) -> torch.Tensor:
+    """The inverse of ``gather_over(block, spec, mesh, axes + keep)`` for a
+    sum: ``t`` summed over the mesh ``axes`` into the rank's part (one
+    reduce-scatter an axis, the slowest axis of a dimension first), and cut
+    to the rank's part over ``keep``, whose ranks hold the same ``t`` (no
+    collective).  ``t`` is summed in its own dtype."""
+    for d in reversed(range(len(spec))):
+        for a in spec_axes(spec[d]):
+            k = mesh.axis_size(a)
+            if k == 1 or (a not in axes and a not in keep):
+                continue
+            idx = mesh.coords[mesh.axis_names.index(a)]
+            if a in keep:
+                t = t.narrow(d, idx * (t.shape[d] // k), t.shape[d] // k)
+                continue
+            rows = t.movedim(d, 0).contiguous()
+            part = rows.new_empty((rows.shape[0] // k,) + tuple(rows.shape[1:]))
+            collective("reduce_scatter")(part, rows, op=dist.ReduceOp.SUM,
+                                         group=mesh.axis_groups[a])
+            t = part.movedim(0, d)
+    return t
 
 
 def spec_leaves(tree, specs) -> list:

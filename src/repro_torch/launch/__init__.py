@@ -1,7 +1,8 @@
 """Step bodies of the port's cells, ``build_step`` with its placements,
 the sharded train step (rows or, for a GNN, edge lists split over the
-ranks) and the sharded serving steps on a process mesh (``TrainLayout``,
-``ServeLayout``), and the fault-tolerant trainer."""
+ranks; the LM computing on its blocks) and the sharded serving steps on a
+process mesh (``TrainLayout``, ``ServeLayout``), and the fault-tolerant
+trainer."""
 from .steps import (
     TOP_K,
     ServeLayout,
@@ -13,6 +14,7 @@ from .steps import (
     sasrec_serve_step,
     serve_layout,
     sharded_decode_step,
+    sharded_lm_value_and_grad,
     sharded_prefill_step,
     sharded_retrieval_step,
     sharded_serve_step,

@@ -6,8 +6,10 @@
                            too, with its clip, LR scale and accumulation
   sharded_train_step     — the same step on a ``ProcessMesh``, one rank a
                            process, the parameters and AdamW moments stored
-                           as the rank's blocks (``TrainLayout``); a GNN's
-                           edge lists split over the ranks
+                           as the rank's blocks (``TrainLayout``); the LM
+                           computing on its blocks
+                           (``sharded_lm_value_and_grad``); a GNN's edge
+                           lists split over the ranks
   sasrec_serve_step      — full-catalog scores, then the top ``TOP_K`` (100)
   sasrec_retrieval_step  — the scores of an explicit candidate list
   sharded_prefill_step / sharded_decode_step / sharded_serve_step /
@@ -20,7 +22,20 @@
 ``assert_topk_agrees`` holds one route's top-k to another's.
 
 The sharded step computes what the JAX package's jitted step computes on
-the global batch:
+the global batch.  The LM (``TrainLayout.tp_axes`` set) computes on its
+blocks, as XLA partitions the JAX step under ``LM_RULES``
+(``sharded_lm_value_and_grad``): no leaf is gathered whole.  The embedding
+and final norm are gathered over the batch axes once a step, each layer's
+leaves over them one layer at a time inside its checkpointed halves (a MoE
+layer's ``moe`` subtree over every axis), and their float32 gradients are
+reduce-scattered back into the blocks, and all-reduced over a batch axis
+that does not split them (``distributed.fsdp``); heads, ff
+and vocab compute on their ``model`` blocks (``distributed.tensor_parallel``:
+the logits are the rank's vocabulary columns); the leaves replicated over
+the batch axes are summed by one all-reduce; the norm is summed on the
+blocks (``clip_by_global_norm(mesh=)``) and AdamW updates them.  Rows,
+microbatches and counts are as below, but every rank runs every
+microbatch, its piece empty or not.  SASRec and the GNNs:
 
 1. every parameter leaf is all-gathered to its global value;
 2. the rank takes its rows of the global batch: the leading axis splits,
@@ -69,11 +84,11 @@ place it and compute on parameters gathered once, when the server loads
   rest), one SUM all-reduce (gloo has no reduce-scatter: an all-reduce and
   the rank's slice) and the rank's block kept.
 
-Compute is not sharded yet: a rank's products use whole parameters, and
-its peak memory is about the one-device step's less the serving state it
-does not hold.  Every decision before a collective reads replicated state
-(the step's ``pos``, the shapes), so every rank issues the same collectives
-in the same order.
+Serving computes on parameters gathered whole at load: a rank's products
+use whole parameters, and its peak memory is about the one-device step's
+less the serving state it does not hold.  Every decision before a
+collective reads replicated state (the step's ``pos``, the shapes), so
+every rank issues the same collectives in the same order.
 """
 from __future__ import annotations
 
@@ -84,6 +99,7 @@ import torch
 
 from ..configs.common import Cell, TensorSpec
 from ..core.mesh import ProcessMesh, ShardMesh
+from ..distributed.fsdp import gather_rows, gathered, held, step_gather, step_scatter
 from ..distributed.gnn import edge_slice
 from ..distributed.serving import (
     all_reduce_sum,
@@ -101,7 +117,14 @@ from ..distributed.shardings import (
     logical_to_spec,
     shard_tree,
     spec_axes,
+    spec_leaves,
     spec_tree,
+)
+from ..distributed.tensor_parallel import (
+    copy_to,
+    reduce_from,
+    vocab_cross_entropy,
+    vocab_lookup,
 )
 from ..models import sasrec
 from ..models import transformer_lm as lm
@@ -228,7 +251,8 @@ class TrainLayout:
     trees of the parameters and of AdamW's state, the global shapes, the
     mesh axes the batch's leading axis splits over, and a GNN's edge axes
     (the mesh axes its edge lists split over; None for a model whose batch
-    splits by rows)."""
+    splits by rows), and the LM's tensor-parallel axes (None for another
+    model: it computes on gathered parameters)."""
 
     mesh: ProcessMesh
     params: dict          # PartitionSpec tree of the parameters
@@ -236,6 +260,7 @@ class TrainLayout:
     shapes: dict          # TensorSpec tree of the global parameters
     batch_axes: tuple     # mesh axes of the batch's leading axis
     edge_axes: tuple | None = None   # a GNN's: the rules' "edges" axes
+    tp_axes: tuple | None = None     # the LM's: the axes of "heads", "ff" and "vocab"
 
     @property
     def edge_parallel(self) -> int:
@@ -283,9 +308,30 @@ def train_layout(model, cfg, mesh: ProcessMesh, rules: dict | None) -> TrainLayo
         o_spec = spec_tree(state_logical_specs(p_logical))
         batch_axes = spec_axes(logical_to_spec("batch")[0])
         edge_axes = spec_axes(logical_to_spec("edges")[0]) if gnn else None
+        tp = {n: spec_axes(logical_to_spec(n)[0]) for n in ("heads", "ff", "vocab")}
+    tp_axes = None
+    if model is lm:
+        if len(set(tp.values())) != 1:
+            raise ValueError(f"heads, ff and vocab split over different mesh axes {tp}: the "
+                             "LM's tensor parallelism takes one set")
+        tp_axes = tp["heads"]
+        _check_heads(cfg, mesh, tp_axes)
     return TrainLayout(mesh=mesh, params=p_spec, opt=o_spec,
                        shapes=param_tensor_specs(model, cfg), batch_axes=batch_axes,
-                       edge_axes=edge_axes)
+                       edge_axes=edge_axes, tp_axes=tp_axes)
+
+
+def _check_heads(cfg, mesh: ProcessMesh, axes: tuple) -> None:
+    """Contiguous column blocks of ``heads`` keep each query group with its
+    kv head only when both head counts split evenly: raises ``ValueError``
+    naming the leaf otherwise."""
+    parts = math.prod(mesh.axis_size(a) for a in axes)
+    key = lm._stacks(cfg)[0][0]
+    counts = [("wq", cfg.n_heads)] + ([] if cfg.attn == "mla" else [("wk", cfg.n_kv_heads)])
+    for leaf, n in counts:
+        if n % parts:
+            raise ValueError(f"/{key}/attn/{leaf}: {n} heads do not split evenly over {parts} "
+                             f"parts (mesh axes {axes})")
 
 
 def reduce_gradients(grads, axes: tuple, mesh: ProcessMesh):
@@ -296,6 +342,111 @@ def reduce_gradients(grads, axes: tuple, mesh: ProcessMesh):
     return grads
 
 
+def _axes_of(spec) -> tuple:
+    """The mesh axes ``spec`` splits over."""
+    return tuple(a for e in spec for a in spec_axes(e))
+
+
+def _split_axes(tree, specs) -> list:
+    """The mesh axes each leaf of ``tree`` is split over, in walk order."""
+    return [_axes_of(spec) for _, _, spec in spec_leaves(tree, specs)]
+
+
+_HELD = ("embed", "final_norm")   # the LM's leaves gathered once a step
+
+
+def sharded_lm_value_and_grad(blocks, batch: dict, cfg, layout: TrainLayout, accum: int = 1):
+    """``(loss, grads)`` of the LM's step on the global batch from this
+    rank's blocks and rows, computed on the blocks (``models.transformer_lm``
+    ``TrainShard``): the float32 gradients come back as the rank's blocks.
+
+    Rows and microbatches as ``data_parallel_value_and_grad`` takes them,
+    except that every rank runs every microbatch's forward and backward,
+    an empty piece too: the collectives sit inside them.  The tied
+    embedding and the final norm are gathered over the batch axes once a
+    step and their gradients summed into the blocks once; each layer's
+    leaves are gathered inside its checkpointed halves and their gradients
+    summed in the backward, a microbatch at a time (``distributed.fsdp``:
+    a reduce-scatter over the batch axes a leaf splits, an all-reduce over
+    the others, ``pod`` under ``LM_RULES``).  Leaves that no batch axis
+    splits (the qkv biases, ``kv_norm``; every leaf where ``data`` has one
+    rank) are summed by one all-reduce over the batch axes."""
+    mesh, axes, tp = layout.mesh, layout.batch_axes, layout.tp_axes
+    dev = tree_leaves(blocks)[0].device
+    pieces, denom, mb = _microbatches(lm, batch, layout, accum, dev)
+    size = batch[next(iter(batch))].shape[0] // layout.data_parallel   # rows a rank
+    specs = layout.params
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), blocks)
+    anchor = torch.zeros((), device=dev, requires_grad=True)
+    full = {k: step_gather(blocks[k], specs[k], mesh, axes) for k in _HELD}
+    sinks = {k: torch.zeros(full[k].shape, dtype=torch.float32, device=dev) for k in _HELD}
+    vocab = seq_block(mesh, tp, cfg.vocab)
+
+    def gather(block, spec, sink, whole):
+        if isinstance(block, dict):
+            return {k: gather(block[k], spec[k], sink[k], whole) for k in block}
+        inner = PartitionSpec(*spec[1:])          # the leading "layers" axis is not split
+        keep = tuple(a for a in _axes_of(inner) if a not in axes) if whole else ()
+        return gathered(anchor, block, sink, inner, mesh, axes, keep)
+
+    def layer(key, i, names, whole=()):
+        return {nm: gather(_at(blocks[key][nm], i), specs[key][nm], _at(acc[key][nm], i),
+                           nm in whole)
+                for nm in tuple(names) + tuple(whole)}
+
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    for i, (a, b) in enumerate(pieces):
+        sizes = [max(0, min(r * size + size, (i + 1) * mb) - max(r * size, i * mb))
+                 for r in range(layout.data_parallel)]
+        at = a - i * mb                           # the piece's first row in the microbatch
+        shard = lm.TrainShard(
+            layer=layer, enter=lambda x: copy_to(x, mesh, tp),
+            leave=lambda x: reduce_from(x, mesh, tp),
+            lookup=lambda rows, ids: vocab_lookup(rows, ids, vocab[0], mesh, tp),
+            xent=lambda logits, t: vocab_cross_entropy(logits, t, vocab[0], mesh, tp),
+            tokens=lambda h, sizes=sizes: gather_rows(h, sizes, mesh, axes),
+            rows=(at, at + max(b - a, 0)))
+        params = dict(blocks, **{k: held(anchor, full[k], sinks[k]) for k in _HELD})
+        piece = {k: v[a:max(a, b)] for k, v in batch.items()}
+        part = lm.loss_terms(params, piece, cfg, shard=shard)[0] / denom[i]
+        part.backward()
+        loss += part.detach()
+    del full
+    for k in _HELD:
+        acc[k].add_(step_scatter(sinks[k], specs[k], mesh, axes))
+    replicated = [g for g, split in zip(tree_leaves(acc), _split_axes(acc, specs))
+                  if not any(a in split and mesh.axis_size(a) > 1 for a in axes)]
+    if replicated and layout.data_parallel > 1:
+        flat = torch.cat([g.reshape(-1) for g in replicated])
+        reduce_gradients([flat], axes, mesh)
+        for g, f in zip(replicated, flat.split([g.numel() for g in replicated])):
+            g.copy_(f.view_as(g))
+    all_reduce_sum(loss, mesh, axes)
+    return loss, acc
+
+
+def _at(tree, i: int):
+    """Layer ``i`` of a stacked leaf or tree: views."""
+    return {k: _at(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+
+def _microbatches(model, batch: dict, layout: TrainLayout, accum: int, dev):
+    """``(pieces, denom, mb)``: this rank's rows [a, b) of each of the
+    ``accum`` microbatches of ``mb`` rows (empty where a >= b), and each
+    microbatch's denominator A max(C_i, 1), C_i its unmasked positions over
+    every rank (one all-reduce of the A counts over the batch axes)."""
+    n = batch[next(iter(batch))].shape[0]
+    lo, hi = layout.rows(n)
+    mb = n // accum
+    pieces = [(max(lo, i * mb), min(hi, (i + 1) * mb)) for i in range(accum)]
+    counts = torch.zeros(accum, dtype=torch.float32, device=dev)
+    for i, (a, b) in enumerate(pieces):
+        if a < b:
+            counts[i] = torch.sum(model.loss_mask({k: v[a:b] for k, v in batch.items()}))
+    all_reduce_sum(counts, layout.mesh, layout.batch_axes)
+    return pieces, accum * torch.clamp(counts, min=1.0), mb
+
+
 def data_parallel_value_and_grad(model, params, batch: dict, cfg, layout: TrainLayout,
                                  accum: int = 1):
     """``(loss, grads)`` of the global batch's step, from this rank's rows:
@@ -303,17 +454,8 @@ def data_parallel_value_and_grad(model, params, batch: dict, cfg, layout: TrainL
     the pieces of this rank's rows in each microbatch, summed over the
     batch axes.  ``params`` are global."""
     mesh, axes = layout.mesh, layout.batch_axes
-    n = batch[next(iter(batch))].shape[0]
-    lo, hi = layout.rows(n)
-    mb = n // accum
-    pieces = [(max(lo, i * mb), min(hi, (i + 1) * mb)) for i in range(accum)]
     dev = tree_leaves(params)[0].device
-    counts = torch.zeros(accum, dtype=torch.float32, device=dev)
-    for i, (a, b) in enumerate(pieces):
-        if a < b:
-            counts[i] = torch.sum(model.loss_mask({k: v[a:b] for k, v in batch.items()}))
-    all_reduce_sum(counts, mesh, axes)
-    denom = accum * torch.clamp(counts, min=1.0)
+    pieces, denom, _ = _microbatches(model, batch, layout, accum, dev)
     acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for i, (a, b) in enumerate(pieces):
@@ -358,6 +500,13 @@ def sharded_train_step(model, params, opt_state: dict, batch: dict, cfg, layout:
     if layout.edge_parallel > 1 and accum != 1:
         raise ValueError(f"accum {accum} with a GNN's edges split over {layout.edge_parallel} "
                          "ranks: a graph batch does not cut into microbatches")
+    if layout.tp_axes is not None:
+        loss, grads = sharded_lm_value_and_grad(params, batch, cfg, layout, accum)
+        grads, gn = clip_by_global_norm(grads, max_norm, mesh,
+                                      _split_axes(grads, layout.params))
+        params, opt_state = adamw_update(params, grads, opt_state, opt_cfg or AdamWConfig(),
+                                         lr_scale=lr_scale)
+        return params, opt_state, {"loss": loss, "grad_norm": gn}
     full = gather_tree(params, layout.params, layout.shapes, mesh)
     if layout.edge_parallel > 1:
         loss, grads = edge_parallel_value_and_grad(model, full, batch, cfg, layout)
@@ -539,7 +688,11 @@ def build_step(cell: Cell, mesh):
     cell's step keeps its node arrays whole on every rank and splits its
     edge lists (DimeNet's triplets) over the ``"edges"`` axes, whatever
     ``in_specs`` say of the nodes (``edge_parallel_value_and_grad``); its
-    parameters are whole under ``GNN_RULES``.  The serving steps gather the
+    parameters are whole under ``GNN_RULES``.  An LM train cell's step
+    computes on its blocks (``sharded_lm_value_and_grad``: FSDP over the
+    batch axes one layer at a time, heads, ff and vocab over ``model``, a
+    MoE layer's ``moe`` subtree gathered whole); SASRec's gathers every leaf
+    whole, its item table too.  The serving steps gather the
     parameters on every call; a server gathers them once, when it loads
     (``ServeLayout.load``), and calls the ``sharded_*_step`` below it, as
     ``Trainer`` calls ``sharded_train_step``.  Anywhere else ``fn`` is the

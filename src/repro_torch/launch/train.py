@@ -20,9 +20,15 @@ eagerly.  ``mesh=None`` (or a one-position ``ShardMesh``) trains on one
 device.  ``mesh=`` a ``ProcessMesh`` trains one rank a process: every rank
 builds the same ``Trainer`` and calls ``fit`` with the same arguments; the
 parameters and AdamW moments live as the rank's blocks under ``rules``
-(``launch.steps.sharded_train_step``).  A GNN under ``GNN_RULES`` keeps
-its parameters and its node arrays whole on every rank and splits its edge
-lists over the ``"edges"`` axes, one combine an aggregation.  There:
+(``launch.steps.sharded_train_step``).  The LM computes on its blocks:
+under ``LM_RULES`` a layer's leaves are gathered over ``data`` one layer
+at a time and their gradients reduce-scattered back, and heads, ff and
+vocab compute on their ``model`` blocks (a MoE layer's ``moe`` subtree is
+gathered whole), so no rank holds a whole leaf, gradient tree or the whole
+vocabulary's logits.  SASRec gathers its parameters whole each step, its
+item table too.  A GNN under ``GNN_RULES`` keeps its parameters and its
+node arrays whole on every rank and splits its edge lists over the
+``"edges"`` axes, one combine an aggregation.  There:
 
 * ``init_state`` draws the full init from the generator (bit for bit the
   one-device init) and keeps the rank's blocks;
@@ -48,6 +54,7 @@ Usage::
     mesh = make_process_mesh((2, 1), ("data", "model"))   # in every rank
     trainer = Trainer(sasrec, cfg, mesh=mesh, rules=RECSYS_RULES)
     trainer = Trainer(gin, gin_cfg, mesh=mesh, rules=GNN_RULES)
+    trainer = Trainer(transformer_lm, lm_cfg, mesh=mesh, rules=LM_RULES)
 """
 from __future__ import annotations
 

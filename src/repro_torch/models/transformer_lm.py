@@ -21,6 +21,7 @@ of them (the JAX package scans them).
   prefill(params, tokens, cfg, max_seq=)    → (last-position logits, caches)
   decode_step(params, caches, tok, pos, cfg) → (logits, caches)
   CacheSlice(lo, hi, max_seq, merge)        → a rank's slice of sharded caches
+  TrainShard(layer, enter, leave, ...)      → a rank's part of a sharded training forward
 
 A training forward (no caches, autograd recording) recomputes each layer
 in the backward, as the JAX package wraps each layer in ``jax.checkpoint``:
@@ -59,6 +60,27 @@ one-device prefill over ``max_seq`` rows (the rest are all masked and add
 exactly 0).  ``vocab=(lo, hi)`` gives the logits' columns [lo, hi) alone:
 the hidden state times those rows of the tied embedding.  Without a slice
 every path is the one-device path.
+
+A training forward on a process mesh (``shard=TrainShard(...)``, built by
+``launch.steps``; this module imports nothing of ``distributed``):
+``params["embed"]`` is the rank's vocabulary rows of the tied embedding
+(``shard.lookup`` reads them) and ``params["final_norm"]`` the whole norm,
+both gathered once a step; a layer's leaves come from ``shard.layer(key, i,
+names)``, gathered one layer at a time inside the checkpointed function, so
+the recompute gathers them again.  A layer runs as two checkpointed halves,
+attention and FFN, each returning the rank's partial of its output, which
+``shard.leave`` sums outside the checkpoint (the recompute runs no
+all-reduce).  Column-parallel products (``wq``, ``wk``, ``wv``, the qkv
+biases, ``w_gate``, ``w_up``, MLA's ``wq``, ``w_uk``, ``w_uv``) take
+``shard.enter`` of their input, row-parallel ones (``wo``, ``w_down``) give
+partials; the head counts are read from the gathered weights' widths.  MLA's
+latent rows and their rope part enter after ``w_dkv`` and ``kv_norm``,
+which every rank computes whole.  A MoE layer's ``moe`` subtree is gathered
+whole and runs on the microbatch's rows of every rank (``shard.tokens``),
+so its capacity and routing are the one-device step's; the rank keeps
+``shard.rows`` of its output.  The logits are the rank's vocabulary columns
+and ``shard.xent`` their cross-entropy.  ``shard=None`` runs the one-device
+ops.
 
 Not here yet: a sliding window at decode (no configuration sets
 ``window``; the decode kernel raises on it).
@@ -261,6 +283,28 @@ class CacheSlice:
         return min(max(pos + 1 - self.lo, 0), self.hi - self.lo)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainShard:
+    """A rank's part of a training forward on a process mesh (module note):
+    ``layer(key, i, names, whole=())`` the subtrees ``names`` of layer i of
+    the stack ``key`` gathered over the batch axes, and ``whole`` gathered
+    over every axis; ``enter`` / ``leave`` a tensor-parallel group's entry
+    (identity, its gradient summed) and exit (the partials summed);
+    ``lookup(rows, ids)`` the embedding of global ids from the rank's rows
+    of the tied embedding, whole on every rank; ``xent(logits, targets)``
+    the per-position cross-entropy of the rank's float32 logit columns;
+    ``tokens(h)`` a microbatch's rows (B, ...) from every rank of the batch
+    axes, of which this rank's are ``rows``."""
+
+    layer: Callable
+    enter: Callable
+    leave: Callable
+    lookup: Callable
+    xent: Callable
+    tokens: Callable
+    rows: tuple
+
+
 def _attend(q, k, v, cfg: LMConfig, pos, causal_skip=None):
     return gqa_attention(
         q, k, v, causal=True, q_offset=0 if pos is None else pos, kv_block=cfg.kv_block,
@@ -309,27 +353,32 @@ def _mla_kv(p, ckv, kr, cfg: LMConfig):
     """K (B, S, H, dn + dr) and V (B, S, H, dv) materialised from latent
     rows, the rope part of K broadcast over the heads."""
     B, Skv, _ = ckv.shape
-    H, dn, dr, dv = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    H = p["w_uk"].shape[-1] // dn
     k_nope = (ckv @ p["w_uk"]).reshape(B, Skv, H, dn)
     v = (ckv @ p["w_uv"]).reshape(B, Skv, H, dv)
     return torch.cat([k_nope, kr[:, :, None, :].expand(B, Skv, H, dr)], dim=-1), v
 
 
-def _mla_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None, part=None):
+def _mla_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None, part=None,
+                 shard=None):
     """MLA attention.  With a cache, the new latent rows are first written
     into ``cache["ckv"]`` (B, Smax, r) and ``cache["kr"]`` (B, Smax, dr) at
     ``pos`` in place; K and V are then materialised from the whole cache.
     With a ``CacheSlice`` ``part`` (module note) a decode step materialises
     them from the slice's valid rows and merges ``partial_attention``'s
-    partials; a prefill attends over its own rows."""
+    partials; a prefill attends over its own rows.  With a ``TrainShard``
+    the rank's heads give a partial of the output."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr, dv, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
-    q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
+    H = p["wq"].shape[-1] // (dn + dr)
+    q = ((x if shard is None else shard.enter(x)) @ p["wq"]).reshape(B, S, H, dn + dr)
     q = torch.cat([q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)], dim=-1)
     ckv_kr = x @ p["w_dkv"]
     ckv = rms_norm(ckv_kr[..., :r], p["kv_norm"])
     kr = apply_rope(ckv_kr[..., r:], positions, cfg.rope_theta)
+    if shard is not None:
+        ckv, kr = shard.enter(ckv), shard.enter(kr)
     if part is not None:
         _write_slice(cache, {"ckv": ckv, "kr": kr}, pos, part.lo)
         if S == 1:
@@ -349,18 +398,22 @@ def _mla_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None, part=None
 
 
 def _attn_forward(p, x, cfg: LMConfig, positions, cache=None, pos=None,
-                  attention: Callable | None = None, lengths=None, part=None):
+                  attention: Callable | None = None, lengths=None, part=None, shard=None):
     """The attention block's output.  GQA: with a cache, the new K/V rows
     are first written into ``cache["k"/"v"]`` (B, Smax, Hkv, Dh) at ``pos``
     in place, and the whole cache is attended to.  ``attention(q[:, 0],
     k_cache, v_cache, lengths)`` is the single-token attention of a decode
     step; without it, ``gqa_attention`` attends.  With a ``CacheSlice``
     ``part`` the rows go into the slice and a decode step merges
-    ``attention(..., return_lse=True)``'s partials (module note)."""
+    ``attention(..., return_lse=True)``'s partials (module note).  With a
+    ``TrainShard`` the rank's heads give a partial of the output."""
     if cfg.attn == "mla":
-        return _mla_forward(p, x, cfg, positions, cache, pos, part)
+        return _mla_forward(p, x, cfg, positions, cache, pos, part, shard)
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    Dh = cfg.d_head
+    H, Hkv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
+    if shard is not None:
+        x = shard.enter(x)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -407,18 +460,51 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_block(p, x, cfg: LMConfig, positions, moe_block: bool):
-    """``_block`` of a training forward, recomputed in the backward."""
+def _remat(cfg: LMConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward under ``cfg.remat_policy``."""
     if cfg.remat_policy == "dots":
         context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-        return checkpoint(_block, p, x, cfg, positions, moe_block, use_reentrant=False,
-                          context_fn=context)
-    return checkpoint(_block, p, x, cfg, positions, moe_block, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _remat_block(p, x, cfg: LMConfig, positions, moe_block: bool):
+    """``_block`` of a training forward, recomputed in the backward."""
+    return _remat(cfg, _block, p, x, cfg, positions, moe_block)
+
+
+def _attn_half(x, cfg: LMConfig, positions, shard: TrainShard, key: str, i: int):
+    """A sharded layer's attention half: its leaves gathered, the rank's
+    partial of the attention output."""
+    p = shard.layer(key, i, ("pre_attn", "attn"))
+    return _attn_forward(p["attn"], rms_norm(x, p["pre_attn"]), cfg, positions, shard=shard)
+
+
+def _ffn_half(x, cfg: LMConfig, moe_block: bool, shard: TrainShard, key: str, i: int):
+    """A sharded layer's FFN half: the rank's partial of a SwiGLU's output,
+    or a MoE layer's whole output at the rank's rows."""
+    if not moe_block:
+        p = shard.layer(key, i, ("pre_ffn", "ffn"))
+        return swiglu(p["ffn"], shard.enter(rms_norm(x, p["pre_ffn"])))
+    p = shard.layer(key, i, ("pre_ffn",), whole=("moe",))
+    h = shard.tokens(rms_norm(x, p["pre_ffn"]))
+    B, S, d = h.shape
+    out = moe_ffn(p["moe"], h.reshape(B * S, d), cfg.moe_cfg()).reshape(B, S, d)
+    return out[shard.rows[0]:shard.rows[1]]
+
+
+def _sharded_block(x, cfg: LMConfig, positions, moe_block: bool, shard: TrainShard, key: str,
+                   i: int, remat: bool):
+    """Layer i of the stack ``key`` on a process mesh (module note)."""
+    run = functools.partial(_remat, cfg) if remat else lambda fn, *a: fn(*a)
+    x = x + shard.leave(run(_attn_half, x, cfg, positions, shard, key, i))
+    out = run(_ffn_half, x, cfg, moe_block, shard, key, i)
+    return x + (out if moe_block else shard.leave(out))
 
 
 def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = None,
             attention: Callable | None = None, collect_cache: bool = False,
-            cache_slice: CacheSlice | None = None):
+            cache_slice: CacheSlice | None = None, shard: TrainShard | None = None):
     """tokens (B, S) → ``(hidden (B, S, d), caches)``; with ``caches`` the
     cache rows of positions ``pos .. pos+S-1`` are written into them in
     place (``caches`` comes back), else ``caches`` is None.
@@ -434,15 +520,20 @@ def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = Non
     ``cache_slice`` (with ``caches`` the rank's slices): a decode step
     (S = 1) or a prefill from position 0; the lengths are the slice's
     (``CacheSlice.length``) and ``attention`` is called with
-    ``return_lse=True`` (module note)."""
+    ``return_lse=True`` (module note).
+
+    ``shard`` (no caches): a training forward on a process mesh (module
+    note); the hidden state comes back whole on every rank."""
     B, S = tokens.shape
+    if shard is not None and caches is not None:
+        raise ValueError("a sharded training forward takes no caches")
     if cache_slice is not None and (caches is None or (S > 1 and pos != 0)):
         raise ValueError("a cache slice takes caches, and a prefill into it starts at 0")
     if collect_cache and caches is None:
         if pos not in (None, 0):
             raise ValueError("collect_cache without caches starts at position 0")
         caches, pos = make_cache(cfg, B, S, device=tokens.device), 0
-    x = params["embed"][tokens]
+    x = params["embed"][tokens] if shard is None else shard.lookup(params["embed"], tokens)
     base = 0 if pos is None else pos
     positions = base + torch.arange(S, device=tokens.device)[None, :]
     lengths = None
@@ -460,6 +551,9 @@ def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = Non
     for key, cache_key, n, moe_block in _stacks(cfg):
         stack = None if caches is None else caches[cache_key]
         for i in range(n):
+            if shard is not None:
+                x = _sharded_block(x, cfg, positions, moe_block, shard, key, i, remat)
+                continue
             lp = layer_params(params[key], i)
             if remat:
                 x = _remat_block(lp, x, cfg, positions, moe_block)
@@ -470,24 +564,32 @@ def forward(params, tokens, cfg: LMConfig, *, caches=None, pos: int | None = Non
     return rms_norm(x, params["final_norm"]), caches
 
 
-def logits_from_hidden(params, x, cfg: LMConfig, vocab: tuple[int, int] | None = None):
+def logits_from_hidden(params, x, cfg: LMConfig, vocab: tuple[int, int] | None = None,
+                       shard: TrainShard | None = None):
     """Logits of the tied embedding; ``vocab=(lo, hi)``: columns [lo, hi)
-    alone, from those rows of the embedding."""
+    alone, from those rows of the embedding.  With a ``TrainShard`` the
+    embedding is already the rank's rows: its columns alone."""
+    if shard is not None:
+        return shard.enter(x) @ params["embed"].T
     embed = params["embed"] if vocab is None else params["embed"][vocab[0]:vocab[1]]
     return x @ embed.T
 
 
-def loss_terms(params, batch: dict, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def loss_terms(params, batch: dict, cfg: LMConfig,
+               shard: TrainShard | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(sum, count)`` of the causal-LM cross-entropy over the unmasked
     positions of ``batch = {"tokens", "targets"}`` (B, S) integer ids: the
     logits taken in float32, a target ``< 0`` masked out.  A sharded step
-    adds both terms over the ranks before it divides."""
-    x, _ = forward(params, batch["tokens"], cfg)
-    logits = logits_from_hidden(params, x, cfg).float()
+    adds both terms over the ranks before it divides; with ``shard`` the
+    logits are the rank's columns (module note)."""
+    x, _ = forward(params, batch["tokens"], cfg, shard=shard)
+    logits = logits_from_hidden(params, x, cfg, shard=shard).float()
+    mask = loss_mask(batch)
+    if shard is not None:
+        return torch.sum(shard.xent(logits, batch["targets"]) * mask), torch.sum(mask)
     lse = torch.logsumexp(logits, dim=-1)
     targets = batch["targets"].long()
     tgt = torch.gather(logits, -1, targets.clamp(min=0)[..., None])[..., 0]
-    mask = loss_mask(batch)
     return torch.sum((lse - tgt) * mask), torch.sum(mask)
 
 
